@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+It takes no arguments and runs every phase, in order (a failure in any
+exits nonzero and prints no result line):
+
+* kernels -- builds the hand-written CUDA kernels from ``src/repro_torch/
+  kernels/csrc`` and holds each against its plain PyTorch version on the card,
+  bit for bit, at the main path's shapes; times kernel, plain version and the
+  nearest library call, beside the memory bound.
+* a -- the quickstart configuration (8 workers, 600 events, asgd and dgs) on
+  the card and on the CPU from the same weights and numpy batches; bytes,
+  losses and accuracy must agree within the stated tolerances.
+* b -- full width: the 10.5M-parameter MLP (512-2048-2304-2048-10), 100
+  workers, dgs at density 0.001 with the blockwise engine on both sides,
+  96 events.  Every kernel's launch counter must rise; losses are finite and
+  the wire bytes are the static frame sizes.  Prints events/s, the per-stage
+  split and peak memory.
+
+The last two lines are the kernel table and the result, each one JSON object.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+# device memory rate by card, bytes/s (NVIDIA data sheets)
+HBM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12,
+            "H200": 4.8e12}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_rate(name: str) -> float:
+    for key in sorted(HBM_RATE, key=len, reverse=True):
+        if key in name:
+            return HBM_RATE[key]
+    raise RuntimeError(f"no memory rate known for {name!r}")
+
+
+class Timer:
+    """Median CUDA-event time of one call, L2 flushed before each call."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn, reps: int = 15, warm: int = 2) -> float:
+        torch = self.torch
+        for _ in range(warm):
+            fn()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+def kernel_phase(torch, timer, rate, results):
+    from repro_torch.arith import fma
+    from repro_torch.kernels import block_topk, samomentum_kernel, scatter_apply
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = {}
+
+    def compare(name, got, want):
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
+                                     f"{w.shape}/{w.dtype}")
+            if not torch.equal(g, w):
+                bad = int((g != w).sum())
+                raise AssertionError(f"{name}: {bad} elements differ")
+            if g.is_floating_point():
+                err = float((g.double() - w.double()).abs().max())
+                errs[name.split("/")[0]] = max(errs.get(name.split("/")[0],
+                                                        0.0), err)
+        errs.setdefault(name.split("/")[0], 0.0)
+        log(f"  {name}: bit-equal")
+
+    # 1. scatter-add at the arena size, k = density 0.001 of every tensor
+    n, k = 10_512_650, 10_514
+    dense = torch.randn(n, generator=gen, device="cuda")
+    idx = torch.randperm(n, generator=gen, device="cuda")[:k].to(torch.int32)
+    vals = torch.randn(k, generator=gen, device="cuda")
+    dup = idx.clone()
+    dup[::3] = dup[0]            # planted duplicates, summed in order
+    dup[1::7] = 123
+    for name, ii in (("scatter_add/unique", idx), ("scatter_add/dups", dup)):
+        a = scatter_apply.scatter_add_(dense.clone(), ii, vals)
+        b = scatter_apply.scatter_add_plain(dense.clone(), ii, vals)
+        compare(name, (a,), (b,))
+    d1, d2, d3 = dense.clone(), dense.clone(), dense.clone()
+    ms = timer(lambda: scatter_apply.scatter_add_(d1, idx, vals))
+    plain_ms = timer(lambda: scatter_apply.scatter_add_plain(d2, idx, vals))
+    lib_ms = timer(lambda: d3.index_add_(0, idx, vals))
+    # k indices + k values read, k target words read and written
+    nbytes = 4 * k + 4 * k + 8 * k
+    results.append(dict(
+        name=scatter_apply.INFO.name, route="cuda",
+        source=scatter_apply.INFO.source, replaces=scatter_apply.INFO.replaces,
+        max_abs_err=errs["scatter_add"], ms=ms, plain_ms=plain_ms,
+        bound_ms=nbytes / rate * 1e3, bound_by="bytes", library_ms=lib_ms))
+
+    # 2. block top-r on the 4,718,592-element leaf (w1 / w2 of the MLP)
+    n2 = 2304 * 2048
+    x = torch.randn(n2, generator=gen, device="cuda")
+    x[::7] = 0.5                  # planted magnitude ties
+    x[3::11] = -0.5
+    x[1024:2048] = 0.0            # an all-zero block
+    x2d = x.reshape(-1, block_topk.BLOCK)
+    for r in (4, 32, 1024):
+        compare(f"block_topk/r={r}", block_topk.block_topk_2d(x2d, r=r),
+                block_topk.block_topk_plain(x2d, r))
+    timings = {}
+    for r in (32, 1024):
+        timings[r] = (
+            timer(lambda: block_topk.block_topk_2d(x2d, r=r)),
+            timer(lambda: block_topk.block_topk_plain(x2d, r)),
+            timer(lambda: torch.topk(x2d.abs(), r, dim=1)))
+        nb = x2d.shape[0]
+        log(f"  block_topk r={r}: kernel {timings[r][0]:.4f} ms, plain "
+            f"{timings[r][1]:.4f} ms, torch.topk {timings[r][2]:.4f} ms, "
+            f"bound {(4 * n2 + 8 * nb * r) / rate * 1e3:.4f} ms")
+    nb = x2d.shape[0]
+    ms, plain_ms, lib_ms = timings[1024]
+    results.append(dict(
+        name=block_topk.INFO.name, route="cuda", source=block_topk.INFO.source,
+        replaces=block_topk.INFO.replaces, max_abs_err=errs["block_topk"],
+        ms=ms, plain_ms=plain_ms,
+        bound_ms=(4 * n2 + 8 * nb * 1024) / rate * 1e3, bound_by="bytes",
+        library_ms=lib_ms))
+
+    # 3. fused SAMomentum on the same leaf, thr planted on an element
+    u = torch.randn(n2, generator=gen, device="cuda")
+    g = torch.randn(n2, generator=gen, device="cuda")
+    m, lr = 0.7, 0.05
+    uacc = fma(m, u, lr * g)
+    thr = uacc[12345].abs().reshape(1)     # one element sits exactly on it
+    compare("samomentum_fused/(u,g,lr)",
+            samomentum_kernel.samomentum_fused_flat(u, g, thr, momentum=m,
+                                                    lr=lr),
+            samomentum_kernel.samomentum_plain(u, g, thr, momentum=m, lr=lr))
+    compare("samomentum_fused/(uacc,uacc,1-m)",
+            samomentum_kernel.samomentum_fused_flat(uacc, uacc, thr,
+                                                    momentum=m, lr=1.0 - m),
+            samomentum_kernel.samomentum_plain(uacc, uacc, thr, momentum=m,
+                                               lr=1.0 - m))
+    ms = timer(lambda: samomentum_kernel.samomentum_fused_flat(
+        uacc, uacc, thr, momentum=m, lr=1.0 - m))
+    plain_ms = timer(lambda: samomentum_kernel.samomentum_plain(
+        uacc, uacc, thr, momentum=m, lr=1.0 - m))
+    # the (uacc, uacc) call reads one array: 4 bytes in, 8 out per element
+    results.append(dict(
+        name=samomentum_kernel.INFO.name, route="cuda",
+        source=samomentum_kernel.INFO.source,
+        replaces=samomentum_kernel.INFO.replaces,
+        max_abs_err=errs["samomentum_fused"], ms=ms, plain_ms=plain_ms,
+        bound_ms=12 * n2 / rate * 1e3, bound_by="bytes", library_ms=None))
+    for row in results:
+        log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
+            f"bound {row['bound_ms']:.5f} ms")
+
+
+# ---------------------------------------------------------------------------
+# phase A: the quickstart configuration, card against CPU
+# ---------------------------------------------------------------------------
+
+def _blobs(rng, centers, n, noise):
+    y = rng.integers(0, centers.shape[0], n)
+    x = centers[y] + noise * rng.normal(size=(n, centers.shape[1]))
+    return x.astype(np.float32), y.astype(np.int64)
+
+
+def phase_a(torch):
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import async_sim, make_strategy
+    from repro_torch.models.mlp import MLP
+
+    rng = np.random.default_rng(0)
+    params_np = {"w1": (rng.normal(size=(64, 64)) * 0.18).astype(np.float32),
+                 "b1": np.zeros(64, np.float32),
+                 "w2": (rng.normal(size=(64, 10)) * 0.18).astype(np.float32),
+                 "b2": np.zeros(10, np.float32)}
+    centers = rng.normal(size=(10, 64))
+    pool = [_blobs(rng, centers, 32, 0.8) for _ in range(600)]
+    evx, evy = _blobs(rng, centers, 1024, 0.8)
+    sched = async_sim.make_schedule(8, 600, seed=1, hetero=0.8)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = MLP((64, 64, 10), start=1, device=dev)
+        batches = [(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+                   for x, y in pool]
+        ev = (torch.from_numpy(evx).to(dev), torch.from_numpy(evy).to(dev))
+        for name, kw in (("asgd", {}),
+                         ("dgs", {"density": 0.01, "momentum": 0.7})):
+            tr = async_sim.AsyncTrainer(make_strategy(name, **kw),
+                                        model.grad_fn, 8, lr=0.1, device=dev)
+            t0 = time.perf_counter()
+            final, _, hist = tr.run(params_from_numpy(params_np, dev), sched,
+                                    lambda e, k: batches[e])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            acc = model.accuracy(final, ev)
+            out[dev, name] = (hist, acc)
+            log(f"  {dev:4s} {name:4s} acc={acc:.4f} up={hist.up_bytes} "
+                f"down={hist.down_bytes} loss[-1]={hist.losses[-1]:.6f} "
+                f"{600 / dt:.1f} events/s")
+    for name in ("asgd", "dgs"):
+        (hg, ag), (hc, ac) = out["cuda", name], out["cpu", name]
+        if name == "dgs":
+            # sparse frames are static: bytes must be identical
+            if (hg.up_bytes, hg.down_bytes) != (hc.up_bytes, hc.down_bytes):
+                raise AssertionError(f"dgs bytes differ: "
+                                     f"{hg.up_bytes, hg.down_bytes} vs "
+                                     f"{hc.up_bytes, hc.down_bytes}")
+        else:
+            # dense frames count nonzeros, which the two devices' roundings
+            # may move by a few exact zeros
+            for a, b in ((hg.up_bytes, hc.up_bytes),
+                         (hg.down_bytes, hc.down_bytes)):
+                if abs(a - b) > 1e-3 * b:
+                    raise AssertionError(f"asgd bytes differ >0.1%: {a} {b}")
+        # matmul reductions run in another order on the card, so losses
+        # drift by float32 rounding; 40 events keep that inside 1e-4
+        np.testing.assert_allclose(hg.losses[:40], hc.losses[:40], rtol=1e-4)
+        # over 600 events rounding flips a few top-k choices and the runs
+        # diverge slightly; the models must still classify alike
+        if abs(ag - ac) > 0.03:
+            raise AssertionError(f"{name}: accuracy {ag} vs {ac}")
+        log(f"  {name}: card and CPU agree (bytes, losses[:40] rtol 1e-4, "
+            f"accuracy {ag:.4f} vs {ac:.4f})")
+
+
+# ---------------------------------------------------------------------------
+# phase B: full width on the card, through the kernels
+# ---------------------------------------------------------------------------
+
+def phase_b(torch, results):
+    from repro_torch import kernels
+    from repro_torch.cluster import wire
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import async_sim, make_strategy
+    from repro_torch.core.engine import CompressionSpec
+    from repro_torch.core.paramspace import ParamSpace
+    from repro_torch.models.mlp import MLP
+
+    dims = (512, 2048, 2304, 2048, 10)
+    n_workers, n_events, cap = 100, 1_000_000, 96
+    rng = np.random.default_rng(0)
+    params_np = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        params_np[f"w{i}"] = (rng.normal(size=(a, b)).astype(np.float32)
+                              * np.float32((2.0 / a) ** 0.5))
+        params_np[f"b{i}"] = np.zeros(b, np.float32)
+    params0 = params_from_numpy(params_np, "cuda")
+    space = ParamSpace.from_tree(params0)
+    log(f"  model: {space.total} parameters in {space.n_leaves} tensors")
+    t0 = time.perf_counter()
+    sched = async_sim.make_schedule(n_workers, n_events, seed=7,
+                                    hetero=0.8)[:cap]
+    log(f"  schedule of {n_events} events: "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    centers = rng.normal(size=(10, 512))
+    pool = []
+    for _ in range(cap):
+        x, y = _blobs(rng, centers, 8, 1.0)
+        pool.append((torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()))
+    model = MLP(dims, device="cuda")
+    strat = make_strategy("dgs", density=0.001, momentum=0.7,
+                          quantize="int8", engine="blockwise")
+    sspec = CompressionSpec(engine="blockwise", block_r=32)
+    tr = async_sim.AsyncTrainer(strat, model.grad_fn, n_workers, lr=0.05,
+                                secondary_density=0.001, secondary_spec=sspec)
+    batch_fn = lambda e, k: pool[e]  # noqa: E731
+
+    tr.run(params0, sched[:8], batch_fn)          # warm-up (lazy set-up)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    final, sstate, hist = tr.run(params0, sched, batch_fn)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {info.name: info.launches for info in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {cap} events in {dt:.3f} s: {cap / dt:.2f} events/s "
+        f"(worker and server state set-up included)")
+    log(f"  launches: {launches} ({ {k: v / cap for k, v in launches.items()} }"
+        f" per event)")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB")
+    for row in results:
+        row["launches"] = launches[row["name"]]
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    if not np.all(np.isfinite(hist.losses)):
+        raise AssertionError("non-finite loss")
+    up = cap * wire.frame_bytes_static(space.ks(0.001), space.total, "int8")
+    down = cap * wire.frame_bytes_static(space.ks(0.001), space.total, "none")
+    if (hist.up_bytes, hist.down_bytes) != (up, down):
+        raise AssertionError(f"bytes {hist.up_bytes, hist.down_bytes} != "
+                             f"{up, down}")
+    for key, t in final.items():
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite parameter {key}")
+    log(f"  losses first/last {hist.losses[0]:.5f} / {hist.losses[-1]:.5f}; "
+        f"up {hist.up_bytes} B, down {hist.down_bytes} B (static frames)")
+    del final, sstate
+
+    # per-stage split: the same stage functions as run(), replayed with
+    # CUDA events between them (an instrumented copy of run's loop)
+    stages = ("client", "quantize_up", "server", "quantize_down", "commit",
+              "apply")
+    spent = {s: 0.0 for s in stages}
+    sstate, workers = tr.init(params0)
+    client = async_sim.make_client_step(tr.strategy, tr.grad_fn, space)
+    server = async_sim.make_server_step(tr.secondary_density, sspec)
+    commit, apply_g = async_sim.make_commit(), async_sim.make_apply()
+    up_seg = space.ks(0.001)
+
+    def replay(e):
+        """One event through the stages; returns CUDA events between them."""
+        nonlocal sstate
+        k = int(sched[e])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        wst, loss, msg = client(workers[k]["theta"], workers[k]["strat"],
+                                pool[e], tr.lr)
+        ev[1].record()
+        msg = wire.quantize_message(msg, "int8", seg=up_seg)
+        ev[2].record()
+        sstate, G = server(sstate, msg, k)
+        ev[3].record()
+        G = wire.quantize_message(G, "none", seg=up_seg)
+        ev[4].record()
+        sstate = commit(sstate, k, G)
+        ev[5].record()
+        workers[k]["theta"] = apply_g(workers[k]["theta"], G)
+        workers[k]["strat"] = wst
+        ev[6].record()
+        return ev
+
+    n_replay = min(32, cap)
+    for e in range(n_replay):
+        ev = replay(e)
+        ev[6].synchronize()
+        for i, s in enumerate(stages):
+            spent[s] += ev[i].elapsed_time(ev[i + 1])
+    total = sum(spent.values())
+    log(f"  per-event stage split over {n_replay} replayed events "
+        f"(ms/event, CUDA events; a stage the host enqueues slower than the "
+        f"card runs it shows its enqueue time): " + ", ".join(
+            f"{s} {spent[s] / n_replay:.3f}" for s in stages)
+        + f"; sum {total / n_replay:.3f}")
+
+    # device busy share and kernel time by name over a short window
+    from torch.profiler import ProfilerActivity, profile
+    window = range(n_replay, min(n_replay + 8, cap))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for e in window:
+            replay(e)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side rows only (kernels, copies, fills): an aten op's row also
+    # carries the time of the kernels it launched, and would count it twice
+    rows = [(a.self_device_time_total, a.key) for a in prof.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CUDA
+            and a.self_device_time_total > 0]
+    busy_us = sum(t for t, _ in rows)
+    if busy_us == 0:
+        log("  profiler: no device time recorded (busy share not measured)")
+    else:
+        log(f"  profiler over {len(window)} events: device busy "
+            f"{busy_us / 1e3 / len(window):.3f} ms/event of "
+            f"{wall * 1e3 / len(window):.3f} ms/event wall "
+            f"({busy_us / 1e6 / wall:.3f} busy share)")
+        for t, key in sorted(rows, reverse=True)[:10]:
+            log(f"    {t / 1e3 / len(window):8.3f} ms/event  {key[:90]}")
+    del sstate, workers
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = torch.cuda.get_device_name(0)
+    log(f"card: {smi.stdout.strip()}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.library()
+    log(f"kernels built in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {build.BUILD_SECONDS:.2f} s)")
+    rate = card_rate(card)
+    timer = Timer(torch)
+
+    results: list = []
+    failed = []
+    for phase, fn in (("kernels", lambda: kernel_phase(torch, timer, rate,
+                                                       results)),
+                      ("a", lambda: phase_a(torch)),
+                      ("b", lambda: phase_b(torch, results))):
+        log(f"== phase {phase}")
+        t0 = time.perf_counter()
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except Exception as exc:  # report every phase, then fail
+            import traceback
+            traceback.print_exc()
+            failed.append(f"{phase}: {exc!r}")
+        log(f"== phase {phase}: {time.perf_counter() - t0:.1f} s")
+    # every kernel row needs its launch count from phase B's main-path run
+    if len(results) != 3 or any("launches" not in row for row in results):
+        failed.append("kernel rows lack the main path's launch counts")
+    if failed:
+        print("chip_smoke FAILED: " + "; ".join(failed), file=sys.stderr)
+        return 1
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+                                  for row in results]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,147 @@
+"""Top-k gradient sparsification primitives (PyTorch port of
+``repro.core.sparsify``).
+
+The paper selects "the top (100-R)% of |v|" per parameter tensor; as in the
+reference, that is a static ``k = max(1, round(density * size))`` per tensor
+and a fixed-size ``(values, indices)`` pair.
+
+Ties: ``lax.top_k`` breaks ties toward the lower index, ``torch.topk``
+promises no order.  Every exact selection here is therefore a STABLE
+descending sort (:func:`topk_indices`), which gives the lower index first.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.arith import fma, rcp
+
+
+class SparseLeaf(NamedTuple):
+    """Fixed-size sparse representation of one flattened tensor."""
+
+    values: torch.Tensor   # (k,) same dtype as source
+    indices: torch.Tensor  # (k,) int32 into the flattened tensor
+    size: int              # number of elements in the dense tensor
+
+    @property
+    def k(self) -> int:
+        return self.values.shape[-1]
+
+
+def density_to_k(size: int, density: float) -> int:
+    """Static number of kept elements for a tensor of ``size`` elements."""
+    if not (0.0 < density <= 1.0):
+        raise ValueError(f"density must be in (0, 1], got {density}")
+    return max(1, min(size, int(round(size * density))))
+
+
+def topk_indices(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k largest ``keys`` along the last axis, ties to the
+    lower position (``lax.top_k``'s order), as int64."""
+    return torch.sort(keys, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
+def topk_select(x: torch.Tensor, k: int) -> SparseLeaf:
+    """Exact top-k by magnitude over the flattened tensor."""
+    flat = x.reshape(-1)
+    idx = topk_indices(flat.abs(), k)
+    return SparseLeaf(values=flat[idx], indices=idx.to(torch.int32),
+                      size=flat.shape[0])
+
+
+def topk_threshold(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th largest |x| (elements with |x| >= thr are the top-k)."""
+    return torch.topk(x.reshape(-1).abs(), k).values[-1]
+
+
+def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean mask selecting exactly the top-k |x| positions (ties broken
+    by index order, matching ``lax.top_k``)."""
+    flat = x.reshape(-1)
+    mask = torch.zeros(flat.shape, dtype=torch.bool, device=flat.device)
+    mask[topk_indices(flat.abs(), k)] = True
+    return mask.reshape(x.shape)
+
+
+def sampled_threshold(x: torch.Tensor, density: float, *,
+                      sample_size: int = 65536) -> torch.Tensor:
+    """Estimate the top-``density`` magnitude threshold from a strided
+    subsample (DGC).  The ceil stride makes the sample span the whole
+    tensor.  (The reference's random-key sample has no counterpart: no
+    caller of this slice passes a key.)"""
+    flat = x.reshape(-1).abs()
+    n = flat.shape[0]
+    s = min(sample_size, n)
+    stride = -(-n // s)
+    sample = flat[::stride]
+    ks = max(1, int(round(sample.shape[0] * density)))
+    return torch.topk(sample, ks).values[-1]
+
+
+# ---------------------------------------------------------------------------
+# Wire quantization of sparse values
+# ---------------------------------------------------------------------------
+
+QUANTIZE_BITS = {"none": 32, "bf16": 16, "int8": 8, "tern": 2}
+
+
+def _tern_sum(x: torch.Tensor) -> torch.Tensor:
+    """Float32 sum of the tern scale.  On the CPU it is taken left to right,
+    the order in which XLA's CPU reduction adds short vectors (up to about
+    20 elements), so short segments match the reference bit for bit;
+    longer ones XLA reorders, and there the scale agrees to a tolerance.
+    A tensor on the card is summed there, by torch's own reduction, with
+    no copy to the host and no sync."""
+    if x.device.type != "cpu":
+        return x.sum()
+    total = np.cumsum(x.detach().numpy(), dtype=np.float32)[-1:]
+    return torch.from_numpy(total).reshape(())
+
+
+def quantize_parts(values: torch.Tensor, mode: str):
+    """(codes, scale, dequantized) -- THE quantization arithmetic.
+
+    none  -- float32 passthrough; codes == values
+    bf16  -- bfloat16 wire; codes are the bf16 values
+    int8  -- symmetric per-message int8 with one f32 scale
+    tern  -- TernGrad-style {-1, 0, +1} * mean|v| over the nonzeros
+    """
+    values = values.to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=values.device)
+    if mode == "none":
+        return values, zero, values
+    if mode == "bf16":
+        b = values.to(torch.bfloat16)
+        return b, zero, b.to(torch.float32)
+    if mode == "int8":
+        # XLA: max / 127 + 1e-12  ->  fma(max, 1/127, 1e-12)
+        scale = fma(values.abs().max(), rcp(127.0), 1e-12)
+        q = torch.clamp(torch.round(values / scale), -127, 127)
+        return q.to(torch.int8), scale, q * scale
+    if mode == "tern":
+        nnz = torch.clamp((values != 0.0).sum(), min=1)
+        scale = _tern_sum(values.abs()) / nnz.to(torch.float32)
+        s = torch.sign(values)
+        return s.to(torch.int8), scale, s * scale
+    raise ValueError(f"unknown quantization mode {mode!r}")
+
+
+def quantize_dequantize(values: torch.Tensor, mode: str):
+    """Quantize sparse message values for the wire; returns (dequantized
+    values, bits per value)."""
+    return quantize_parts(values, mode)[2], QUANTIZE_BITS[mode]
+
+
+def quantize_segments(values: torch.Tensor, mode: str, seg) -> torch.Tensor:
+    """Segment-wise wire quantization of a concatenated value vector: each
+    segment (one per parameter tensor) gets its own scale."""
+    if mode == "none":
+        return values
+    if len(seg) == 1:
+        return quantize_parts(values, mode)[2]
+    parts = [quantize_parts(part, mode)[2]
+             for part in torch.split(values, list(seg))]
+    return torch.cat(parts)

@@ -1,0 +1,53 @@
+"""Per-block top-r candidate selection -- kernel 2 of the port
+(``csrc/block_topk.cu``).
+
+Replaces the TPU's argmax-sweep kernel (``repro/kernels/block_topk.py``,
+``block_topk_2d``).  For each block of 1024 elements: the r largest |x|,
+ties to the lower index, as signed values and block-local indices.
+
+The wrapper takes a CPU tensor to :func:`block_topk_plain` and launches the
+kernel for a CUDA tensor; anything else raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+BLOCK = 1024     # elements per block
+GROUP = 8        # ops pads to whole groups of blocks, as the reference
+
+INFO = build.KernelInfo(
+    name="block_topk",
+    source="src/repro_torch/kernels/csrc/block_topk.cu",
+    replaces="src/repro/kernels/block_topk.py:34")
+
+
+def block_topk_plain(x2d: torch.Tensor, r: int):
+    """Plain PyTorch version: a stable descending sort of |x| per row, which
+    orders ties by index exactly as the argmax sweeps do."""
+    idx = torch.sort(x2d.abs(), dim=1, descending=True, stable=True)[1][:, :r]
+    return torch.gather(x2d, 1, idx), idx.to(torch.int32)
+
+
+def block_topk_2d(x2d: torch.Tensor, *, r: int):
+    """x2d: (nb, BLOCK) -> (vals (nb, r) x.dtype, idx (nb, r) int32 local
+    per-block indices).  CPU -> plain version, CUDA -> the kernel."""
+    if x2d.dim() != 2 or x2d.shape[1] != BLOCK:
+        raise ValueError(f"block_topk_2d: shape {tuple(x2d.shape)}, "
+                         f"expected (nb, {BLOCK})")
+    if not 1 <= r <= BLOCK:
+        raise ValueError(f"block_topk_2d: r={r} outside [1, {BLOCK}]")
+    if x2d.device.type == "cpu":
+        return block_topk_plain(x2d, r)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"block_topk_2d: no kernel for {x2d.device}")
+    build.require(x2d, "x2d", torch.float32, x2d.device)
+    nb = x2d.shape[0]
+    vals = torch.empty((nb, r), dtype=torch.float32, device=x2d.device)
+    idx = torch.empty((nb, r), dtype=torch.int32, device=x2d.device)
+    rc = build.library().block_topk(x2d.data_ptr(), vals.data_ptr(),
+                                    idx.data_ptr(), nb, r, build.stream())
+    build.check(rc, INFO.name)
+    INFO.launches += 1
+    return vals, idx

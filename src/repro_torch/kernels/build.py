@@ -1,0 +1,150 @@
+"""Builds the hand-written CUDA kernels into one shared library, at first use.
+
+Each ``csrc/*.cu`` exposes plain C functions and compiles on its own
+(``nvcc -c``, all sources at once, in parallel); one link step makes
+``build/kernels-<hash>/libreprotorch_kernels.so`` at the repository root,
+which ``ctypes`` loads.  The hash covers every source and the flags, so an
+edited source rebuilds and an unchanged one is reused.  Nothing here runs at
+import time: the CPU tests import every kernel module without ``nvcc``.
+
+Flags: ``sm_90a`` (Hopper), ``-O3`` and NO ``--use_fast_math``: the kernels'
+bit-equality with their plain versions rests on IEEE rounding and on the
+explicit ``__f*_rn`` intrinsics.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC"]
+LIB_NAME = "libreprotorch_kernels.so"
+
+
+@dataclasses.dataclass
+class KernelInfo:
+    """One kernel of the port: where it lives, what it replaces, and how
+    often its wrapper launched it (a plain counter, raised only at a
+    launch)."""
+
+    name: str
+    source: str     # path in the repository
+    replaces: str   # file:line of the TPU kernel
+    launches: int = 0
+
+
+_LIB = None
+BUILD_SECONDS: float | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return str(path)
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile (if needed) and return the path of the shared library."""
+    global BUILD_SECONDS
+    sources = sorted(CSRC.glob("*.cu"))
+    out_dir = BUILD_ROOT / f"kernels-{_digest(sources)}"
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        BUILD_SECONDS = 0.0
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    # per-process object names: concurrent first uses cannot clobber each
+    # other, and the library appears with one atomic rename
+    objs = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in sources]
+    procs = []
+    for src, obj in zip(sources, objs):
+        procs.append((src, subprocess.Popen(
+            [nvcc, *FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        if verbose and out:
+            print(out)
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out_dir / (LIB_NAME + f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *FLAGS, "-shared", "-o", str(tmp),
+         *[str(o) for o in objs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink()
+    BUILD_SECONDS = time.perf_counter() - t0
+    return lib
+
+
+def library():
+    """The loaded kernel library, built on first call, with every C
+    function's signature declared."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.scatter_add_sorted.argtypes = [p, i64, p, p, p, i64, p]
+        lib.block_topk.argtypes = [p, p, p, i64, ctypes.c_int, p]
+        lib.samomentum_fused.argtypes = [p, p, p, p, p, ctypes.c_float,
+                                         ctypes.c_float, ctypes.c_float,
+                                         i64, p]
+        for fn in (lib.scatter_add_sorted, lib.block_topk,
+                   lib.samomentum_fused):
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def stream() -> int:
+    """The current CUDA stream as a pointer-sized integer."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, device) -> None:
+    """Validate one kernel operand before its pointer leaves Python."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

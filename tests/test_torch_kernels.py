@@ -1,0 +1,260 @@
+"""The port's kernel modules on the CPU, against the JAX reference.
+
+On a CPU tensor every kernel wrapper runs its plain PyTorch version, and
+that version must equal the reference's Pallas kernel (interpret mode, as
+tests/test_kernels.py runs it) bit for bit: SAMomentum outputs, top-k
+values and indices, scatters.  The CUDA kernels themselves are held against
+these plain versions on the card by chip_smoke.py.
+"""
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import block_topk, build, samomentum_kernel
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import reset_launches, scatter_apply
+
+SHAPES = [(100,), (4096,), (333, 7), (8, 1024), (2, 3, 1000)]
+DTYPES = [np.float32, "bfloat16"]
+
+
+def _rng(*words):
+    return np.random.default_rng(zlib.crc32(repr(words).encode()))
+
+
+def _pair(x, dtype):
+    """The same values as a jax array and a torch tensor of ``dtype``."""
+    if dtype == "bfloat16":
+        t = torch.from_numpy(x).to(torch.bfloat16)
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16), t
+    return jnp.asarray(x), torch.from_numpy(x)
+
+
+def _np(a):
+    """float32 numpy of a jax array or torch tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy() if a.is_floating_point() else a.numpy()
+    return np.asarray(a, np.float32) if jnp.issubdtype(a.dtype,
+                                                       jnp.floating) \
+        else np.asarray(a)
+
+
+def _equal(t, j):
+    np.testing.assert_array_equal(_np(t), _np(j))
+
+
+# ------------------------------------------------------------ SAMomentum
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_samomentum_fused_bit_equal(shape, dtype):
+    rng = _rng("sam", shape, str(dtype))
+    ju, tu = _pair(rng.normal(size=shape).astype(np.float32), dtype)
+    jg, tg = _pair(rng.normal(size=shape).astype(np.float32), dtype)
+    for thr in (0.5, 0.0, 1e9):
+        jo, jn = jops.samomentum_fused(ju, jg, jnp.float32(thr),
+                                       momentum=0.7, lr=0.1)
+        to, tn = tops.samomentum_fused(tu, tg, thr, momentum=0.7, lr=0.1)
+        assert to.dtype == tu.dtype and to.shape == tu.shape
+        _equal(to, jo)
+        _equal(tn, jn)
+
+
+@pytest.mark.parametrize("m", [0.7, 0.9, 0.05094047])
+def test_samomentum_fused_uacc_uacc_call_and_planted_threshold(m):
+    """The blockwise step's call, (uacc, uacc, lr=1-m), with thr planted on
+    an element (the >= tie) -- evaluated, not shortcut to uacc."""
+    rng = _rng("uacc", m)
+    x = rng.normal(size=5000).astype(np.float32)
+    to, _ = tops.samomentum_fused(torch.from_numpy(x), torch.from_numpy(x),
+                                  0.0, momentum=m, lr=1.0 - m)
+    thr = float(abs(to[17]))
+    jo, jn = jops.samomentum_fused(jnp.asarray(x), jnp.asarray(x),
+                                   jnp.float32(thr), momentum=m, lr=1.0 - m)
+    to, tn = tops.samomentum_fused(torch.from_numpy(x), torch.from_numpy(x),
+                                   thr, momentum=m, lr=1.0 - m)
+    assert to[17] != 0
+    _equal(to, jo)
+    _equal(tn, jn)
+
+
+def test_samomentum_kernel_within_an_ulp_of_the_eager_oracle():
+    """ref.py runs op by op (one rounding each), the kernel in the fused
+    forms; they agree to rounding, away from the threshold."""
+    rng = _rng("oracle")
+    u = torch.from_numpy(rng.normal(size=4096).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=4096).astype(np.float32))
+    out, unew = tops.samomentum_fused(u, g, 0.5, momentum=0.7, lr=0.1)
+    r_out, r_unew, _ = tref.samomentum_ref(u, g, 0.5, momentum=0.7, lr=0.1)
+    np.testing.assert_allclose(out.numpy(), r_out.numpy(), rtol=3e-7,
+                               atol=1e-7)
+    np.testing.assert_allclose(unew.numpy(), r_unew.numpy(), rtol=3e-7,
+                               atol=1e-7)
+
+
+# ------------------------------------------------------------ block top-k
+
+def _planted(rng, shape):
+    x = rng.normal(size=shape).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[::7] = 0.5          # magnitude ties, both signs
+    flat[3::11] = -0.5
+    flat[: min(64, flat.size)] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("r", [1, 4, 16])
+def test_block_topk_candidates_bit_equal(shape, r):
+    x = _planted(_rng("bt", shape, r), shape)
+    jv, ji = jops.block_topk_candidates(jnp.asarray(x), r=r)
+    tv, ti = tops.block_topk_candidates(torch.from_numpy(x), r=r)
+    _equal(tv, jv)
+    _equal(ti, ji)
+    rv, ri = jref.block_topk_ref(jnp.asarray(x), block=1024, r=r)
+    _equal(tv[:rv.shape[0]], rv)      # the oracle pads to one block only
+    _equal(ti[:ri.shape[0]], ri)
+
+
+@pytest.mark.parametrize("n,k,r", [(512, 16, None), (3000, 64, None),
+                                   (8192, 128, None), (8192, 655, 32),
+                                   (5000, 40, 4)])
+def test_hierarchical_topk_bit_equal(n, k, r):
+    x = _planted(_rng("ht", n, k), (n,))
+    jv, ji = jops.hierarchical_topk(jnp.asarray(x), k=k, r=r)
+    tv, ti = tops.hierarchical_topk(torch.from_numpy(x), k=k, r=r)
+    _equal(tv, jv)
+    _equal(ti, ji)
+
+
+def test_block_topk_bf16_plain_matches_reference_oracle():
+    """bf16 input: the reference's Pallas kernel refuses bf16 in interpret
+    mode (it stores the f32 cast), so the oracle of ref.py is the bar."""
+    x = _planted(_rng("bf"), (3, 1024))
+    jx, tx = _pair(x, "bfloat16")
+    rv, ri = jref.block_topk_ref(jx, block=1024, r=8)
+    tv, ti = tops.block_topk_candidates(tx, r=8)
+    assert tv.dtype == torch.bfloat16
+    _equal(tv[:3], rv)
+    _equal(ti[:3], ri)
+
+
+# ------------------------------------------------------------ scatter-add
+
+@pytest.mark.parametrize("n,k", [(1000, 10), (5000, 200), (8192, 64),
+                                 (100000, 1000)])
+def test_scatter_add_unique_bit_equal(n, k):
+    rng = _rng("sc", n, k)
+    dense = rng.normal(size=n).astype(np.float32)
+    idx = rng.permutation(n)[:k].astype(np.int32)
+    vals = rng.normal(size=k).astype(np.float32)
+    want = jops.scatter_apply(jnp.asarray(dense), jnp.asarray(idx),
+                              jnp.asarray(vals))
+    got = tops.scatter_add(torch.from_numpy(dense.copy()),
+                           torch.from_numpy(idx), torch.from_numpy(vals))
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("cap", [None, 2])
+def test_scatter_add_duplicates_sum_in_update_order(cap):
+    rng = _rng("dup", cap)
+    n = 4096
+    dense = rng.normal(size=n).astype(np.float32)
+    idx = np.asarray([5, 5, 5, 5, 2100, 7, 5, 2100, 0], np.int32)
+    vals = (rng.normal(size=idx.size) * 1e3).astype(np.float32)
+    want = jops.scatter_apply(jnp.asarray(dense), jnp.asarray(idx),
+                              jnp.asarray(vals), cap=cap)
+    got = tops.scatter_add(torch.from_numpy(dense.copy()),
+                           torch.from_numpy(idx), torch.from_numpy(vals))
+    _equal(got, want)
+    _equal(got, jref.scatter_accumulate_ref(jnp.asarray(dense),
+                                            jnp.asarray(idx),
+                                            jnp.asarray(vals)))
+    # the order is ((d + v0) + v1) + ...: check one run by hand
+    acc = np.float32(dense[5])
+    for j in np.flatnonzero(idx == 5):
+        acc = np.float32(acc + vals[j])
+    assert got[5].item() == acc
+
+
+def test_scatter_add_row_bit_equal_and_in_place():
+    rng = _rng("row")
+    v = rng.normal(size=(4, 700)).astype(np.float32)
+    idx = rng.permutation(700)[:13].astype(np.int32)
+    vals = rng.normal(size=13).astype(np.float32)
+    want = jops.scatter_add_row(jnp.asarray(v), 2, jnp.asarray(idx),
+                                jnp.asarray(vals))
+    tv = torch.from_numpy(v.copy())
+    out = tops.scatter_add_row(tv, 2, torch.from_numpy(idx),
+                               torch.from_numpy(vals))
+    assert out is tv
+    _equal(tv, want)
+
+
+# ------------------------------------------------------------ oracles
+
+def test_ref_oracles_match_reference_oracles():
+    rng = _rng("ref")
+    u = rng.normal(size=3000).astype(np.float32)
+    g = rng.normal(size=3000).astype(np.float32)
+    for a, b in zip(tref.samomentum_ref(torch.from_numpy(u),
+                                        torch.from_numpy(g), 0.5,
+                                        momentum=0.7, lr=0.1),
+                    jref.samomentum_ref(jnp.asarray(u), jnp.asarray(g),
+                                        jnp.float32(0.5), momentum=0.7,
+                                        lr=0.1)):
+        _equal(a, b)
+    x = _planted(rng, (2500,))
+    for a, b in zip(tref.block_topk_ref(torch.from_numpy(x), block=1024, r=5),
+                    jref.block_topk_ref(jnp.asarray(x), block=1024, r=5)):
+        _equal(a, b)
+    idx = np.asarray([1, 1, 3], np.int32)
+    vals = np.asarray([1.0, 2.0, 4.0], np.float32)
+    out = tref.scatter_accumulate_ref(torch.zeros(8), torch.from_numpy(idx),
+                                      torch.from_numpy(vals))
+    np.testing.assert_array_equal(out.numpy(), [0, 3, 0, 4, 0, 0, 0, 0])
+
+
+# ------------------------------------------------------------ dispatch
+
+def test_cpu_tensors_take_the_plain_path_without_nvcc(monkeypatch):
+    """No kernel is built or counted for a CPU tensor."""
+    def no_build(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA build")
+
+    monkeypatch.setattr(build, "library", no_build)
+    monkeypatch.setattr(build, "build", no_build)
+    reset_launches()
+    x = torch.randn(3000)
+    tops.hierarchical_topk(x, k=10, r=4)
+    tops.samomentum_fused(x, x, 0.1, momentum=0.7, lr=0.3)
+    tops.scatter_add(x.clone(), torch.tensor([1, 2], dtype=torch.int32),
+                     torch.ones(2))
+    assert [info.launches for info in (scatter_apply.INFO, block_topk.INFO,
+                                       samomentum_kernel.INFO)] == [0, 0, 0]
+
+
+def test_other_devices_raise_and_never_fall_back():
+    x = torch.empty(1024, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        block_topk.block_topk_2d(x.reshape(1, 1024), r=4)
+    with pytest.raises(ValueError, match="no kernel"):
+        samomentum_kernel.samomentum_fused_flat(x, x, torch.empty(
+            1, device="meta"), momentum=0.7, lr=0.1)
+    with pytest.raises(ValueError, match="no kernel"):
+        scatter_apply.scatter_add_(x, torch.empty(3, dtype=torch.int32,
+                                                  device="meta"),
+                                   torch.empty(3, device="meta"))
+
+
+@pytest.mark.parametrize("shape,r", [((2, 512), 4), ((2, 1024), 0),
+                                     ((2, 1024), 1025)])
+def test_block_topk_rejects_bad_shapes(shape, r):
+    with pytest.raises(ValueError):
+        block_topk.block_topk_2d(torch.zeros(shape), r=r)
