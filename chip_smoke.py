@@ -15,9 +15,17 @@ exits nonzero and prints no result line):
   losses and accuracy must agree within the stated tolerances.
 * b -- full width: the 10.5M-parameter MLP (512-2048-2304-2048-10), 100
   workers, dgs at density 0.001 with the blockwise engine on both sides,
-  96 events.  Every kernel's launch counter must rise; losses are finite and
-  the wire bytes are the static frame sizes.  Prints events/s, the per-stage
-  split and peak memory.
+  96 events through the serial loop, ``AsyncTrainer.run``.  Every kernel's
+  launch counter must rise (the serial worker step is the row-wise one at
+  B = 1, so its support repair is kernel 4); losses are finite and the wire
+  bytes are the static frame sizes.  Prints events/s, the per-stage split
+  and peak memory.
+* c -- phase B's configuration, schedule and batches through the batched
+  loop, ``AsyncTrainer.run_batched`` with ``max_batch=16``, with a Recorder
+  and the metrics on.  It must be bit-equal to phase B's run (losses, final
+  params, M, v, bytes), and every kernel, kernel 4 included, must launch.
+  Prints events/s, the mean batch, launches per event, the host span
+  totals per stage and peak memory.
 
 The last two lines are the kernel table and the result, each one JSON object.
 """
@@ -178,6 +186,93 @@ def kernel_phase(torch, timer, rate, results):
         replaces=samomentum_kernel.INFO.replaces,
         max_abs_err=errs["samomentum_fused"], ms=ms, plain_ms=plain_ms,
         bound_ms=12 * n2 / rate * 1e3, bound_by="bytes", library_ms=None))
+
+    # 4. multi-row scatter-add at the batched commit's shapes: the
+    # (100, n) v, 16 distinct rows, k per row, duplicates in one row
+    from repro_torch.kernels import ops
+    n_rows, B = 100, 16
+    rows = np.random.default_rng(4).permutation(n_rows)[:B]
+    dense2d = torch.randn(n_rows, n, generator=gen, device="cuda")
+    idx2d = torch.stack([torch.randperm(n, generator=gen, device="cuda")[:k]
+                         for _ in range(B)]).to(torch.int32)
+    dup2d = idx2d.clone()
+    dup2d[3, ::5] = dup2d[3, 0]          # planted duplicates, summed in order
+    dup2d[3, 1::7] = 99
+    vals2d = torch.randn(B, k, generator=gen, device="cuda")
+    sel = torch.from_numpy(rows).cuda()
+    for name, ii in (("scatter_add_rows/unique", idx2d),
+                     ("scatter_add_rows/dups", dup2d)):
+        a = scatter_apply.scatter_add_rows_(dense2d.clone(), rows, ii, vals2d)
+        b = scatter_apply.scatter_add_rows_plain(dense2d.clone(), rows, ii,
+                                                 vals2d)
+        compare(name, (a[sel],), (b[sel],))
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: rows outside the batch differ")
+        del a, b
+    # timed on the unique indices of the main path (top-k supports)
+    rows_dev = sel[:, None].expand(B, k)
+    idx64 = idx2d.to(torch.int64)
+    ms = timer(lambda: scatter_apply.scatter_add_rows_(dense2d, rows, idx2d,
+                                                       vals2d))
+    plain_ms = timer(lambda: scatter_apply.scatter_add_rows_plain(
+        dense2d, rows, idx2d, vals2d))
+    lib_ms = timer(lambda: dense2d.index_put_((rows_dev, idx64), vals2d,
+                                              accumulate=True))
+    # the wrapper's parts: its per-row sort, and the launch alone on
+    # inputs sorted beforehand
+    from repro_torch.kernels import build
+    sidx, perm = torch.sort(idx2d, dim=1, stable=True)
+    sort_ms = timer(lambda: torch.sort(idx2d, dim=1, stable=True))
+    launch_ms = timer(lambda: build.library().scatter_add_rows_sorted(
+        dense2d.data_ptr(), n, sel.data_ptr(), sidx.data_ptr(),
+        perm.data_ptr(), vals2d.data_ptr(), B, k, build.stream()))
+    log(f"  scatter_add_rows ({B} rows, k={k}): wrapper {ms:.4f} ms = sort "
+        f"{sort_ms:.4f} ms + launch alone {launch_ms:.4f} ms + host work")
+    del dense2d
+    # B*k indices + B*k values read, B*k target words read and written
+    results.append(dict(
+        name=scatter_apply.ROWS_INFO.name, route="cuda",
+        source=scatter_apply.ROWS_INFO.source,
+        replaces=scatter_apply.ROWS_INFO.replaces,
+        max_abs_err=errs["scatter_add_rows"], ms=ms, plain_ms=plain_ms,
+        bound_ms=B * k * (4 + 4 + 8) / rate * 1e3, bound_by="bytes",
+        library_ms=lib_ms))
+
+    # the row-wise calls of kernels 2 and 3 at the batched worker step's
+    # shapes: 16 rows of the 4,718,592-element leaf, k = 4,719, r = 1024
+    xr = torch.randn(B, n2, generator=gen, device="cuda")
+    xr[:, ::7] = 0.5
+    xr[:, 3::11] = -0.5
+    k2 = 4719
+    singles = [ops.hierarchical_topk(xr[i], k=k2, r=1024) for i in range(B)]
+    compare("hierarchical_topk/rows vs 16 single rows",
+            ops.hierarchical_topk_rows(xr, k=k2, r=1024),
+            (torch.stack([v for v, _ in singles]),
+             torch.stack([i for _, i in singles])))
+    del singles
+    rows_ms = timer(lambda: ops.hierarchical_topk_rows(xr, k=k2, r=1024),
+                    reps=5)
+    single_ms = timer(lambda: [ops.hierarchical_topk(xr[i], k=k2, r=1024)
+                               for i in range(B)], reps=5)
+    log(f"  hierarchical_topk (16, {n2}), k={k2}, r=1024: rows "
+        f"{rows_ms:.4f} ms, 16 single calls {single_ms:.4f} ms")
+    nb2 = B * n2 // block_topk.BLOCK
+    bt_ms = timer(lambda: block_topk.block_topk_2d(
+        xr.view(-1, block_topk.BLOCK), r=1024))
+    log(f"  block_topk rows launch ({nb2}, 1024), r=1024: kernel "
+        f"{bt_ms:.4f} ms, bound {(4 * B * n2 + 8 * nb2 * 1024) / rate * 1e3:.4f}"
+        f" ms")
+    u2 = fma(m, xr, lr * torch.randn(B, n2, generator=gen, device="cuda"))
+    thr2 = u2[:, 777].abs().contiguous()   # one element per row sits on it
+    compare("samomentum_fused/rows, one threshold per row",
+            ops.samomentum_fused_rows(u2, u2, thr2, momentum=m, lr=1.0 - m),
+            samomentum_kernel.samomentum_plain(u2, u2, thr2[:, None],
+                                               momentum=m, lr=1.0 - m))
+    sam_rows_ms = timer(lambda: ops.samomentum_fused_rows(
+        u2, u2, thr2, momentum=m, lr=1.0 - m))
+    log(f"  samomentum_fused rows launch (16, {n2}): kernel "
+        f"{sam_rows_ms:.4f} ms, bound {12 * B * n2 / rate * 1e3:.4f} ms")
+    del xr, u2
     for row in results:
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
@@ -259,9 +354,16 @@ def phase_a(torch):
 # phase B: full width on the card, through the kernels
 # ---------------------------------------------------------------------------
 
-def phase_b(torch, results):
-    from repro_torch import kernels
-    from repro_torch.cluster import wire
+FULL_CAP = 96       # events of the full-width runs (run_big's own cap)
+# the kernel rows whose launch counts come from phase B; kernel 4's row
+# takes phase C's, the batched loop it was written for
+SERIAL_ROWS = ("scatter_add", "block_topk", "samomentum_fused")
+
+
+def _full_width(torch):
+    """Phase B's and phase C's shared set-up: the 10.5M-parameter MLP from
+    a seed, the first 96 events of run_big's schedule and their batches,
+    and the trainer.  Returns (space, params0, sched, batch_fn, trainer)."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import async_sim, make_strategy
     from repro_torch.core.engine import CompressionSpec
@@ -269,7 +371,7 @@ def phase_b(torch, results):
     from repro_torch.models.mlp import MLP
 
     dims = (512, 2048, 2304, 2048, 10)
-    n_workers, n_events, cap = 100, 1_000_000, 96
+    n_workers, n_events = 100, 1_000_000
     rng = np.random.default_rng(0)
     params_np = {}
     for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
@@ -278,15 +380,11 @@ def phase_b(torch, results):
         params_np[f"b{i}"] = np.zeros(b, np.float32)
     params0 = params_from_numpy(params_np, "cuda")
     space = ParamSpace.from_tree(params0)
-    log(f"  model: {space.total} parameters in {space.n_leaves} tensors")
-    t0 = time.perf_counter()
     sched = async_sim.make_schedule(n_workers, n_events, seed=7,
-                                    hetero=0.8)[:cap]
-    log(f"  schedule of {n_events} events: "
-        f"{time.perf_counter() - t0:.2f} s (host)")
+                                    hetero=0.8)[:FULL_CAP]
     centers = rng.normal(size=(10, 512))
     pool = []
-    for _ in range(cap):
+    for _ in range(FULL_CAP):
         x, y = _blobs(rng, centers, 8, 1.0)
         pool.append((torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()))
     model = MLP(dims, device="cuda")
@@ -295,7 +393,20 @@ def phase_b(torch, results):
     sspec = CompressionSpec(engine="blockwise", block_r=32)
     tr = async_sim.AsyncTrainer(strat, model.grad_fn, n_workers, lr=0.05,
                                 secondary_density=0.001, secondary_spec=sspec)
-    batch_fn = lambda e, k: pool[e]  # noqa: E731
+    return space, params0, sched, (lambda e, k: pool[e]), tr
+
+
+def phase_b(torch, results, ref):
+    """The serial loop at full width.  Leaves its results, on the host, in
+    ``ref`` for phase C to be held against."""
+    from repro_torch import kernels
+    from repro_torch.cluster import wire
+    from repro_torch.core import async_sim
+
+    space, params0, sched, batch_fn, tr = _full_width(torch)
+    cap, sspec = FULL_CAP, tr.secondary_spec
+    log(f"  model: {space.total} parameters in {space.n_leaves} tensors")
+    pool = [batch_fn(e, 0) for e in range(cap)]
 
     tr.run(params0, sched[:8], batch_fn)          # warm-up (lazy set-up)
     torch.cuda.synchronize()
@@ -313,7 +424,8 @@ def phase_b(torch, results):
         f" per event)")
     log(f"  peak device memory {peak / 2**30:.2f} GiB")
     for row in results:
-        row["launches"] = launches[row["name"]]
+        if row["name"] in SERIAL_ROWS:
+            row["launches"] = launches[row["name"]]
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
     if not np.all(np.isfinite(hist.losses)):
@@ -328,6 +440,8 @@ def phase_b(torch, results):
             raise AssertionError(f"non-finite parameter {key}")
     log(f"  losses first/last {hist.losses[0]:.5f} / {hist.losses[-1]:.5f}; "
         f"up {hist.up_bytes} B, down {hist.down_bytes} B (static frames)")
+    ref.update(final={key: t.cpu() for key, t in final.items()},
+               M=sstate.M.cpu(), v=sstate.v.cpu(), hist=hist)
     del final, sstate
 
     # per-stage split: the same stage functions as run(), replayed with
@@ -405,6 +519,82 @@ def phase_b(torch, results):
     del sstate, workers
 
 
+# ---------------------------------------------------------------------------
+# phase C: phase B's run through the batched loop
+# ---------------------------------------------------------------------------
+
+def phase_c(torch, results, ref):
+    """run_batched(max_batch=16) on phase B's configuration, schedule and
+    batches, with a Recorder and the metrics on; bit-equal to phase B."""
+    from repro_torch import kernels
+    from repro_torch.core import async_sim
+    from repro_torch.telemetry import Recorder
+
+    if "hist" not in ref:
+        raise AssertionError("phase B left no result to hold phase C to")
+    space, params0, sched, batch_fn, tr = _full_width(torch)
+    cap = FULL_CAP
+    batches = async_sim.batch_schedule(sched, max_batch=16)
+    log(f"  {len(batches)} batches of {[len(b) for b in batches]} events "
+        f"(mean {cap / len(batches):.2f})")
+    tr.run_batched(params0, sched[:16], batch_fn, max_batch=16)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trace_dir = ROOT / "build" / "phase_c_trace"
+    rec = Recorder(trace_dir)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    final, sstate, hist = tr.run_batched(params0, sched, batch_fn,
+                                         max_batch=16, recorder=rec,
+                                         metrics=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {info.name: info.launches for info in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    rec.close()
+    log(f"  {cap} events in {dt:.3f} s: {cap / dt:.2f} events/s "
+        f"(stacked worker and server state set-up included)")
+    log(f"  launches: {launches} ({ {k: v / cap for k, v in launches.items()} }"
+        f" per event)")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB")
+    spans: dict = {}
+    trace = json.loads((trace_dir / "trace.json").read_text())
+    for ev in trace["traceEvents"]:
+        if ev.get("ph") == "X":
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    log("  host span totals (ms, enqueue time: no sync inside the loop): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in spans.items())
+        + f"; sum {sum(spans.values()):.3f} of {dt * 1e3:.3f} wall")
+    for row in results:
+        if row["name"] not in SERIAL_ROWS:
+            row["launches"] = launches[row["name"]]
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    rows_launches = launches["scatter_add_rows"]
+    if rows_launches != len(batches) * (2 + space.n_leaves):
+        raise AssertionError(f"kernel 4 launched {rows_launches} times, not "
+                             f"once per commit, apply and leaf repair of "
+                             f"{len(batches)} batches")
+    want = ref["hist"]
+    if not np.array_equal(hist.losses, want.losses):
+        raise AssertionError("losses differ from phase B")
+    if (hist.up_bytes, hist.down_bytes) != (want.up_bytes, want.down_bytes):
+        raise AssertionError("bytes differ from phase B")
+    for key, t in final.items():
+        if not torch.equal(t.cpu(), ref["final"][key]):
+            raise AssertionError(f"final {key} differs from phase B")
+    for name, t in (("M", sstate.M), ("v", sstate.v)):
+        if not torch.equal(t.cpu(), ref[name]):
+            raise AssertionError(f"{name} differs from phase B")
+    md = hist.metrics
+    if md["n_events"] != cap or sum(md["update_mag_hist"]["counts"]) != cap:
+        raise AssertionError(f"metrics: {md}")
+    log("  bit-equal to phase B: losses, final params, M, v, bytes; metrics "
+        f"drained: {md['n_events']} events, staleness "
+        f"{md['staleness_hist']}")
+    del final, sstate
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -435,11 +625,13 @@ def main() -> int:
     timer = Timer(torch)
 
     results: list = []
+    ref: dict = {}
     failed = []
     for phase, fn in (("kernels", lambda: kernel_phase(torch, timer, rate,
                                                        results)),
                       ("a", lambda: phase_a(torch)),
-                      ("b", lambda: phase_b(torch, results))):
+                      ("b", lambda: phase_b(torch, results, ref)),
+                      ("c", lambda: phase_c(torch, results, ref))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()
         try:
@@ -450,8 +642,8 @@ def main() -> int:
             traceback.print_exc()
             failed.append(f"{phase}: {exc!r}")
         log(f"== phase {phase}: {time.perf_counter() - t0:.1f} s")
-    # every kernel row needs its launch count from phase B's main-path run
-    if len(results) != 3 or any("launches" not in row for row in results):
+    # every kernel row needs its launch count from its main-path run
+    if len(results) != 4 or any("launches" not in row for row in results):
         failed.append("kernel rows lack the main path's launch counts")
     if failed:
         print("chip_smoke FAILED: " + "; ".join(failed), file=sys.stderr)

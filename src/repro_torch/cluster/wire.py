@@ -31,8 +31,9 @@ ENVELOPE_BYTES = _ENVELOPE.size
 def quantize_message(msg, mode: str, seg=None):
     """Apply wire quantization to a message -- what the decoder on the far
     side reconstructs.  Sparse arena messages quantize per segment (one
-    scale per tensor; ``seg`` defaults to one segment); dense messages
-    travel f32 and pass through."""
+    scale per tensor; ``seg`` defaults to one segment); a stacked batch of
+    them, ``(B, k)`` values, quantizes each row with its own scales; dense
+    messages travel f32 and pass through."""
     if mode == "none" or not isinstance(msg, SparseLeaf):
         return msg
     if seg is None:

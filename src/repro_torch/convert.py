@@ -10,10 +10,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 
-def params_from_numpy(tree, device="cpu"):
+
+def params_from_numpy(tree, device=None):
     """Nested dict of numpy arrays -> nested dict of tensors on ``device``
-    (same values, same dtypes, sorted keys)."""
+    (None = the card, as every entry point of the port; same values, same
+    dtypes, sorted keys)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {key: params_from_numpy(tree[key], device)
                 for key in sorted(tree)}

@@ -1,11 +1,23 @@
 """Deterministic event-driven simulator for asynchronous PS training
-(PyTorch port of the serial loop of ``repro.core.async_sim``).
+(PyTorch port of ``repro.core.async_sim``).
 
 Every worker owns a local model arena and strategy state; a schedule of
 worker ids (from simulated heterogeneous speeds) fixes the order in which
 workers reach the server.  Each event runs four stages -- client compute,
 server receive + select, server commit, worker apply -- with the wire
 quantizer between them, exactly as the reference decomposes them.
+
+Two event loops share those stages:
+
+* ``AsyncTrainer.run``          -- serial: one event at a time.
+* ``AsyncTrainer.run_batched``  -- ``batch_schedule`` groups runs of
+  PAIRWISE-DISTINCT workers.  The client stage calls ``grad_fn`` once per
+  lane and then steps the whole batch's strategy rows at once (one launch
+  of each kernel per leaf); the server's receives and selects stay a
+  sequential loop (event i's select must see the M that events 0..i
+  left); the commits and the applies each fold the whole batch into their
+  distinct rows with ONE multi-row scatter (kernel 4).  Bit for bit equal
+  to the serial loop: losses, params, ``M``, ``v`` and bytes.
 
 Everything runs on ``AsyncTrainer.device``: the card unless the caller asks
 for the CPU (``device="cpu"``, as the tests do).  There is no silent
@@ -20,14 +32,17 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.cluster import wire
-from repro_torch.device import resolve_device
+from repro_torch.device import from_host, resolve_device
+from repro_torch.telemetry import metrics as metrics_lib
 
 from . import engine as engine_lib
 from . import server as ps
-from .baselines import Strategy
+from .baselines import Strategy, state_map, state_tensors
 from .engine import CompressionSpec
-from .paramspace import ParamSpace, tree_flatten, tree_unflatten
+from .paramspace import ParamSpace, tree_flatten, tree_leaves, tree_unflatten
+from .sparsify import SparseLeaf
 
 
 def make_schedule(n_workers: int, n_events: int, *, seed: int = 0,
@@ -59,6 +74,39 @@ def staleness_of(schedule, n_workers: int) -> np.ndarray:
     return out
 
 
+def batch_schedule(schedule, *, max_batch: int | None = None,
+                   cut_every: int | None = None) -> list[np.ndarray]:
+    """Group a schedule into batches of independent events.
+
+    A batch is a maximal run of CONSECUTIVE events with pairwise-distinct
+    workers, truncated to a power-of-two length: every event of it reads a
+    different worker model and commits to a different ``v`` row.
+    ``cut_every`` forces batch boundaries at multiples of that many events
+    (evaluation points); ``max_batch`` caps the batch size.  Invariant:
+    ``np.concatenate(batch_schedule(s)) == s``.  Pure numpy, identical to
+    the reference.
+    """
+    sched = np.asarray(schedule)
+    n = len(sched)
+    batches = []
+    i = 0
+    while i < n:
+        limit = n
+        if cut_every:
+            limit = min(limit, (i // cut_every + 1) * cut_every)
+        if max_batch is not None:
+            limit = min(limit, i + max_batch)
+        seen = set()
+        j = i
+        while j < limit and sched[j] not in seen:
+            seen.add(sched[j])
+            j += 1
+        size = 1 << ((j - i).bit_length() - 1)   # pow2 truncation
+        batches.append(sched[i:i + size])
+        i += size
+    return batches
+
+
 class History(NamedTuple):
     losses: np.ndarray          # (n_events,)
     worker_ids: np.ndarray      # (n_events,)
@@ -66,6 +114,40 @@ class History(NamedTuple):
     up_bytes: int               # total upward wire bytes
     down_bytes: int             # total downward wire bytes
     evals: list                 # [(event_idx, metric), ...]
+    # drained telemetry metrics when the run collected them, else None;
+    # the data plane is identical either way
+    metrics: dict | None = None
+
+
+def _jsonable(x):
+    """Best-effort scalarization of an eval metric for the JSONL log."""
+    try:
+        return float(x)
+    except (TypeError, ValueError):
+        return str(x)
+
+
+def _record_run_summary(rec, runner: str, hist: History,
+                        up_cost, down_cost, per_up, per_down) -> None:
+    """Emit the end-of-run JSONL summary: staleness and per-event wire-byte
+    histograms (host data only: the run is over, so this syncs nothing)."""
+    if not rec.enabled:
+        return
+    n = len(hist.losses)
+    if per_up is None:
+        per_up = np.full(n, up_cost if up_cost is not None else 0)
+    if per_down is None:
+        per_down = np.full(n, down_cost if down_cost is not None else 0)
+    rec.event(
+        "run_summary", runner=runner, n_events=n,
+        up_bytes=int(hist.up_bytes), down_bytes=int(hist.down_bytes),
+        loss_first=float(hist.losses[0]) if n else None,
+        loss_last=float(hist.losses[-1]) if n else None,
+        staleness_hist=metrics_lib.summarize_log2(hist.staleness),
+        up_bytes_hist=metrics_lib.summarize_log2(per_up),
+        down_bytes_hist=metrics_lib.summarize_log2(per_down),
+        metrics=hist.metrics,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +208,111 @@ def make_apply():
     return ps.apply_update
 
 
+# ---------------------------------------------------------------------------
+# Batched stages (run_batched).  Worker models and strategy states live
+# STACKED -- wp: (n_workers, total), each strategy tensor (n_workers, total)
+# -- and every stage takes the batch's worker ids as a host array (checked
+# distinct by the scatter wrapper) and, where it indexes rows on the device,
+# their device copy.  Each row of each stage's result is bit for bit what
+# the serial stage gives that event.
+# ---------------------------------------------------------------------------
+
+def make_batched_client_step(strategy: Strategy, grad_fn, space: ParamSpace):
+    """Client compute over a batch of distinct workers.
+
+    ``grad_fn`` runs once per lane (a torch-autograd grad_fn does not
+    batch, and a batched matmul would round otherwise than the serial
+    one), on a copy of the lane's model: the copy is laid out like the
+    serial loop's own theta, so a matmul library that picks its kernel by
+    operand alignment picks the same one.  The grads are packed into one
+    ``(B, total)`` buffer and ONE ``strategy.step_rows`` steps every lane;
+    the new strategy rows are written back in place.  Returns (stacked
+    state, losses (B,), RAW stacked upward message, per-lane nnz of a dense
+    message or None).
+    """
+    strategy = strip_quantize(strategy)
+    dense_msg = not strategy.sparse
+
+    def client(wp, ws, ids, ids_dev, batches, lrs):
+        g2d = torch.empty((len(ids), space.total), dtype=torch.float32,
+                          device=wp.device)
+        losses = []
+        for i, k in enumerate(ids):
+            theta = wp[int(k)].clone()
+            loss, grads = grad_fn(space.unpack(theta), batches[i])
+            torch.cat([leaf.reshape(-1).to(torch.float32)
+                       for leaf in tree_leaves(grads)], out=g2d[i])
+            losses.append(loss.detach())
+        st = state_map(lambda s: s.index_select(0, ids_dev), ws)
+        st, msgs = strategy.step_rows(st, g2d, lrs, space)
+        for dst, src in zip(state_tensors(ws), state_tensors(st)):
+            dst.index_copy_(0, ids_dev, src)
+        nnz = (msgs != 0.0).sum(dim=1) if dense_msg else None
+        return ws, torch.stack(losses), msgs, nnz
+
+    return client
+
+
+
+def make_batched_quantize(mode: str, seg):
+    """Row-wise wire quantization of a stacked sparse message (one scale
+    per row per segment), or None when it is a no-op (mode "none", or
+    dense messages, which travel f32)."""
+    if mode == "none" or seg is None:
+        return None
+    seg = tuple(int(s) for s in seg)
+    return lambda msgs: wire.quantize_message(msgs, mode, seg=seg)
+
+
+def make_batched_server_step(secondary_density, spec: CompressionSpec):
+    """Server over a whole batch: receive each message and select each RAW
+    downward message against the M its predecessors left -- a sequential
+    loop of the serial server stage, one scatter (kernel 1) and one select
+    per event.  The ``v`` rows it reads are untouched within the batch
+    (distinct workers).
+
+    Returns ``(sstate, G, M_rows)``: G the stacked raw downward batch;
+    ``M_rows`` the ``(B, total)`` stack of each event's M when the downward
+    message is dense (the commit snaps ``v_k`` to M as of that event), else
+    None.
+    """
+    server_step = server_step_fn(secondary_density, spec)
+    dense_down = secondary_density is None
+
+    def server_batch(sstate, msgs, ids):
+        Gs, M_rows = [], []
+        for i, k in enumerate(ids):
+            msg = msgs.row(i) if isinstance(msgs, SparseLeaf) else msgs[i]
+            sstate, G = server_step(sstate, msg, int(k))
+            Gs.append(G)
+            if dense_down:
+                M_rows.append(sstate.M.clone())
+        if dense_down:
+            return sstate, torch.stack(Gs), torch.stack(M_rows)
+        return sstate, SparseLeaf(
+            values=torch.stack([G.values for G in Gs]),
+            indices=torch.stack([G.indices for G in Gs]),
+            size=Gs[0].size), None
+
+    return server_batch
+
+
+
+def make_batched_commit(dense_down: bool):
+    """Batched commit: the SHIPPED batch into its ``v`` rows with ONE
+    multi-row scatter (``server.send_commit_rows``), in place.  The dense
+    variant takes the server stage's prefix ``M_rows`` and also returns
+    each event's downward nnz for the byte count."""
+    if dense_down:
+        def commit(sstate, ids, G, M_rows):
+            sstate = ps.send_commit_rows(sstate, ids, G, M_rows)
+            return sstate, (G != 0.0).sum(dim=1)
+    else:
+        def commit(sstate, ids, G):
+            return ps.send_commit_rows(sstate, ids, G)
+    return commit
+
+
 def _to_device(tree, device):
     leaves, paths = tree_flatten(tree)
     return tree_unflatten(paths, [l.to(device) for l in leaves])
@@ -163,9 +350,18 @@ class AsyncTrainer:
     def run(self, params0, schedule: np.ndarray,
             batch_fn: Callable[[int, int], Any], *,
             lr_fn: Callable[[int], float] | None = None,
-            eval_fn: Callable | None = None, eval_every: int = 0):
+            eval_fn: Callable | None = None, eval_every: int = 0,
+            recorder=None, metrics: bool = False):
         """Run the full schedule.  batch_fn(event_idx, worker_id) -> batch.
-        Returns (final params, server state, History)."""
+        Returns (final params, server state, History).
+
+        ``recorder`` (a :class:`repro_torch.telemetry.Recorder`) traces
+        per-event host spans and run events; ``metrics=True`` folds every
+        event into an on-device :class:`~repro_torch.telemetry.metrics.
+        MetricsState`, drained into ``History.metrics`` at the end.  Both
+        default off, and neither changes a data-plane bit.
+        """
+        rec = recorder if recorder is not None else telemetry.NULL
         params0 = _to_device(params0, self.device)
         space = ParamSpace.from_tree(params0)
         sstate, workers = self.init(params0)
@@ -190,19 +386,30 @@ class AsyncTrainer:
         up_bytes = down_bytes = 0
         evals = []
         stal = staleness_of(schedule, self.n_workers)
+        ms = metrics_lib.init(self.n_workers, self.device) if metrics else None
+        mstep = metrics_lib.make_metrics_step() if metrics else None
         for e, k in enumerate(schedule):
             k = int(k)
             lr = self.lr if lr_fn is None else float(lr_fn(e))
-            batch = batch_fn(e, k)
-            wst, loss, msg = client_step(
-                workers[k]["theta"], workers[k]["strat"], batch, lr)
-            msg = wire.quantize_message(msg, up_mode, seg=up_seg)
-            sstate, G = server_step(sstate, msg, k)
-            G = wire.quantize_message(G, down_mode, seg=down_seg)
-            sstate = commit(sstate, k, G)
-            workers[k]["theta"] = apply_G(workers[k]["theta"], G)
+            with rec.span("sim/batch_build", worker=k):
+                batch = batch_fn(e, k)
+            with rec.span("sim/client_step", worker=k):
+                wst, loss, msg = client_step(
+                    workers[k]["theta"], workers[k]["strat"], batch, lr)
+            with rec.span("sim/wire_quantize"):
+                msg = wire.quantize_message(msg, up_mode, seg=up_seg)
+            with rec.span("sim/server_step"):
+                sstate, G = server_step(sstate, msg, k)
+                G = wire.quantize_message(G, down_mode, seg=down_seg)
+            with rec.span("sim/commit"):
+                sstate = commit(sstate, k, G)
+            with rec.span("sim/apply"):
+                workers[k]["theta"] = apply_G(workers[k]["theta"], G)
             workers[k]["strat"] = wst
             losses.append(loss.detach())
+            if ms is not None:
+                # reads the SHIPPED messages only; no host sync
+                ms = mstep(ms, k, stal[e], msg, G)
             if up_cost is not None:
                 up_bytes += up_cost
             else:
@@ -212,15 +419,22 @@ class AsyncTrainer:
             else:
                 down_nnz.append(torch.count_nonzero(G))
             if eval_fn is not None and eval_every and (e + 1) % eval_every == 0:
-                evals.append((e + 1, eval_fn(ps.global_model(params0,
-                                                             sstate))))
+                with rec.span("sim/eval", event=e + 1):
+                    evals.append((e + 1, eval_fn(ps.global_model(params0,
+                                                                 sstate))))
+                rec.event("eval", event=e + 1, metric=_jsonable(evals[-1][1]),
+                          **({"metrics": metrics_lib.drain(ms)}
+                             if ms is not None else {}))
         final = ps.global_model(params0, sstate)
+        per_up = per_down = None
         if up_nnz:
-            up_bytes += int(np.sum(wire.ENVELOPE_BYTES + wire.dense_frame_bytes(
-                torch.stack(up_nnz).cpu().numpy(), space.total)))
+            per_up = wire.ENVELOPE_BYTES + wire.dense_frame_bytes(
+                torch.stack(up_nnz).cpu().numpy(), space.total)
+            up_bytes += int(np.sum(per_up))
         if down_nnz:
-            down_bytes += int(np.sum(wire.ENVELOPE_BYTES + wire.dense_frame_bytes(
-                torch.stack(down_nnz).cpu().numpy(), space.total)))
+            per_down = wire.ENVELOPE_BYTES + wire.dense_frame_bytes(
+                torch.stack(down_nnz).cpu().numpy(), space.total)
+            down_bytes += int(np.sum(per_down))
         hist = History(
             losses=torch.stack(losses).cpu().numpy().astype(np.float64),
             worker_ids=np.asarray(schedule),
@@ -228,5 +442,123 @@ class AsyncTrainer:
             up_bytes=up_bytes,
             down_bytes=down_bytes,
             evals=evals,
+            metrics=metrics_lib.drain(ms) if ms is not None else None,
         )
+        _record_run_summary(rec, "serial", hist, up_cost, down_cost,
+                            per_up, per_down)
+        return final, sstate, hist
+
+    def run_batched(self, params0, schedule: np.ndarray,
+                    batch_fn: Callable[[int, int], Any], *,
+                    lr_fn: Callable[[int], float] | None = None,
+                    eval_fn: Callable | None = None, eval_every: int = 0,
+                    max_batch: int | None = None, recorder=None,
+                    metrics: bool = False):
+        """Batched event loop, bit for bit equal to :meth:`run`.
+
+        ``batch_schedule`` groups runs of pairwise-distinct workers (cut at
+        the eval points, capped at ``max_batch``); each batch then costs
+        one client step over all its lanes, a loop of per-event server
+        steps, ONE multi-row commit and ONE multi-row apply.  Worker models
+        and strategy states live stacked -- ``(n_workers, total)`` arenas --
+        and are updated in place.  Losses, final params, ``M``, ``v`` and
+        the wire bytes match the serial loop on the same schedule.
+
+        ``recorder``/``metrics`` mirror :meth:`run`: host spans per batch,
+        one metrics fold per batch, no host sync, no data-plane change.
+        """
+        rec = recorder if recorder is not None else telemetry.NULL
+        params0 = _to_device(params0, self.device)
+        space = ParamSpace.from_tree(params0)
+        sstate = ps.init(params0, self.n_workers)
+        n = self.n_workers
+        wp = space.pack(params0).expand(n, -1).contiguous()
+        ws = state_map(lambda s: s.expand(n, *s.shape).contiguous(),
+                       self.strategy.init(params0))
+        client = make_batched_client_step(self.strategy, self.grad_fn, space)
+        server = make_batched_server_step(self.secondary_density,
+                                          self.secondary_spec)
+        dense_down = self.secondary_density is None
+        commit = make_batched_commit(dense_down)
+        up_mode = self.strategy.quantize
+        down_mode = self.secondary_spec.quantize
+        up_seg = self.strategy.message_seg(space)
+        down_seg = None if dense_down else space.ks(self.secondary_density)
+        q_up = make_batched_quantize(up_mode, up_seg)
+        q_down = make_batched_quantize(down_mode, down_seg)
+        up_cost = (wire.frame_bytes_static(up_seg, space.total, up_mode)
+                   if up_seg is not None else None)
+        down_cost = (wire.frame_bytes_static(down_seg, space.total, down_mode)
+                     if down_seg is not None else None)
+
+        batches = batch_schedule(schedule, max_batch=max_batch,
+                                 cut_every=eval_every or None)
+        stal = staleness_of(schedule, self.n_workers)
+        ms = metrics_lib.init(self.n_workers, self.device) if metrics else None
+        mstep = metrics_lib.make_metrics_step() if metrics else None
+        losses, up_nnz, down_nnz, evals = [], [], [], []
+        e = 0
+        for ids in batches:
+            b = len(ids)
+            lrs = np.asarray([self.lr if lr_fn is None else float(lr_fn(e + i))
+                              for i in range(b)], np.float32)
+            with rec.span("batched/batch_build", size=b):
+                data = [batch_fn(e + i, int(k)) for i, k in enumerate(ids)]
+            with rec.span("batched/client", size=b):
+                ids_dev = from_host(ids.astype(np.int64), self.device)
+                ws, batch_losses, msgs, nnz_up = client(
+                    wp, ws, ids, ids_dev, data, from_host(lrs, self.device))
+                if q_up is not None:
+                    msgs = q_up(msgs)
+            with rec.span("batched/server", size=b):
+                sstate, G, M_rows = server(sstate, msgs, ids)
+            with rec.span("batched/commit", size=b):
+                if dense_down:
+                    sstate, nnz_dn = commit(sstate, ids, G, M_rows)
+                    down_nnz.append(nnz_dn)
+                else:
+                    if q_down is not None:
+                        G = q_down(G)
+                    sstate = commit(sstate, ids, G)
+            with rec.span("batched/apply", size=b):
+                ps.apply_update_rows(wp, ids, G)
+            losses.append(batch_losses)
+            if ms is not None:
+                ms = mstep(ms, ids, stal[e:e + b], msgs, G)
+            if up_cost is None:
+                up_nnz.append(nnz_up)
+            e += b
+            if eval_fn is not None and eval_every and e % eval_every == 0:
+                with rec.span("batched/eval", event=e):
+                    evals.append((e, eval_fn(ps.global_model(params0,
+                                                             sstate))))
+                rec.event("eval", event=e, metric=_jsonable(evals[-1][1]),
+                          **({"metrics": metrics_lib.drain(ms)}
+                             if ms is not None else {}))
+        final = ps.global_model(params0, sstate)
+        n_events = len(schedule)
+        per_up = per_down = None
+        if up_cost is not None:
+            up_bytes = up_cost * n_events
+        else:
+            per_up = wire.ENVELOPE_BYTES + wire.dense_frame_bytes(
+                torch.cat(up_nnz).cpu().numpy(), space.total)
+            up_bytes = int(np.sum(per_up))
+        if down_cost is not None:
+            down_bytes = down_cost * n_events
+        else:
+            per_down = wire.ENVELOPE_BYTES + wire.dense_frame_bytes(
+                torch.cat(down_nnz).cpu().numpy(), space.total)
+            down_bytes = int(np.sum(per_down))
+        hist = History(
+            losses=torch.cat(losses).cpu().numpy().astype(np.float64),
+            worker_ids=np.asarray(schedule),
+            staleness=stal,
+            up_bytes=up_bytes,
+            down_bytes=down_bytes,
+            evals=evals,
+            metrics=metrics_lib.drain(ms) if ms is not None else None,
+        )
+        _record_run_summary(rec, "batched", hist, up_cost, down_cost,
+                            per_up, per_down)
         return final, sstate, hist

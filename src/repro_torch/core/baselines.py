@@ -3,12 +3,19 @@
 
 A strategy owns the worker-side state and the upward message:
 
-    init(params)                 -> state (arena tensors)
-    step(state, grads, lr)       -> (state', msg)
+    init(params)                      -> state (arena tensors)
+    step_rows(state, g2d, lrs, space) -> (state', msg)
+    step(state, grads, lr)            -> (state', msg)
 
-``msg`` is one global-index SparseLeaf over the packed arena (sparse
-strategies, per-tensor top-k through ``core/engine.py``) or one dense flat
-``(total,)`` tensor (ASGD), and always includes the learning rate.
+``step_rows`` steps a batch of workers at once, the port's counterpart of
+the reference's ``vmap(strategy.step)``: every state tensor and the packed
+grads ``g2d`` are stacked ``(B, total)``, ``lrs`` holds one float32
+learning rate per row, and ``msg`` is a global-index SparseLeaf with
+``(B, k)`` values/indices over the packed arena (sparse strategies,
+per-tensor top-k through ``core/engine.py``) or a dense ``(B, total)``
+stack (ASGD); it always includes the learning rate.  ``step`` is one
+worker's step, ``step_rows`` at B = 1, so the serial and the batched event
+loop run one code path.
 """
 from __future__ import annotations
 
@@ -23,10 +30,31 @@ from . import engine as engine_lib
 from . import samomentum
 from .engine import CompressionSpec
 from .paramspace import ParamSpace, tree_flatten, tree_unflatten
+from .sparsify import SparseLeaf
 
 
 class StrategyState(NamedTuple):
     inner: Any  # strategy-specific arena tensors
+
+
+def state_tensors(state) -> list:
+    """The tensors of a strategy state (nested NamedTuples), in order."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, tuple):
+        return [t for part in state for t in state_tensors(part)]
+    return []
+
+
+def state_map(fn, state):
+    """The strategy state with ``fn`` applied to each of its tensors."""
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    if isinstance(state, tuple):
+        parts = [state_map(fn, part) for part in state]
+        return type(state)(*parts) if hasattr(state, "_fields") \
+            else tuple(parts)
+    return state
 
 
 def _zeros(params) -> torch.Tensor:
@@ -59,8 +87,20 @@ class Strategy:
     def init(self, params) -> StrategyState:
         raise NotImplementedError
 
-    def step(self, state: StrategyState, grads, lr: float):
+    def step_rows(self, state: StrategyState, g2d: torch.Tensor,
+                  lrs: torch.Tensor, space: ParamSpace):
         raise NotImplementedError
+
+    def step(self, state: StrategyState, grads, lr: float):
+        """One worker's step on a gradient tree: :meth:`step_rows` at
+        B = 1.  Returns (new state, msg over the ``(total,)`` arena)."""
+        space = ParamSpace.from_tree(grads)
+        g = space.pack(grads)
+        lrs = torch.full((1,), lr, dtype=torch.float32, device=g.device)
+        state, msg = self.step_rows(state_map(lambda t: t[None], state),
+                                    g[None], lrs, space)
+        msg = msg.row(0) if isinstance(msg, SparseLeaf) else msg[0]
+        return state_map(lambda t: t[0], state), msg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,9 +124,8 @@ class ASGD(Strategy):
     def init(self, params):
         return StrategyState(inner=())
 
-    def step(self, state, grads, lr):
-        space = ParamSpace.from_tree(grads)
-        return state, lr * space.pack(grads)
+    def step_rows(self, state, g2d, lrs, space):
+        return state, lrs.reshape(-1, 1) * g2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,11 +139,11 @@ class GDAsync(_SparseStrategy):
     def init(self, params):
         return StrategyState(inner=_zeros(params))
 
-    def step(self, state, grads, lr):
-        space = ParamSpace.from_tree(grads)
-        r = fma(lr, space.pack(grads), state.inner)   # r + lr * g, fused
-        msg = space.select(r, space.ks(self.density), self.spec)
-        r[msg.indices.to(torch.int64)] = 0.0          # r is this step's own
+    def step_rows(self, state, g2d, lrs, space):
+        r = fma(lrs.reshape(-1, 1), g2d, state.inner)   # r + lr * g, fused
+        msg = space.select_rows(r, space.ks(self.density), self.spec)
+        # r is this step's own tensor, so it is zeroed in place
+        r.scatter_(1, msg.indices.to(torch.int64), 0.0)
         return StrategyState(inner=r), msg
 
 
@@ -127,23 +166,26 @@ class DGCAsync(_SparseStrategy):
         return StrategyState(inner=_DGCState(velocity=_zeros(params),
                                              residual=_zeros(params)))
 
-    def step(self, state, grads, lr):
-        space = ParamSpace.from_tree(grads)
-        g = space.pack(grads)
+    def step_rows(self, state, g2d, lrs, space):
+        g = g2d
         if self.clip_norm is not None:
-            gnorm = torch.sqrt(sum(torch.sum(v ** 2)
-                                   for v in space.views(g)))
-            g = g * torch.clamp(self.clip_norm / (gnorm + 1e-12), max=1.0)
+            # each row's norm is the reference's sum of leaf sums
+            gnorm = torch.stack([
+                torch.sqrt(sum(torch.sum(v ** 2) for v in space.views(row)))
+                for row in g])
+            g = g * torch.clamp(self.clip_norm / (gnorm + 1e-12),
+                                max=1.0)[:, None]
         # u = m*u + lr*g.  XLA picks per program which product it fuses:
         # the reference's serial DGC step fuses lr*g, fma(lr, g, m*u) (its
         # batched step does not -- the reference's own 1-ulp serial/batched
-        # disagreement), so the port follows the serial step here
-        u = fma(lr, g, self.momentum * state.inner.velocity)
+        # disagreement), so the port follows the serial step
+        u = fma(lrs.reshape(-1, 1), g, self.momentum * state.inner.velocity)
         r = state.inner.residual + u
-        msg = space.select(r, space.ks(self.density), self.spec)
+        msg = space.select_rows(r, space.ks(self.density), self.spec)
         sent = msg.indices.to(torch.int64)
-        u[sent] = 0.0    # momentum factor masking; u, r are new tensors
-        r[sent] = 0.0
+        # momentum factor masking; u and r are this step's own tensors
+        u.scatter_(1, sent, 0.0)
+        r.scatter_(1, sent, 0.0)
         return StrategyState(inner=_DGCState(velocity=u, residual=r)), msg
 
 
@@ -159,9 +201,9 @@ class DGS(_SparseStrategy):
     def init(self, params):
         return StrategyState(inner=samomentum.init(params))
 
-    def step(self, state, grads, lr):
-        msg, new_sam = samomentum.tree_update(
-            state.inner, grads, momentum=self.momentum, lr=lr,
+    def step_rows(self, state, g2d, lrs, space):
+        msg, new_sam = samomentum.tree_update_rows(
+            state.inner, g2d, space, momentum=self.momentum, lrs=lrs,
             density=self.density, spec=self.spec)
         return StrategyState(inner=new_sam), msg
 
@@ -180,8 +222,8 @@ class DGSPlain(_SparseStrategy):
     def init(self, params):
         return self._delegate().init(params)
 
-    def step(self, state, grads, lr):
-        return self._delegate().step(state, grads, lr)
+    def step_rows(self, state, g2d, lrs, space):
+        return self._delegate().step_rows(state, g2d, lrs, space)
 
 
 def msgd_step(params, velocity, grads, *, lr: float, momentum: float):

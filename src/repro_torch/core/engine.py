@@ -17,8 +17,14 @@ Three engines share the semantics contract of ``kernels/ref.py``:
 ``engine="auto"`` picks exact below ``sampled_threshold_above`` elements and
 sampled at or above it.  The reference's ``interpret`` knob has no
 counterpart: the device of the tensor decides between kernel and plain
-version.  The row-wise selectors (``select_rows``) serve the mesh exchange
-and wait for that slice.
+version.
+
+Every engine selects row-wise (``select_rows``, ``(S, n)`` -> per-row
+top-k), the counterpart of the reference's ``vmap`` over rows: the batched
+event loop runs its whole batch through one call, and the blockwise engine
+then launches each kernel once for all rows.  The flat ``select`` and the
+serial SAMomentum steps are the row-wise ones at B = 1, so the serial and
+the batched loop share one code path and cannot drift apart in their bits.
 """
 from __future__ import annotations
 
@@ -33,9 +39,9 @@ from .sparsify import (
     SparseLeaf,
     quantize_dequantize,
     quantize_segments,
-    sampled_threshold,
+    quantize_rows,
+    sampled_threshold_rows,
     topk_indices,
-    topk_select,
 )
 
 
@@ -72,12 +78,18 @@ EXACT_SPEC = CompressionSpec(engine="exact")
 
 @runtime_checkable
 class SelectionEngine(Protocol):
-    """One way of computing a top-k support: flat (n,) -> SparseLeaf of
-    exactly k entries."""
+    """One way of computing a top-k support.
+
+    select(x, k)        flat (n,) -> SparseLeaf of exactly k entries
+    select_rows(x2d, k) (S, n)    -> (vals (S, k), idx (S, k) int32, local
+                                      per-row indices)
+    """
 
     name: str
 
     def select(self, x: torch.Tensor, k: int) -> SparseLeaf: ...
+
+    def select_rows(self, x2d: torch.Tensor, k: int): ...
 
 
 ENGINES: dict[str, type] = {}
@@ -97,6 +109,13 @@ def get_engine(name: str, spec: CompressionSpec = DEFAULT_SPEC
         raise ValueError(
             f"unknown engine {name!r}; have {sorted(ENGINES)} + 'auto'")
     return cls.from_spec(spec)
+
+
+def _select_flat(eng, x, k: int) -> SparseLeaf:
+    """An engine's flat ``select``: its ``select_rows`` at B = 1."""
+    flat = x.reshape(-1)
+    vals, idx = eng.select_rows(flat[None], k)
+    return SparseLeaf(values=vals[0], indices=idx[0], size=flat.shape[0])
 
 
 def resolve_engine(spec: CompressionSpec, size: int) -> SelectionEngine:
@@ -122,8 +141,11 @@ class ExactEngine:
     def from_spec(cls, spec: CompressionSpec):
         return cls()
 
-    def select(self, x, k):
-        return topk_select(x, k)
+    select = _select_flat
+
+    def select_rows(self, x2d, k):
+        idx = topk_indices(x2d.abs(), k)
+        return torch.gather(x2d, 1, idx), idx.to(torch.int32)
 
 
 def _threshold_compact_rows(x2d, thr, k: int, *, cap_factor: int = 4):
@@ -172,13 +194,12 @@ class SampledEngine:
     def from_spec(cls, spec: CompressionSpec):
         return cls(sample_size=spec.sample_size)
 
-    def select(self, x, k):
-        flat = x.reshape(-1)
-        thr = sampled_threshold(flat, k / flat.shape[0],
-                                sample_size=self.sample_size)
-        vals, idx = _threshold_compact_rows(flat[None], thr.reshape(1, 1), k)
-        return SparseLeaf(values=vals[0], indices=idx[0],
-                          size=flat.shape[0])
+    select = _select_flat
+
+    def select_rows(self, x2d, k):
+        thr = sampled_threshold_rows(x2d, k / x2d.shape[1],
+                                     sample_size=self.sample_size)
+        return _threshold_compact_rows(x2d, thr[:, None], k)
 
 
 @register_engine
@@ -210,29 +231,30 @@ class BlockwiseEngine:
             return None
         return r
 
-    def select(self, x, k):
+    select = _select_flat
+
+    def select_rows(self, x2d, k):
         from repro_torch.kernels import ops
 
-        flat = x.reshape(-1)
-        n = flat.shape[0]
+        n = x2d.shape[1]
         r = self._plan(n, k)
         if r is None:
-            return topk_select(flat, k)
-        vals, idx = ops.hierarchical_topk(flat, k=k, r=r)
+            return ExactEngine().select_rows(x2d, k)
+        vals, idx = ops.hierarchical_topk_rows(x2d, k=k, r=r)
         # _plan guarantees >= k real candidates, so idx < n; the clamp is
         # decode safety only
-        return SparseLeaf(values=vals,
-                          indices=idx.clamp(max=n - 1).to(torch.int32),
-                          size=n)
+        return vals, idx.clamp(max=n - 1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
 # SAMomentum on top of a selection -- THE single rescale implementation
 # ---------------------------------------------------------------------------
 
-def velocity_accumulate(u, g, *, momentum: float, lr: float):
+def velocity_accumulate(u, g, *, momentum: float, lr):
     """Paper Eq. (11): u <- m * u + eta * g, as ``fma(m, u, eta * g)``
-    (the reference's rounding, see ``repro_torch.arith``)."""
+    (the reference's rounding, see ``repro_torch.arith``).  ``lr`` is a
+    float, or a float32 tensor that broadcasts against ``g`` (one learning
+    rate per row of the batched loop)."""
     return fma(momentum, u, lr * g)
 
 
@@ -250,66 +272,38 @@ def support_mask(indices, size: int):
     return mask
 
 
-def quantize_leaf(leaf: SparseLeaf, mode: str) -> SparseLeaf:
-    """Wire-quantize one message leaf's values (indices untouched)."""
+def rows_support_mask(idx, n: int):
+    """Boolean (S, n) mask from per-row index sets (S, k)."""
+    mask = torch.zeros((idx.shape[0], n), dtype=torch.bool,
+                       device=idx.device)
+    return mask.scatter_(1, idx.to(torch.int64), True)
+
+
+def _maybe_quantize_rows(vals, mode: str):
+    """The reference's quantization of a row-wise selection: ONE scale over
+    all rows (its mesh exchange ships them as one message; one flat message
+    is one row)."""
     if mode == "none":
-        return leaf
-    vq, _ = quantize_dequantize(leaf.values, mode)
-    return SparseLeaf(values=vq.to(leaf.values.dtype), indices=leaf.indices,
-                      size=leaf.size)
+        return vals
+    vq, _ = quantize_dequantize(vals, mode)
+    return vq.to(vals.dtype)
 
 
 def select(x, k: int, spec: CompressionSpec = DEFAULT_SPEC) -> SparseLeaf:
     """Top-k of a flat tensor through the dispatched engine (+ wire
-    quantization)."""
+    quantization): :func:`select_rows` at S = 1."""
     flat = x.reshape(-1)
-    eng = resolve_engine(spec, int(flat.shape[0]))
-    return quantize_leaf(eng.select(flat, k), spec.quantize)
+    vals, idx = select_rows(flat[None], k, spec)
+    return SparseLeaf(values=vals[0], indices=idx[0], size=flat.shape[0])
 
 
-def samomentum_step(u, g, *, momentum: float, lr: float, k: int,
-                    spec: CompressionSpec = DEFAULT_SPEC):
-    """One SAMomentum step on one tensor: accumulate -> select -> rescale.
-
-    Returns (msg over the flattened tensor with ``spec.quantize`` applied,
-    u_new shaped like ``u``; u_new never sees quantization error).
-    """
-    eng = resolve_engine(spec, int(u.numel()))
-    if isinstance(eng, BlockwiseEngine):
-        msg, u_new = _samomentum_step_blockwise(
-            u, g, eng, momentum=momentum, lr=lr, k=k)
-    else:
-        uacc = velocity_accumulate(u, g, momentum=momentum, lr=lr)
-        flat = uacc.reshape(-1)
-        msg = eng.select(flat, k)
-        mask = support_mask(msg.indices, flat.shape[0])
-        u_new = samomentum_rescale(flat, mask, momentum).reshape(u.shape)
-    return quantize_leaf(msg, spec.quantize), u_new
-
-
-def _samomentum_step_blockwise(u, g, eng: BlockwiseEngine, *, momentum, lr,
-                               k):
-    """The kernel path: all three kernels in one step.
-
-    1. ``hierarchical_topk`` picks the support of the accumulated velocity,
-    2. ``samomentum_fused`` re-walks it once against the k-th candidate
-       magnitude, called as the reference calls it, on ``(uacc, uacc)``
-       with ``lr = 1 - m`` (m*uacc + (1-m)*uacc, evaluated, not shortcut),
-    3. ``scatter_add`` repairs the coordinates that pass the threshold but
-       are not shipped (ties, r < k): they are rescaled like any unsent one.
-    """
-    from repro_torch.kernels import ops
-
-    uacc = velocity_accumulate(u, g, momentum=momentum, lr=lr)
-    msg = eng.select(uacc.reshape(-1), k)
-    thr = msg.values.abs().min()
-    sent_dense, u_new = ops.samomentum_fused(
-        uacc, uacc, thr, momentum=momentum, lr=1.0 - momentum)
-    # extra = thresholded-but-not-shipped coordinates (0 on the support);
-    # sent_dense is this step's own temporary, so it is updated in place
-    extra = ops.scatter_add(sent_dense.reshape(-1), msg.indices, -msg.values)
-    u_new = fma(extra, 1.0 / momentum - 1.0, u_new.reshape(-1))
-    return msg, u_new.reshape(u.shape)
+def select_rows(x2d, k: int, spec: CompressionSpec = DEFAULT_SPEC):
+    """Per-row top-k through the dispatched engine (+ wire quantization,
+    one scale over all rows as the reference).  Returns (vals (S, k), idx
+    (S, k) int32 local per-row)."""
+    eng = resolve_engine(spec, int(x2d.shape[1]))
+    vals, idx = eng.select_rows(x2d, k)
+    return _maybe_quantize_rows(vals, spec.quantize), idx
 
 
 def quantize_arena(msg: SparseLeaf, mode: str, seg) -> SparseLeaf:
@@ -321,19 +315,107 @@ def quantize_arena(msg: SparseLeaf, mode: str, seg) -> SparseLeaf:
                       indices=msg.indices, size=msg.size)
 
 
-def samomentum_step_arena(u, g, space, *, momentum: float, lr: float,
-                          ks, spec: CompressionSpec = DEFAULT_SPEC):
-    """SAMomentum over a packed arena: per-tensor steps on the leaf views,
-    one global-index message (indices rebased by leaf offset) and one
-    rescaled velocity arena."""
+def _samomentum_select_rescale(u2d, g2d, eng, *, momentum: float, lr,
+                               k: int):
+    """Accumulate, select each row's support with ``eng``, rescale by the
+    support mask.  Returns (vals (S, k), idx (S, k) int32, u_new (S, n))."""
+    uacc = velocity_accumulate(u2d, g2d, momentum=momentum, lr=lr)
+    vals, idx = eng.select_rows(uacc, k)
+    mask = rows_support_mask(idx, uacc.shape[1])
+    return vals, idx, samomentum_rescale(uacc, mask, momentum)
+
+
+def samomentum_step_rows(u2d, g2d, *, momentum: float, lr, k: int,
+                         spec: CompressionSpec = DEFAULT_SPEC):
+    """Row-wise SAMomentum step, as the reference's (its mesh hot path's
+    ``(S, rest)`` view): accumulate, select, rescale by the support mask,
+    then wire quantization with ONE scale over all rows, as
+    :func:`select_rows`.  ``lr`` is a float or an ``(S, 1)`` tensor.  Returns
+    (vals (S, k), idx (S, k) int32, u_new (S, rest))."""
+    eng = resolve_engine(spec, int(u2d.shape[1]))
+    vals, idx, u_new = _samomentum_select_rescale(
+        u2d, g2d, eng, momentum=momentum, lr=lr, k=k)
+    return _maybe_quantize_rows(vals, spec.quantize), idx, u_new
+
+
+def _samomentum_leaf_rows(u2d, g2d, *, momentum: float, lr, k: int,
+                          spec: CompressionSpec):
+    """One SAMomentum step of each row of one tensor, in one pass over the
+    ``(B, n)`` block; ``lr`` is a float or ``(B, 1)``.  Returns (vals
+    (B, k), idx (B, k) int32, u_new (B, n)), the values before wire
+    quantization."""
+    eng = resolve_engine(spec, int(u2d.shape[1]))
+    if isinstance(eng, BlockwiseEngine):
+        return _samomentum_step_blockwise_rows(u2d, g2d, eng,
+                                               momentum=momentum, lr=lr, k=k)
+    return _samomentum_select_rescale(u2d, g2d, eng, momentum=momentum,
+                                      lr=lr, k=k)
+
+
+def _samomentum_step_blockwise_rows(u2d, g2d, eng: BlockwiseEngine, *,
+                                    momentum, lr, k):
+    """The kernel path, one launch of each kernel for all rows:
+
+    1. ``hierarchical_topk_rows`` picks each row's support of the
+       accumulated velocity (kernel 2 over all rows' blocks),
+    2. ``samomentum_fused_rows`` re-walks it once against each row's k-th
+       candidate magnitude (kernel 3, one threshold per row), called as the
+       reference calls it, on ``(uacc, uacc)`` with ``lr = 1 - m``
+       (m*uacc + (1-m)*uacc, evaluated, not shortcut),
+    3. ``scatter_add_rows`` repairs the coordinates that pass the threshold
+       but are not shipped (ties, r < k): they are rescaled like any unsent
+       one (kernel 4 on rows ``0..B-1`` of the step's own ``sent_dense``).
+    """
+    from repro_torch.kernels import ops
+
+    uacc = velocity_accumulate(u2d, g2d, momentum=momentum, lr=lr)
+    vals, idx = eng.select_rows(uacc, k)
+    thr = vals.abs().amin(dim=1)
+    sent_dense, u_new = ops.samomentum_fused_rows(
+        uacc, uacc, thr, momentum=momentum, lr=1.0 - momentum)
+    # extra = thresholded-but-not-shipped coordinates (0 on the support)
+    extra = ops.scatter_add_rows(sent_dense, range(uacc.shape[0]), idx, -vals)
+    return vals, idx, fma(extra, 1.0 / momentum - 1.0, u_new)
+
+
+def samomentum_step(u, g, *, momentum: float, lr: float, k: int,
+                    spec: CompressionSpec = DEFAULT_SPEC):
+    """One SAMomentum step on one tensor: accumulate -> select -> rescale,
+    the row-wise step at B = 1.
+
+    Returns (msg over the flattened tensor with ``spec.quantize`` applied,
+    u_new shaped like ``u``; u_new never sees quantization error).
+    """
+    vals, idx, u_new = _samomentum_leaf_rows(
+        u.reshape(1, -1), g.reshape(1, -1), momentum=momentum, lr=lr, k=k,
+        spec=spec)
+    vals = _maybe_quantize_rows(vals, spec.quantize)
+    return (SparseLeaf(values=vals[0], indices=idx[0], size=u.numel()),
+            u_new.reshape(u.shape))
+
+
+def samomentum_step_arena_rows(u2d, g2d, space, *, momentum: float, lrs,
+                               ks, spec: CompressionSpec = DEFAULT_SPEC):
+    """SAMomentum over a ``(B, total)`` batch of velocity arenas with one
+    learning rate per row (``lrs``, ``(B,)`` float32): per-tensor steps on
+    the leaf views, one global-index message (indices rebased by leaf
+    offset, each row's segment wire-quantized with its own scale) and one
+    rescaled velocity arena.  The port's counterpart of the reference's
+    ``vmap(strategy.step)``.  Each leaf's ``(B, n_leaf)`` view is strided
+    (row stride ``total``); the velocity accumulate reads it and writes a
+    contiguous block, which is what the kernels read.  Returns (SparseLeaf
+    with ``(B, sum(ks))`` values/indices, the new ``(B, total)``
+    velocity)."""
+    lrs = lrs.reshape(-1, 1)
     vals, idxs, new_u = [], [], []
-    for off, k, u_view, g_view in zip(
-            space.offsets, ks, space.views(u), space.views(g)):
-        msg, u_new = samomentum_step(u_view, g_view, momentum=momentum,
-                                     lr=lr, k=k, spec=spec)
-        vals.append(msg.values)
-        idxs.append(msg.indices + off)
-        new_u.append(u_new.reshape(-1))
-    return (SparseLeaf(values=torch.cat(vals), indices=torch.cat(idxs),
-                       size=space.total),
-            torch.cat(new_u))
+    for off, size, k in zip(space.offsets, space.sizes, ks):
+        v, i, u_new = _samomentum_leaf_rows(
+            u2d[:, off:off + size], g2d[:, off:off + size],
+            momentum=momentum, lr=lrs, k=k, spec=spec)
+        vals.append(quantize_rows(v, spec.quantize)[2].to(v.dtype))
+        idxs.append(i + off)
+        new_u.append(u_new)
+    return (SparseLeaf(values=torch.cat(vals, dim=1),
+                       indices=torch.cat(idxs, dim=1), size=space.total),
+            torch.cat(new_u, dim=1))
+

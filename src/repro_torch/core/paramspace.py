@@ -14,7 +14,7 @@ import torch
 
 from . import engine as engine_lib
 from .engine import CompressionSpec
-from .sparsify import SparseLeaf, density_to_k
+from .sparsify import SparseLeaf, density_to_k, quantize_rows
 
 
 def tree_flatten(tree) -> tuple[list, tuple]:
@@ -103,15 +103,25 @@ class ParamSpace:
 
     def select(self, x: torch.Tensor, ks, spec: CompressionSpec
                = engine_lib.DEFAULT_SPEC) -> SparseLeaf:
-        """Per-tensor top-k of an arena vector, rebased to global indices:
-        ``global_index = leaf_offset + local_index``."""
+        """Per-tensor top-k of an arena vector, rebased to global indices
+        (``global_index = leaf_offset + local_index``): :meth:`select_rows`
+        at B = 1."""
+        return self.select_rows(x[None], ks, spec).row(0)
+
+    def select_rows(self, x2d: torch.Tensor, ks, spec: CompressionSpec
+                    = engine_lib.DEFAULT_SPEC) -> SparseLeaf:
+        """:meth:`select` of each row of a ``(B, total)`` batch, one engine
+        call per tensor for all rows: a global-index SparseLeaf with
+        ``(B, sum(ks))`` values and indices.  ``spec.quantize`` scales each
+        row's segment on its own."""
         vals, idxs = [], []
-        for off, k, view in zip(self.offsets, ks, self.views(x)):
-            leaf = engine_lib.select(view, k, spec)
-            vals.append(leaf.values)
-            idxs.append(leaf.indices + off)
-        return SparseLeaf(values=torch.cat(vals), indices=torch.cat(idxs),
-                          size=self.total)
+        for off, size, k in zip(self.offsets, self.sizes, ks):
+            eng = engine_lib.resolve_engine(spec, size)
+            v, i = eng.select_rows(x2d[:, off:off + size], k)
+            vals.append(quantize_rows(v, spec.quantize)[2].to(v.dtype))
+            idxs.append(i + off)
+        return SparseLeaf(values=torch.cat(vals, dim=1),
+                          indices=torch.cat(idxs, dim=1), size=self.total)
 
     def split(self, msg, seg=None) -> list:
         """Arena message -> per-leaf list (local indices).  Dense arena

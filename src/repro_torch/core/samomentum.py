@@ -49,14 +49,15 @@ def leaf_update_dense(u_prev, grad, *, momentum, lr):
     return u, u
 
 
-def tree_update(state: SAMomentumState, grads, *, momentum: float,
-                lr: float, density: float,
-                spec: CompressionSpec = engine.EXACT_SPEC):
-    """SAMomentum over a gradient tree in the flat arena: per-tensor
-    selection on arena views, one velocity buffer, one global-index
-    message.  Returns (msg, new_state)."""
-    space = ParamSpace.from_tree(grads)
-    msg, u_new = engine.samomentum_step_arena(
-        state.velocity, space.pack(grads), space,
-        momentum=momentum, lr=lr, ks=space.ks(density), spec=spec)
+def tree_update_rows(state: SAMomentumState, g2d, space: ParamSpace, *,
+                     momentum: float, lrs, density: float,
+                     spec: CompressionSpec = engine.EXACT_SPEC):
+    """SAMomentum over a batch of packed gradient arenas: per-tensor
+    selection on arena views, one velocity buffer per row, one global-index
+    message per row.  ``state.velocity`` and ``g2d`` are ``(B, total)``,
+    ``lrs`` one float32 learning rate per row (B = 1 for one worker's
+    step).  Returns (msg with ``(B, k)`` values/indices, new_state)."""
+    msg, u_new = engine.samomentum_step_arena_rows(
+        state.velocity, g2d, space, momentum=momentum, lrs=lrs,
+        ks=space.ks(density), spec=spec)
     return msg, SAMomentumState(velocity=u_new)

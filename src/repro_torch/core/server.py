@@ -13,13 +13,19 @@ buffer.  Where the reference's jitted stages donate them, the port updates
 them IN PLACE: :func:`receive` writes ``M``, :func:`send_commit` writes row
 ``v[k]``, :func:`reset_worker` zeroes it and :func:`apply_update` writes the
 worker's ``theta``.  Each sparse update is ONE scatter (kernel 1 on a card).
+The batched loop's :func:`send_commit_rows` and :func:`apply_update_rows`
+fold a whole batch into its pairwise-distinct rows with ONE multi-row
+scatter (kernel 4).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from repro_torch.device import from_host
 
 from . import engine as engine_lib
 from .engine import CompressionSpec
@@ -81,6 +87,36 @@ def send_commit(state: ServerState, worker_id: int, G) -> ServerState:
     return state
 
 
+def _device_ids(worker_ids, device) -> torch.Tensor:
+    return from_host(np.asarray(worker_ids, np.int64), device)
+
+
+def send_commit_rows(state: ServerState, worker_ids, G,
+                     M_rows=None) -> ServerState:
+    """Account a whole batch of SHIPPED messages into their ``v`` rows, in
+    place (Eq. 4, one event per batch lane).
+
+    ``worker_ids`` is a host array of pairwise-distinct ids (the batching
+    rule), so the rows are disjoint and ONE multi-row scatter is bit-equal
+    to committing the events one :func:`send_commit` at a time.  ``G`` is
+    the stacked batch: a SparseLeaf with ``(B, k)`` values/indices, or a
+    dense ``(B, total)`` stack.  A dense commit snaps each row to M *as of
+    its event*, the ``M_rows[i]`` prefix the batched receive captured, not
+    to the post-batch M.
+    """
+    from repro_torch.kernels import ops
+
+    if isinstance(G, SparseLeaf):
+        ops.scatter_add_rows(state.v, worker_ids, G.indices, G.values)
+    else:
+        if M_rows is None:
+            raise ValueError("dense batched commit needs the per-event "
+                             "prefix M_rows")
+        state.v.index_copy_(0, _device_ids(worker_ids, state.v.device),
+                            M_rows)
+    return state
+
+
 def send(state: ServerState, worker_id: int, *,
          secondary_density: float | None = None,
          spec: CompressionSpec = engine_lib.EXACT_SPEC):
@@ -115,6 +151,20 @@ def apply_update(theta: torch.Tensor, G) -> torch.Tensor:
     if isinstance(G, SparseLeaf):
         return ops.scatter_add(theta, G.indices, G.values)
     return theta.add_(G.to(theta.dtype))
+
+
+def apply_update_rows(thetas: torch.Tensor, worker_ids, G) -> torch.Tensor:
+    """Batched worker apply, in place on the stacked ``(n_workers, total)``
+    models: row ``worker_ids[b]`` gets lane b of ``G`` (ONE multi-row
+    scatter for a sparse batch).  Returns ``thetas``."""
+    from repro_torch.kernels import ops
+
+    if isinstance(G, SparseLeaf):
+        return ops.scatter_add_rows(thetas, worker_ids, G.indices, G.values)
+    ids = _device_ids(worker_ids, thetas.device)
+    rows = thetas.index_select(0, ids)
+    rows.add_(G.to(thetas.dtype))
+    return thetas.index_copy_(0, ids, rows)
 
 
 def apply_to_params(params, G):

@@ -30,6 +30,11 @@ class SparseLeaf(NamedTuple):
     def k(self) -> int:
         return self.values.shape[-1]
 
+    def row(self, b: int) -> "SparseLeaf":
+        """Lane ``b`` of a stacked ``(B, k)`` message."""
+        return SparseLeaf(values=self.values[b], indices=self.indices[b],
+                          size=self.size)
+
 
 def density_to_k(size: int, density: float) -> int:
     """Static number of kept elements for a tensor of ``size`` elements."""
@@ -71,14 +76,23 @@ def sampled_threshold(x: torch.Tensor, density: float, *,
     """Estimate the top-``density`` magnitude threshold from a strided
     subsample (DGC).  The ceil stride makes the sample span the whole
     tensor.  (The reference's random-key sample has no counterpart: no
-    caller of this slice passes a key.)"""
-    flat = x.reshape(-1).abs()
-    n = flat.shape[0]
+    caller of the port passes a key.)"""
+    return sampled_threshold_rows(x.reshape(1, -1), density,
+                                  sample_size=sample_size)[0]
+
+
+def sampled_threshold_rows(x2d: torch.Tensor, density: float, *,
+                           sample_size: int = 65536) -> torch.Tensor:
+    """:func:`sampled_threshold` of each row of ``(S, n)``: ``(S,)``
+    thresholds (the k-th largest sampled magnitude is one value whatever
+    order the top-k finds it in)."""
+    mag = x2d.abs()
+    n = mag.shape[1]
     s = min(sample_size, n)
     stride = -(-n // s)
-    sample = flat[::stride]
-    ks = max(1, int(round(sample.shape[0] * density)))
-    return torch.topk(sample, ks).values[-1]
+    sample = mag[:, ::stride]
+    ks = max(1, int(round(sample.shape[1] * density)))
+    return torch.topk(sample, ks, dim=1).values[:, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -101,16 +115,21 @@ def _tern_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(total).reshape(())
 
 
-def quantize_parts(values: torch.Tensor, mode: str):
-    """(codes, scale, dequantized) -- THE quantization arithmetic.
+def quantize_rows(values2d: torch.Tensor, mode: str):
+    """(codes, scale, dequantized) of each row of ``(B, k)``, each row with
+    its own scale (``(B, 1)``) -- THE quantization arithmetic.
 
     none  -- float32 passthrough; codes == values
     bf16  -- bfloat16 wire; codes are the bf16 values
     int8  -- symmetric per-message int8 with one f32 scale
     tern  -- TernGrad-style {-1, 0, +1} * mean|v| over the nonzeros
+
+    The tern scale of each row is the 1-D :func:`_tern_sum` of that row, so
+    a batch of rows adds in the order one row alone does.
     """
-    values = values.to(torch.float32)
-    zero = torch.zeros((), dtype=torch.float32, device=values.device)
+    values = values2d.to(torch.float32)
+    zero = torch.zeros((values.shape[0], 1), dtype=torch.float32,
+                       device=values.device)
     if mode == "none":
         return values, zero, values
     if mode == "bf16":
@@ -118,15 +137,24 @@ def quantize_parts(values: torch.Tensor, mode: str):
         return b, zero, b.to(torch.float32)
     if mode == "int8":
         # XLA: max / 127 + 1e-12  ->  fma(max, 1/127, 1e-12)
-        scale = fma(values.abs().max(), rcp(127.0), 1e-12)
+        scale = fma(values.abs().amax(dim=1, keepdim=True), rcp(127.0), 1e-12)
         q = torch.clamp(torch.round(values / scale), -127, 127)
         return q.to(torch.int8), scale, q * scale
     if mode == "tern":
-        nnz = torch.clamp((values != 0.0).sum(), min=1)
-        scale = _tern_sum(values.abs()) / nnz.to(torch.float32)
+        nnz = torch.clamp((values != 0.0).sum(dim=1, keepdim=True), min=1)
+        total = torch.stack([_tern_sum(row.abs()) for row in values])
+        scale = total.reshape(-1, 1) / nnz.to(torch.float32)
         s = torch.sign(values)
         return s.to(torch.int8), scale, s * scale
     raise ValueError(f"unknown quantization mode {mode!r}")
+
+
+def quantize_parts(values: torch.Tensor, mode: str):
+    """(codes, scale, dequantized) of one message, one scale over all of
+    ``values``: :func:`quantize_rows` at B = 1."""
+    codes, scale, deq = quantize_rows(values.reshape(1, -1), mode)
+    return (codes.reshape(values.shape), scale.reshape(()),
+            deq.reshape(values.shape))
 
 
 def quantize_dequantize(values: torch.Tensor, mode: str):
@@ -137,11 +165,13 @@ def quantize_dequantize(values: torch.Tensor, mode: str):
 
 def quantize_segments(values: torch.Tensor, mode: str, seg) -> torch.Tensor:
     """Segment-wise wire quantization of a concatenated value vector: each
-    segment (one per parameter tensor) gets its own scale."""
+    segment (one per parameter tensor) gets its own scale.  A stacked
+    ``(B, k)`` batch of messages quantizes row by row: one scale per row
+    per segment; one ``(k,)`` message is that batch at B = 1."""
     if mode == "none":
         return values
-    if len(seg) == 1:
-        return quantize_parts(values, mode)[2]
-    parts = [quantize_parts(part, mode)[2]
-             for part in torch.split(values, list(seg))]
-    return torch.cat(parts)
+    if values.dim() == 1:
+        return quantize_segments(values[None], mode, seg)[0]
+    return torch.cat([quantize_rows(part, mode)[2]
+                      for part in torch.split(values, list(seg), dim=1)],
+                     dim=1)

@@ -3,6 +3,7 @@ caller asks for the CPU.  ``None`` means ``cuda``; asking for CUDA where
 there is none raises, and nothing carries on silently on the CPU."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -13,3 +14,14 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+def from_host(array, device) -> torch.Tensor:
+    """A small host array (worker ids, learning rates) as a tensor on
+    ``device``.  To the card it goes through pinned memory with a
+    non-blocking copy: a plain ``.to("cuda")`` from pageable memory waits
+    for the stream to drain, a host sync in the middle of the loop."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

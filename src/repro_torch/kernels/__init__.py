@@ -2,7 +2,8 @@
 version beside it (see ``build.py`` for how they are built)."""
 from . import block_topk, samomentum_kernel, scatter_apply
 
-KERNELS = (scatter_apply.INFO, block_topk.INFO, samomentum_kernel.INFO)
+KERNELS = (scatter_apply.INFO, block_topk.INFO, samomentum_kernel.INFO,
+           scatter_apply.ROWS_INFO)
 
 
 def reset_launches() -> None:

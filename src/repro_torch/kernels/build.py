@@ -118,12 +118,14 @@ def library():
         lib = ctypes.CDLL(str(build()))
         p, i64 = ctypes.c_void_p, ctypes.c_longlong
         lib.scatter_add_sorted.argtypes = [p, i64, p, p, p, i64, p]
+        lib.scatter_add_rows_sorted.argtypes = [p, i64, p, p, p, p, i64, i64,
+                                                p]
         lib.block_topk.argtypes = [p, p, p, i64, ctypes.c_int, p]
         lib.samomentum_fused.argtypes = [p, p, p, p, p, ctypes.c_float,
                                          ctypes.c_float, ctypes.c_float,
-                                         i64, p]
-        for fn in (lib.scatter_add_sorted, lib.block_topk,
-                   lib.samomentum_fused):
+                                         i64, i64, p]
+        for fn in (lib.scatter_add_sorted, lib.scatter_add_rows_sorted,
+                   lib.block_topk, lib.samomentum_fused):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

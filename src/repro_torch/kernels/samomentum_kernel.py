@@ -42,14 +42,21 @@ def samomentum_plain(u: torch.Tensor, g: torch.Tensor, thr: torch.Tensor,
 
 def samomentum_fused_flat(u: torch.Tensor, g: torch.Tensor,
                           thr: torch.Tensor, *, momentum: float, lr: float):
-    """u, g: flat (n,); thr: one-element f32 tensor on the same device.
-    Returns (out, u_new).  CPU -> plain version, CUDA -> the kernel."""
-    if u.dim() != 1 or g.shape != u.shape or thr.numel() != 1:
+    """u, g: flat (n,), the rows of a contiguous (B, n / B) block laid end
+    to end; thr: (B,) f32 on the same device, one threshold per row (B = 1
+    for a single tensor).  Returns (out, u_new), flat.  CPU -> plain
+    version, CUDA -> the kernel."""
+    if u.dim() != 1 or g.shape != u.shape or thr.dim() > 1 \
+            or thr.numel() == 0 or u.numel() % thr.numel():
         raise ValueError(f"samomentum_fused_flat: shapes {tuple(u.shape)}, "
                          f"{tuple(g.shape)}, {tuple(thr.shape)}")
+    n_rows = thr.numel()
+    n_row = u.numel() // n_rows
     if u.device.type == "cpu":
-        return samomentum_plain(u, g, thr.reshape(()), momentum=momentum,
-                                lr=lr)
+        out, u_new = samomentum_plain(
+            u.view(n_rows, n_row), g.view(n_rows, n_row),
+            thr.reshape(n_rows, 1), momentum=momentum, lr=lr)
+        return out.view(-1), u_new.view(-1)
     if u.device.type != "cuda":
         raise ValueError(f"samomentum_fused_flat: no kernel for {u.device}")
     for name, t in (("u", u), ("g", g), ("thr", thr)):
@@ -59,7 +66,8 @@ def samomentum_fused_flat(u: torch.Tensor, g: torch.Tensor,
     rc = build.library().samomentum_fused(
         u.data_ptr(), g.data_ptr(), thr.data_ptr(), out.data_ptr(),
         u_new.data_ptr(), float(np.float32(momentum)),
-        float(np.float32(lr)), rcp(momentum), u.numel(), build.stream())
+        float(np.float32(lr)), rcp(momentum), u.numel(), max(n_row, 1),
+        build.stream())
     build.check(rc, INFO.name)
     INFO.launches += 1
     return out, u_new

@@ -1,16 +1,23 @@
-"""In-place sparse scatter-add: ``dense[idx] += vals`` with duplicate indices
-summed in update order -- kernel 1 of the port (``csrc/scatter_apply.cu``).
+"""In-place sparse scatter-adds with duplicate indices summed in update
+order: kernel 1 of the port, the flat ``dense[idx] += vals``
+(``csrc/scatter_apply.cu``), and kernel 4, its multi-row twin
+``dense2d[rows[b], idx2d[b]] += vals2d[b]`` for pairwise-distinct rows
+(``csrc/scatter_apply_rows.cu``).
 
-Replaces the TPU's blocked kernel (``repro/kernels/scatter_apply.py``,
-``scatter_apply_blocked``): the TPU streams the whole arena through VMEM per
-event; the Hopper kernel touches only the k target words, in place.
+Replace the TPU's blocked kernels (``repro/kernels/scatter_apply.py``,
+``scatter_apply_blocked`` and ``scatter_apply_blocked_rows``): the TPU
+streams whole arena rows through VMEM; the Hopper kernels touch only the
+target words, in place.
 
-The wrapper takes a CPU tensor to :func:`scatter_add_plain` and launches
-the kernel for a CUDA tensor; anything else raises.
+Each wrapper takes a CPU tensor to its plain version and launches its
+kernel for a CUDA tensor; anything else raises.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch.device import from_host
 
 from . import build
 
@@ -18,6 +25,11 @@ INFO = build.KernelInfo(
     name="scatter_add",
     source="src/repro_torch/kernels/csrc/scatter_apply.cu",
     replaces="src/repro/kernels/scatter_apply.py:33")
+
+ROWS_INFO = build.KernelInfo(
+    name="scatter_add_rows",
+    source="src/repro_torch/kernels/csrc/scatter_apply_rows.cu",
+    replaces="src/repro/kernels/scatter_apply.py:65")
 
 
 def scatter_add_plain(dense: torch.Tensor, indices: torch.Tensor,
@@ -61,3 +73,61 @@ def scatter_add_(dense: torch.Tensor, indices: torch.Tensor,
     build.check(rc, INFO.name)
     INFO.launches += 1
     return dense
+
+
+def _host_rows(rows, n_rows: int) -> np.ndarray:
+    """Validate the lanes' target rows on the host: in range and pairwise
+    distinct (the batching rule), so no two lanes write one word."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    if rows.size and (rows.min() < 0 or rows.max() >= n_rows):
+        raise ValueError(f"scatter_add_rows_: rows {rows.tolist()} outside "
+                         f"[0, {n_rows})")
+    if np.unique(rows).size != rows.size:
+        raise ValueError(f"scatter_add_rows_: rows {rows.tolist()} are not "
+                         f"pairwise distinct")
+    return rows
+
+
+def scatter_add_rows_plain(dense2d: torch.Tensor, rows, idx2d: torch.Tensor,
+                           vals2d: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version, in place: each lane's in-range updates moved
+    to flat coordinates ``rows[b] * n + idx``, then the same stable sort
+    and in-order run sums as :func:`scatter_add_plain` (distinct rows keep
+    every lane's run inside its own row)."""
+    rows = _host_rows(rows, dense2d.shape[0])
+    n = dense2d.shape[1]
+    idx = idx2d.to(torch.int64)
+    ok = (idx >= 0) & (idx < n)
+    flat = torch.from_numpy(rows).to(dense2d.device)[:, None] * n + idx
+    scatter_add_plain(dense2d.view(-1), flat[ok], vals2d.to(dense2d.dtype)[ok])
+    return dense2d
+
+
+def scatter_add_rows_(dense2d: torch.Tensor, rows, idx2d: torch.Tensor,
+                      vals2d: torch.Tensor) -> torch.Tensor:
+    """``dense2d[rows[b], idx2d[b]] += vals2d[b]`` in place for every lane
+    b; returns ``dense2d``.  ``rows`` is a host sequence of pairwise
+    distinct row ids.  CPU -> plain version, CUDA -> kernel 4 (ONE launch
+    for all lanes)."""
+    if dense2d.device.type == "cpu":
+        return scatter_add_rows_plain(dense2d, rows, idx2d, vals2d)
+    if dense2d.device.type != "cuda":
+        raise ValueError(f"scatter_add_rows_: no kernel for {dense2d.device}")
+    build.require(dense2d, "dense2d", torch.float32, dense2d.device)
+    build.require(idx2d, "idx2d", torch.int32, dense2d.device)
+    build.require(vals2d, "vals2d", torch.float32, dense2d.device)
+    rows = _host_rows(rows, dense2d.shape[0])
+    if dense2d.dim() != 2 or idx2d.dim() != 2 \
+            or vals2d.shape != idx2d.shape or idx2d.shape[0] != rows.size:
+        raise ValueError(f"scatter_add_rows_: shapes {tuple(dense2d.shape)}, "
+                         f"{rows.size} rows, {tuple(idx2d.shape)}, "
+                         f"{tuple(vals2d.shape)}")
+    rows_dev = from_host(rows, dense2d.device)
+    sidx, perm = torch.sort(idx2d, dim=1, stable=True)
+    rc = build.library().scatter_add_rows_sorted(
+        dense2d.data_ptr(), dense2d.shape[1], rows_dev.data_ptr(),
+        sidx.data_ptr(), perm.data_ptr(), vals2d.data_ptr(), idx2d.shape[0],
+        idx2d.shape[1], build.stream())
+    build.check(rc, ROWS_INFO.name)
+    ROWS_INFO.launches += 1
+    return dense2d

@@ -87,8 +87,8 @@ def test_run_bit_equal_to_reference(name, kw, sec, dq, eng):
                             lr=0.05, secondary_density=sec,
                             secondary_spec=_specs(tengine.CompressionSpec,
                                                   eng, dq), device="cpu")
-    tpool = [params_from_numpy(b) for b in pool]
-    tf, ts, th = ttr.run(params_from_numpy(params), sched,
+    tpool = [params_from_numpy(b, "cpu") for b in pool]
+    tf, ts, th = ttr.run(params_from_numpy(params, "cpu"), sched,
                          lambda e, k: tpool[e], lr_fn=lr_fn)
 
     assert (th.up_bytes, th.down_bytes) == (jh.up_bytes, jh.down_bytes)
@@ -121,8 +121,8 @@ def test_eval_fn_every_matches_reference():
     _, _, jh = jtr.run({k: jnp.asarray(v) for k, v in params.items()}, sched,
                        lambda e, k: pool[e], eval_every=8,
                        eval_fn=lambda m: float(np.asarray(m["w1"]).sum()))
-    tpool = [params_from_numpy(b) for b in pool]
-    _, _, th = ttr.run(params_from_numpy(params), sched,
+    tpool = [params_from_numpy(b, "cpu") for b in pool]
+    _, _, th = ttr.run(params_from_numpy(params, "cpu"), sched,
                        lambda e, k: tpool[e], eval_every=8,
                        eval_fn=lambda m: float(m["w1"].sum()))
     assert [e for e, _ in th.evals] == [e for e, _ in jh.evals] == \
@@ -209,7 +209,7 @@ def test_mlp_quickstart_matches_reference(name, kw):
              for x, y in pool]
     ttr = tsim.AsyncTrainer(tmake(name, **kw), model.grad_fn, 8, lr=0.1,
                             device="cpu")
-    tf, _, th = ttr.run(params_from_numpy(params), sched,
+    tf, _, th = ttr.run(params_from_numpy(params, "cpu"), sched,
                         lambda e, k: tpool[e])
     np.testing.assert_allclose(th.losses, jh.losses, rtol=1e-5)
     for key in params:

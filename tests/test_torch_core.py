@@ -67,7 +67,7 @@ def _planted(rng, n):
 
 def test_leaf_order_sorts_keys_like_jax():
     p = _params(_rng("order"))
-    ts, js = TSpace.from_tree(params_from_numpy(p)), JSpace.from_tree(p)
+    ts, js = TSpace.from_tree(params_from_numpy(p, "cpu")), JSpace.from_tree(p)
     assert [path[-1] for path in ts.paths] == ["b1", "b2", "w1", "w2"]
     assert (ts.offsets, ts.sizes, ts.shapes, ts.total) == \
         (js.offsets, js.sizes, js.shapes, js.total)
@@ -79,14 +79,14 @@ def test_leaf_order_sorts_keys_like_jax():
 ])
 def test_nested_and_lexicographic_order(tree):
     tree = jax.tree.map(lambda a: a.astype(np.float32), tree)
-    ts, js = TSpace.from_tree(params_from_numpy(tree)), JSpace.from_tree(tree)
-    _eq(ts.pack(params_from_numpy(tree)), js.pack(tree))
+    ts, js = TSpace.from_tree(params_from_numpy(tree, "cpu")), JSpace.from_tree(tree)
+    _eq(ts.pack(params_from_numpy(tree, "cpu")), js.pack(tree))
     assert ts.offsets == js.offsets
 
 
 def test_pack_unpack_round_trip_and_views():
     p = _params(_rng("pack"))
-    tp = params_from_numpy(p)
+    tp = params_from_numpy(p, "cpu")
     ts, js = TSpace.from_tree(tp), JSpace.from_tree(p)
     flat = ts.pack(tp)
     _eq(flat, js.pack(p))
@@ -102,7 +102,7 @@ def test_pack_unpack_round_trip_and_views():
 def test_select_and_split_match_reference():
     p = _params(_rng("select"))
     x = _planted(_rng("x"), 64 * 64 + 64 + 640 + 10)
-    ts, js = TSpace.from_tree(params_from_numpy(p)), JSpace.from_tree(p)
+    ts, js = TSpace.from_tree(params_from_numpy(p, "cpu")), JSpace.from_tree(p)
     ks = ts.ks(0.05)
     t = ts.select(torch.from_numpy(x), ks, tengine.EXACT_SPEC)
     j = js.select(jnp.asarray(x), ks, jengine.EXACT_SPEC)
@@ -258,16 +258,16 @@ def test_strategy_step_bit_equal(name, kw):
     p = _params(rng)
     targets = [_params(rng) for _ in range(3)]
     j_grad, t_grad = _grad_fns()
-    js, ts = JSpace.from_tree(p), TSpace.from_tree(params_from_numpy(p))
+    js, ts = JSpace.from_tree(p), TSpace.from_tree(params_from_numpy(p, "cpu"))
     jstrat = jbase.make_strategy(name, **kw)
     tstrat = tbase.make_strategy(name, **kw)
     jstep = jsim.make_client_step(jstrat, j_grad, js)
     tstep = tsim.make_client_step(tstrat, t_grad, ts)
-    jtheta, ttheta = js.pack(p), ts.pack(params_from_numpy(p))
-    jst, tst = jstrat.init(p), tstrat.init(params_from_numpy(p))
+    jtheta, ttheta = js.pack(p), ts.pack(params_from_numpy(p, "cpu"))
+    jst, tst = jstrat.init(p), tstrat.init(params_from_numpy(p, "cpu"))
     for e, t in enumerate(targets):
         jst, jl, jm = jstep(jtheta, jst, t, 0.05 * (e + 1))
-        tst, tl, tm = tstep(ttheta, tst, params_from_numpy(t), 0.05 * (e + 1))
+        tst, tl, tm = tstep(ttheta, tst, params_from_numpy(t, "cpu"), 0.05 * (e + 1))
         np.testing.assert_allclose(float(tl), float(jl), rtol=1e-6)
         if isinstance(tm, SparseLeaf):
             _eq_leaf(tm, jm)
@@ -285,8 +285,8 @@ def test_msgd_step_matches_reference():
     p, v, g = _params(rng), _params(rng), _params(rng)
     jp, jv = jax.jit(lambda p, v, g: jbase.msgd_step(
         p, v, g, lr=0.1, momentum=0.7))(p, v, g)
-    tp, tv = tbase.msgd_step(params_from_numpy(p), params_from_numpy(v),
-                             params_from_numpy(g), lr=0.1, momentum=0.7)
+    tp, tv = tbase.msgd_step(params_from_numpy(p, "cpu"), params_from_numpy(v, "cpu"),
+                             params_from_numpy(g, "cpu"), lr=0.1, momentum=0.7)
     for key in p:
         _eq(tv[key], jv[key])
         _eq(tp[key], jp[key])
@@ -302,7 +302,7 @@ def test_make_strategy_unknown():
 def _server_pair(n_workers=3):
     rng = _rng("server")
     p = _params(rng)
-    return p, tserver.init(params_from_numpy(p), n_workers), \
+    return p, tserver.init(params_from_numpy(p, "cpu"), n_workers), \
         jserver.init(p, n_workers)
 
 
@@ -323,7 +323,7 @@ def _eq_state(t, j):
 def test_server_stages_bit_equal(sec, spec):
     p, ts, js = _server_pair()
     rng = _rng("msgs", sec)
-    space = TSpace.from_tree(params_from_numpy(p))
+    space = TSpace.from_tree(params_from_numpy(p, "cpu"))
     ks = space.ks(0.05)
     tspec = tengine.CompressionSpec(**spec)
     jspec = jengine.CompressionSpec(**spec)
@@ -349,7 +349,7 @@ def test_server_stages_bit_equal(sec, spec):
         else:
             _eq_leaf(tG, jG)
             assert tserver.message_nnz(tG) == sum(space.ks(sec))
-    tp = tserver.global_model(params_from_numpy(p), ts)
+    tp = tserver.global_model(params_from_numpy(p, "cpu"), ts)
     jp = jserver.global_model(p, js)
     for key in p:
         _eq(tp[key], jp[key])
@@ -386,7 +386,7 @@ def test_worker_slots_and_apply():
     tt = torch.from_numpy(theta.copy())
     assert tserver.apply_update(tt, G) is tt
     _eq(tt, jserver.apply_update(jnp.asarray(theta), jG))
-    tpp = tserver.apply_to_params(params_from_numpy(p), G)
+    tpp = tserver.apply_to_params(params_from_numpy(p, "cpu"), G)
     jpp = jserver.apply_to_params(p, jG)
     for key in p:
         _eq(tpp[key], jpp[key])
