@@ -9,7 +9,9 @@ exits nonzero and prints no result line):
 * kernels -- builds the hand-written CUDA kernels from ``src/repro_torch/
   kernels/csrc`` and holds each against its plain PyTorch version on the card,
   bit for bit, at the main path's shapes; times kernel, plain version and the
-  nearest library call, beside the memory bound.
+  nearest library call, beside the memory bound.  The wire kernels (5-6) are
+  held byte for byte, at a message of phase B (k = 10,514 in 8 segments) and
+  at one 4,718,592-element vector.
 * a -- the quickstart configuration (8 workers, 600 events, asgd and dgs) on
   the card and on the CPU from the same weights and numpy batches; bytes,
   losses and accuracy must agree within the stated tolerances.
@@ -26,6 +28,18 @@ exits nonzero and prints no result line):
   params, M, v, bytes), and every kernel, kernel 4 included, must launch.
   Prints events/s, the mean batch, launches per event, the host span
   totals per stage and peak memory.
+* d -- the cluster runtime at full width: phase B's model, schedule,
+  batches and 100 worker slots through ``cluster.run_inprocess`` (50 client
+  threads and the coordinator, every message through the wire codec and
+  kernels 5-6).  D1 (int8 up, none down) must be bit-equal to phase B; D2
+  (tern up, bf16 down) bit-equal to the port's serial ``AsyncTrainer.run``
+  of its configuration, run here; D3 runs ``python -m
+  repro_torch.launch.cluster --smoke`` (two client processes over TCP) and
+  needs exit code 0; D4 runs the launcher at phase B's widths (4 client
+  processes, 8 rounds, int8 up) and holds its events and
+  measured bytes to an in-process run of the same problem.  Prints
+  events/s, peak memory, launches per event, the coordinator's mean batch
+  and the host span totals of each run.
 
 The last two lines are the kernel table and the result, each one JSON object.
 """
@@ -273,10 +287,98 @@ def kernel_phase(torch, timer, rate, results):
     log(f"  samomentum_fused rows launch (16, {n2}): kernel "
         f"{sam_rows_ms:.4f} ms, bound {12 * B * n2 / rate * 1e3:.4f} ms")
     del xr, u2
+    wire_kernels(torch, timer, rate, results, compare, errs)
     for row in results:
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
             f"bound {row['bound_ms']:.5f} ms")
+
+
+def full_width_seg(density: float = 0.001) -> tuple:
+    """The per-tensor entry counts of a phase B message: ``space.ks`` of
+    run_big's MLP, leaves in sorted-key order (10,514 in 8 segments)."""
+    from repro_torch.core.sparsify import density_to_k
+
+    sizes = {}
+    for i, (a, b) in enumerate(zip(FULL_DIMS[:-1], FULL_DIMS[1:])):
+        sizes[f"w{i}"], sizes[f"b{i}"] = a * b, b
+    return tuple(density_to_k(sizes[key], density) for key in sorted(sizes))
+
+
+def wire_kernels(torch, timer, rate, results, compare, errs):
+    """Kernels 5 (each mode) and 6 against their plain versions, byte for
+    byte, at a phase B message and at one 4,718,592-element vector; timed
+    with the plain versions and, for bf16, ``x.to(torch.bfloat16)``."""
+    from repro_torch.core.sparsify import quantize_segments
+    from repro_torch.kernels import build, wire_pack
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    seg = full_width_seg()
+    shapes = (("message", seg), ("vector", (2304 * 2048,)))
+    rows = {}
+    for label, sg in shapes:
+        k = sum(sg)
+        x = torch.randn(k, generator=gen, device="cuda")
+        x[::9] = 0.0                      # zeros: tern's nnz
+        x[4::17] = -0.0
+        for mode in ("bf16", "int8", "tern"):
+            codes, scales, dq = wire_pack.quantize_pack(x, mode=mode, seg=sg)
+            raw = wire_pack.wire_codes(x, scales, sg, mode)[0]
+            pc, pdq = wire_pack.wire_codes_plain(x, scales, sg, mode)
+            if mode == "tern":
+                pc = wire_pack.tern_pack_plain(pc)
+            compare(f"wire_codes/{label} {mode}", (codes, dq), (pc, pdq))
+            if not torch.equal(dq.view(torch.int32), pdq.view(torch.int32)):
+                raise AssertionError(f"wire_codes/{label} {mode}: dq bytes")
+            if not torch.equal(dq, quantize_segments(x, mode, sg)):
+                raise AssertionError(f"wire_codes/{label} {mode}: shipped "
+                                     f"values differ from quantize_segments")
+            if mode == "tern":
+                compare(f"tern_pack/{label}", (codes,),
+                        (wire_pack.tern_pack_plain(raw),))
+            ms = timer(lambda: wire_pack.wire_codes(x, scales, sg, mode))
+            plain_ms = timer(lambda: wire_pack.wire_codes_plain(
+                x, scales, sg, mode))
+            lib_ms = (timer(lambda: x.to(torch.bfloat16)) if mode == "bf16"
+                      else None)
+            # x read once, the code (2 B bf16, 1 B else) and dq written
+            # once, the segment ends and scales read once
+            nbytes = k * (4 + (2 if mode == "bf16" else 1) + 4) \
+                + 12 * len(sg)
+            rows["wire_codes", label, mode] = (ms, plain_ms, lib_ms,
+                                              nbytes / rate * 1e3)
+            # the launch alone, on outputs and segment ends made beforehand
+            out = torch.empty_like(raw)
+            ends = torch.from_numpy(np.cumsum(sg)).cuda()
+            launch_ms = timer(lambda: build.library().wire_codes(
+                x.data_ptr(), k, wire_pack.MODES[mode], scales.data_ptr(),
+                ends.data_ptr(), len(sg), out.data_ptr(), dq.data_ptr(),
+                build.stream()))
+            log(f"  wire_codes {label} (k={k}, {len(sg)} segments) {mode}: "
+                f"kernel {ms:.4f} ms (launch alone {launch_ms:.4f} ms), "
+                f"plain {plain_ms:.4f} ms, library {lib_ms} ms, bound "
+                f"{nbytes / rate * 1e3:.5f} ms")
+        # raw: the last mode's codes, the tern signs
+        ms = timer(lambda: wire_pack.tern_pack(raw))
+        plain_ms = timer(lambda: wire_pack.tern_pack_plain(raw))
+        packed = wire_pack.tern_pack(raw)
+        launch_ms = timer(lambda: build.library().tern_pack(
+            raw.data_ptr(), k, packed.data_ptr(), build.stream()))
+        nbytes = k + (k + 3) // 4
+        rows["tern_pack", label] = (ms, plain_ms, None, nbytes / rate * 1e3)
+        log(f"  tern_pack {label} (k={k}): kernel {ms:.4f} ms (launch "
+            f"alone {launch_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{nbytes / rate * 1e3:.5f} ms")
+    # the table rows: phase D's shapes, a phase B message (int8 up in D1,
+    # tern up in D2)
+    for info, key in ((wire_pack.INFO, ("wire_codes", "message", "int8")),
+                      (wire_pack.PACK_INFO, ("tern_pack", "message"))):
+        ms, plain_ms, lib_ms, bound_ms = rows[key]
+        results.append(dict(
+            name=info.name, route="cuda", source=info.source,
+            replaces=info.replaces, max_abs_err=errs[info.name], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            library_ms=lib_ms))
 
 
 # ---------------------------------------------------------------------------
@@ -355,9 +457,13 @@ def phase_a(torch):
 # ---------------------------------------------------------------------------
 
 FULL_CAP = 96       # events of the full-width runs (run_big's own cap)
+FULL_DIMS = (512, 2048, 2304, 2048, 10)   # run_big's MLP
 # the kernel rows whose launch counts come from phase B; kernel 4's row
 # takes phase C's, the batched loop it was written for
 SERIAL_ROWS = ("scatter_add", "block_topk", "samomentum_fused")
+# the kernels the simulator's loops run (phases B and C); the wire kernels
+# run in the codec, phase D
+SIM_KERNELS = SERIAL_ROWS + ("scatter_add_rows",)
 
 
 def _full_width(torch):
@@ -370,7 +476,7 @@ def _full_width(torch):
     from repro_torch.core.paramspace import ParamSpace
     from repro_torch.models.mlp import MLP
 
-    dims = (512, 2048, 2304, 2048, 10)
+    dims = FULL_DIMS
     n_workers, n_events = 100, 1_000_000
     rng = np.random.default_rng(0)
     params_np = {}
@@ -426,7 +532,7 @@ def phase_b(torch, results, ref):
     for row in results:
         if row["name"] in SERIAL_ROWS:
             row["launches"] = launches[row["name"]]
-    if min(launches.values()) == 0:
+    if min(launches[name] for name in SIM_KERNELS) == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
     if not np.all(np.isfinite(hist.losses)):
         raise AssertionError("non-finite loss")
@@ -566,9 +672,9 @@ def phase_c(torch, results, ref):
         + ", ".join(f"{k} {v:.3f}" for k, v in spans.items())
         + f"; sum {sum(spans.values()):.3f} of {dt * 1e3:.3f} wall")
     for row in results:
-        if row["name"] not in SERIAL_ROWS:
+        if row["name"] == "scatter_add_rows":
             row["launches"] = launches[row["name"]]
-    if min(launches.values()) == 0:
+    if min(launches[name] for name in SIM_KERNELS) == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
     rows_launches = launches["scatter_add_rows"]
     if rows_launches != len(batches) * (2 + space.n_leaves):
@@ -593,6 +699,229 @@ def phase_c(torch, results, ref):
         f"drained: {md['n_events']} events, staleness "
         f"{md['staleness_hist']}")
     del final, sstate
+
+
+# ---------------------------------------------------------------------------
+# phase D: the cluster runtime at full width
+# ---------------------------------------------------------------------------
+
+CLUSTER_SPANS = ("coord/server_batch", "coord/encode", "coord/commit",
+                 "coord/reply", "client/step", "client/encode",
+                 "client/exchange", "client/apply")
+
+
+def _trace_spans(trace_dir):
+    """Host span totals (ms) of a Recorder's trace, and its serving window
+    (s): from the first ``coord/server_batch`` start to the last
+    ``coord/reply`` end."""
+    spans: dict = {}
+    first, last = float("inf"), 0.0
+    trace = json.loads((trace_dir / "trace.json").read_text())
+    for ev in trace["traceEvents"]:
+        if ev.get("ph") != "X" or ev["name"] not in CLUSTER_SPANS:
+            continue
+        spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+        if ev["name"] == "coord/server_batch":
+            first = min(first, ev["ts"])
+        if ev["name"] == "coord/reply":
+            last = max(last, ev["ts"] + ev["dur"])
+    return spans, (last - first) / 1e6
+
+
+def _log_spans(label, spans, window, n_events):
+    log(f"  {label}: host span totals (ms; the clients' spans overlap): "
+        + ", ".join(f"{k} {spans[k]:.3f}" for k in CLUSTER_SPANS
+                    if k in spans))
+    log(f"  {label}: serving window {window * 1e3:.3f} ms, "
+        f"{(n_events - 1) / window:.2f} events/s within it")
+
+
+def _cluster_run(torch, label, tr, params0, sched, batch_fn, trace_dir):
+    """One ``run_inprocess`` of trainer ``tr``'s configuration, one worker
+    slot per trainer worker, with a Recorder; the launch counters are set to
+    0 just before it and read just after.  Prints events/s, peak memory,
+    launches per event, the mean batch and the host span totals.  Returns
+    (final, hist, launches)."""
+    from repro_torch import kernels
+    from repro_torch.cluster import run_inprocess
+    from repro_torch.telemetry import Recorder
+
+    cap = len(sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recorder(trace_dir)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    final, hist = run_inprocess(
+        tr.strategy, tr.grad_fn, params0, batch_fn, schedule=sched,
+        n_workers=tr.n_workers, lr=tr.lr,
+        secondary_density=tr.secondary_density,
+        secondary_spec=tr.secondary_spec, recorder=rec, timeout=300.0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {info.name: info.launches for info in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    rec.close()
+    batches = hist.metrics["batch_sizes"]
+    log(f"  {label}: {cap} events in {dt:.3f} s: {cap / dt:.2f} events/s "
+        f"(client threads' set-up included), {len(batches)} server passes, "
+        f"mean batch {cap / len(batches):.2f}")
+    log(f"  {label}: launches {launches} "
+        f"({ {k: v / cap for k, v in launches.items()} } per event)")
+    log(f"  {label}: peak device memory {peak / 2**30:.2f} GiB")
+    _log_spans(label, *_trace_spans(trace_dir), cap)
+    log(f"  {label}: wall {dt * 1e3:.3f} ms")
+    return final, hist, launches
+
+
+def _same_run(torch, label, final, hist, want_final, want):
+    """Bit-equality of two runs: losses, worker ids, staleness, final
+    params, up and down bytes."""
+    for field in ("losses", "worker_ids", "staleness"):
+        if not np.array_equal(getattr(hist, field), getattr(want, field)):
+            raise AssertionError(f"{label}: {field} differ")
+    if (hist.up_bytes, hist.down_bytes) != (want.up_bytes, want.down_bytes):
+        raise AssertionError(f"{label}: bytes {hist.up_bytes, hist.down_bytes}"
+                             f" != {want.up_bytes, want.down_bytes}")
+    for key, t in final.items():
+        if not torch.equal(t.cpu(), want_final[key].cpu()):
+            raise AssertionError(f"{label}: final {key} differs")
+
+
+def phase_d(torch, results, ref):
+    """The cluster runtime at full width: D1 against phase B, D2 against
+    the serial loop of its own configuration, D3 the TCP launcher."""
+    import dataclasses
+    import os
+
+    from repro_torch.core import make_strategy
+
+    if "hist" not in ref:
+        raise AssertionError("phase B left no result to hold phase D1 to")
+    space, params0, sched, batch_fn, tr = _full_width(torch)
+    cap = FULL_CAP
+    log(f"  schedule: {cap} events, {len(set(sched.tolist()))} distinct "
+        f"workers, {tr.n_workers} slots")
+
+    # D1: phase B's configuration (int8 up, none down), bit-equal to B
+    final, hist, launches = _cluster_run(
+        torch, "D1", tr, params0, sched, batch_fn,
+        ROOT / "build" / "phase_d1_trace")
+    _same_run(torch, "D1", final, hist, ref["final"], ref["hist"])
+    if (launches["wire_codes"], launches["tern_pack"]) != (cap, 0):
+        raise AssertionError(f"D1: kernels 5 and 6 launched {launches}, "
+                             f"expected one int8 UP per event")
+    log("  D1 bit-equal to phase B: losses, worker ids, staleness, final "
+        "params, up and down bytes")
+    row = next(r for r in results if r["name"] == "wire_codes")
+    row["launches"] = launches["wire_codes"]
+    del final
+
+    # D2: tern up, bf16 down; held to the serial loop of the same
+    # configuration, run here on the card
+    tr2 = dataclasses.replace(
+        tr, strategy=make_strategy("dgs", density=0.001, momentum=0.7,
+                                   quantize="tern", engine="blockwise"),
+        secondary_spec=dataclasses.replace(tr.secondary_spec,
+                                           quantize="bf16"))
+    t0 = time.perf_counter()
+    want_final, sstate, want = tr2.run(params0, sched, batch_fn)
+    del sstate                 # D2's peak memory is the cluster's alone
+    torch.cuda.synchronize()
+    log(f"  D2 serial reference run: {cap / (time.perf_counter() - t0):.2f} "
+        f"events/s")
+    want_final = {key: t.cpu() for key, t in want_final.items()}
+    final, hist, launches = _cluster_run(
+        torch, "D2", tr2, params0, sched, batch_fn,
+        ROOT / "build" / "phase_d2_trace")
+    _same_run(torch, "D2", final, hist, want_final, want)
+    if (launches["wire_codes"], launches["tern_pack"]) != (2 * cap, cap):
+        raise AssertionError(f"D2: kernels 5 and 6 launched {launches}, "
+                             f"expected a tern UP and a bf16 DOWN per event")
+    log("  D2 bit-equal to the serial run: losses, worker ids, staleness, "
+        "final params, up and down bytes")
+    row = next(r for r in results if r["name"] == "tern_pack")
+    row["launches"] = launches["tern_pack"]
+    del final, want_final
+
+    # D3: the TCP launcher's smoke, two client processes on the card
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.cluster", "--smoke",
+         "--timeout", "120"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=400)
+    for line in (proc.stdout + proc.stderr).strip().splitlines()[-8:]:
+        log(f"  D3 | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"D3: the TCP smoke exited {proc.returncode}")
+    log(f"  D3: TCP smoke exit 0 in {time.perf_counter() - t0:.1f} s")
+
+    phase_d4(torch, env)
+
+
+# D4: the TCP launcher at phase B's widths and density
+D4_FLAGS = ["--clients", "4", "--rounds", "8", "--features", "512",
+            "--hidden", "2048,2304,2048", "--classes", "10",
+            "--batch-size", "8", "--strategy", "dgs", "--density", "0.001",
+            "--momentum", "0.7", "--quantize", "int8",
+            "--secondary-density", "0.001", "--lr", "0.05",
+            "--timeout", "120"]
+
+
+def phase_d4(torch, env):
+    """``python -m repro_torch.launch.cluster`` at full width: a coordinator
+    and 4 client processes over TCP on the card.  Its events and measured
+    up and down bytes must equal an in-process run of the same problem
+    (the launcher's own ``problem``) over a schedule of the same events;
+    the served order differs (arrival order against the schedule), so the
+    losses are only held finite."""
+    import re
+
+    from repro_torch.core import async_sim
+    from repro_torch.launch import cluster as launcher
+
+    trace_dir = ROOT / "build" / "phase_d4_trace"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.cluster", *D4_FLAGS,
+         "--trace-dir", str(trace_dir)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=400)
+    out = proc.stdout + proc.stderr
+    for line in out.strip().splitlines()[-8:]:
+        log(f"  D4 | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"D4: the TCP launcher exited {proc.returncode}")
+    log(f"  D4: TCP run exit 0 in {time.perf_counter() - t0:.1f} s (four "
+        f"client processes' start-up included)")
+    events = re.search(r"\] (\d+) events in .*\| loss (\S+) -> (\S+)", out)
+    wire_bytes = re.search(r"measured wire bytes: up=(\d+) .* down=(\d+) ",
+                           out)
+    if events is None or wire_bytes is None:
+        raise AssertionError("D4: the launcher printed no events or bytes")
+    if not all(np.isfinite(float(x)) for x in events.groups()[1:]):
+        raise AssertionError(f"D4: losses {events.groups()[1:]}")
+    _log_spans("D4 TCP", *_trace_spans(trace_dir), int(events.group(1)))
+
+    args = launcher.parse_args(D4_FLAGS)
+    params0, grad_fn, batch_fn, _ = launcher.problem(args)
+    tr = async_sim.AsyncTrainer(
+        launcher.strategy(args), grad_fn, args.clients, lr=args.lr,
+        secondary_density=args.secondary_density,
+        secondary_spec=launcher.secondary_spec(args), device=args.device)
+    sched = np.tile(np.arange(args.clients), args.rounds)
+    _, hist, _ = _cluster_run(torch, "D4 in-process", tr, params0, sched,
+                              batch_fn, ROOT / "build" / "phase_d4i_trace")
+    got = (int(events.group(1)), int(wire_bytes.group(1)),
+           int(wire_bytes.group(2)))
+    want = (len(hist.losses), hist.up_bytes, hist.down_bytes)
+    if got != want or not np.isfinite(hist.losses).all():
+        raise AssertionError(f"D4: TCP events and bytes {got} != in-process "
+                             f"{want}")
+    log(f"  D4: TCP events and bytes equal the in-process run's: {got}")
 
 
 def main() -> int:
@@ -631,7 +960,8 @@ def main() -> int:
                                                        results)),
                       ("a", lambda: phase_a(torch)),
                       ("b", lambda: phase_b(torch, results, ref)),
-                      ("c", lambda: phase_c(torch, results, ref))):
+                      ("c", lambda: phase_c(torch, results, ref)),
+                      ("d", lambda: phase_d(torch, results, ref))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()
         try:
@@ -643,7 +973,7 @@ def main() -> int:
             failed.append(f"{phase}: {exc!r}")
         log(f"== phase {phase}: {time.perf_counter() - t0:.1f} s")
     # every kernel row needs its launch count from its main-path run
-    if len(results) != 4 or any("launches" not in row for row in results):
+    if len(results) != 6 or any("launches" not in row for row in results):
         failed.append("kernel rows lack the main path's launch counts")
     if failed:
         print("chip_smoke FAILED: " + "; ".join(failed), file=sys.stderr)

@@ -115,38 +115,51 @@ def _tern_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(total).reshape(())
 
 
+def quantize_scales(values2d: torch.Tensor, mode: str) -> torch.Tensor:
+    """The wire scale of each row of ``(B, k)`` f32, ``(B, 1)``: int8's
+    ``max|v| / 127 + 1e-12``, tern's mean ``|v|`` over the nonzeros, zero
+    for none and bf16.  :func:`quantize_rows` and the codec's
+    ``quantize_pack`` both take their scales from here.
+
+    The tern scale of each row is the 1-D :func:`_tern_sum` of that row, so
+    a batch of rows adds in the order one row alone does.
+    """
+    if mode == "int8":
+        # XLA: max / 127 + 1e-12  ->  fma(max, 1/127, 1e-12)
+        return fma(values2d.abs().amax(dim=1, keepdim=True), rcp(127.0),
+                   1e-12)
+    if mode == "tern":
+        nnz = torch.clamp((values2d != 0.0).sum(dim=1, keepdim=True), min=1)
+        total = torch.stack([_tern_sum(row.abs()) for row in values2d])
+        return total.reshape(-1, 1) / nnz.to(torch.float32)
+    if mode in ("none", "bf16"):
+        return torch.zeros((values2d.shape[0], 1), dtype=torch.float32,
+                           device=values2d.device)
+    raise ValueError(f"unknown quantization mode {mode!r}")
+
+
 def quantize_rows(values2d: torch.Tensor, mode: str):
     """(codes, scale, dequantized) of each row of ``(B, k)``, each row with
-    its own scale (``(B, 1)``) -- THE quantization arithmetic.
+    its own scale (``(B, 1)``, from :func:`quantize_scales`) -- THE
+    quantization arithmetic.
 
     none  -- float32 passthrough; codes == values
     bf16  -- bfloat16 wire; codes are the bf16 values
     int8  -- symmetric per-message int8 with one f32 scale
     tern  -- TernGrad-style {-1, 0, +1} * mean|v| over the nonzeros
-
-    The tern scale of each row is the 1-D :func:`_tern_sum` of that row, so
-    a batch of rows adds in the order one row alone does.
     """
     values = values2d.to(torch.float32)
-    zero = torch.zeros((values.shape[0], 1), dtype=torch.float32,
-                       device=values.device)
+    scale = quantize_scales(values, mode)
     if mode == "none":
-        return values, zero, values
+        return values, scale, values
     if mode == "bf16":
         b = values.to(torch.bfloat16)
-        return b, zero, b.to(torch.float32)
+        return b, scale, b.to(torch.float32)
     if mode == "int8":
-        # XLA: max / 127 + 1e-12  ->  fma(max, 1/127, 1e-12)
-        scale = fma(values.abs().amax(dim=1, keepdim=True), rcp(127.0), 1e-12)
         q = torch.clamp(torch.round(values / scale), -127, 127)
         return q.to(torch.int8), scale, q * scale
-    if mode == "tern":
-        nnz = torch.clamp((values != 0.0).sum(dim=1, keepdim=True), min=1)
-        total = torch.stack([_tern_sum(row.abs()) for row in values])
-        scale = total.reshape(-1, 1) / nnz.to(torch.float32)
-        s = torch.sign(values)
-        return s.to(torch.int8), scale, s * scale
-    raise ValueError(f"unknown quantization mode {mode!r}")
+    s = torch.sign(values)   # tern
+    return s.to(torch.int8), scale, s * scale
 
 
 def quantize_parts(values: torch.Tensor, mode: str):

@@ -18,7 +18,8 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def _generator(*words: int) -> torch.Generator:
+def seeded_generator(*words: int) -> torch.Generator:
+    """A CPU ``torch.Generator`` seeded from a tuple of integers."""
     seed = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(seed) >> 1)
 
@@ -37,7 +38,7 @@ class ClassificationTask:
 
     def centers(self) -> torch.Tensor:
         return torch.randn((self.n_classes, self.n_features),
-                           generator=_generator(self.seed + 999))
+                           generator=seeded_generator(self.seed + 999))
 
     def _draw(self, gen: torch.Generator, n: int):
         y = torch.randint(0, self.n_classes, (n,), generator=gen)
@@ -46,8 +47,8 @@ class ClassificationTask:
         return x.to(self.device), y.to(self.device)
 
     def batch(self, step: int, worker: int = 0):
-        return self._draw(_generator(self.seed, step, worker),
+        return self._draw(seeded_generator(self.seed, step, worker),
                           self.batch_size)
 
     def eval_set(self, n: int = 512):
-        return self._draw(_generator(self.seed + 31337), n)
+        return self._draw(seeded_generator(self.seed + 31337), n)

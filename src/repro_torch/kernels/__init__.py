@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch
 version beside it (see ``build.py`` for how they are built)."""
-from . import block_topk, samomentum_kernel, scatter_apply
+from . import block_topk, samomentum_kernel, scatter_apply, wire_pack
 
 KERNELS = (scatter_apply.INFO, block_topk.INFO, samomentum_kernel.INFO,
-           scatter_apply.ROWS_INFO)
+           scatter_apply.ROWS_INFO, wire_pack.INFO, wire_pack.PACK_INFO)
 
 
 def reset_launches() -> None:

@@ -49,5 +49,5 @@ def block_topk_2d(x2d: torch.Tensor, *, r: int):
     rc = build.library().block_topk(x2d.data_ptr(), vals.data_ptr(),
                                     idx.data_ptr(), nb, r, build.stream())
     build.check(rc, INFO.name)
-    INFO.launches += 1
+    build.count(INFO)
     return vals, idx

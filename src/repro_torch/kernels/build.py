@@ -7,6 +7,10 @@ which ``ctypes`` loads.  The hash covers every source and the flags, so an
 edited source rebuilds and an unchanged one is reused.  Nothing here runs at
 import time: the CPU tests import every kernel module without ``nvcc``.
 
+Thread safety: the cluster runtime launches kernels from many threads, so
+the first build and load run under one lock (exactly one build per
+process) and the launch counters rise under another (:func:`count`).
+
 Flags: ``sm_90a`` (Hopper), ``-O3`` and NO ``--use_fast_math``: the kernels'
 bit-equality with their plain versions rests on IEEE rounding and on the
 explicit ``__f*_rn`` intrinsics.
@@ -19,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -35,7 +40,7 @@ LIB_NAME = "libreprotorch_kernels.so"
 class KernelInfo:
     """One kernel of the port: where it lives, what it replaces, and how
     often its wrapper launched it (a plain counter, raised only at a
-    launch)."""
+    launch, through :func:`count`)."""
 
     name: str
     source: str     # path in the repository
@@ -44,7 +49,16 @@ class KernelInfo:
 
 
 _LIB = None
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 BUILD_SECONDS: float | None = None
+
+
+def count(info: KernelInfo, n: int = 1) -> None:
+    """Raise a kernel's launch counter by ``n``, atomically across
+    threads."""
+    with _COUNT_LOCK:
+        info.launches += n
 
 
 def _nvcc() -> str:
@@ -110,24 +124,34 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
+def _declare(lib) -> None:
+    """Declare every C function's argument and result types."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.scatter_add_sorted.argtypes = [p, i64, p, p, p, i64, p]
+    lib.scatter_add_rows_sorted.argtypes = [p, i64, p, p, p, p, i64, i64, p]
+    lib.block_topk.argtypes = [p, p, p, i64, i32, p]
+    lib.samomentum_fused.argtypes = [p, p, p, p, p, ctypes.c_float,
+                                     ctypes.c_float, ctypes.c_float, i64, i64,
+                                     p]
+    lib.wire_codes.argtypes = [p, i64, i32, p, p, i32, p, p, p]
+    lib.tern_pack.argtypes = [p, i64, p, p]
+    for fn in (lib.scatter_add_sorted, lib.scatter_add_rows_sorted,
+               lib.block_topk, lib.samomentum_fused, lib.wire_codes,
+               lib.tern_pack):
+        fn.restype = ctypes.c_int
+
+
 def library():
-    """The loaded kernel library, built on first call, with every C
-    function's signature declared."""
+    """The loaded kernel library, built and loaded once per process (the
+    first caller builds, concurrent first callers wait for it), with every
+    C function's signature declared."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.scatter_add_sorted.argtypes = [p, i64, p, p, p, i64, p]
-        lib.scatter_add_rows_sorted.argtypes = [p, i64, p, p, p, p, i64, i64,
-                                                p]
-        lib.block_topk.argtypes = [p, p, p, i64, ctypes.c_int, p]
-        lib.samomentum_fused.argtypes = [p, p, p, p, p, ctypes.c_float,
-                                         ctypes.c_float, ctypes.c_float,
-                                         i64, i64, p]
-        for fn in (lib.scatter_add_sorted, lib.scatter_add_rows_sorted,
-                   lib.block_topk, lib.samomentum_fused):
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        with _LIB_LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(str(build()))
+                _declare(lib)
+                _LIB = lib
     return _LIB
 
 

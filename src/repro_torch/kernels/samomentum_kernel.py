@@ -69,5 +69,5 @@ def samomentum_fused_flat(u: torch.Tensor, g: torch.Tensor,
         float(np.float32(lr)), rcp(momentum), u.numel(), max(n_row, 1),
         build.stream())
     build.check(rc, INFO.name)
-    INFO.launches += 1
+    build.count(INFO)
     return out, u_new

@@ -71,7 +71,7 @@ def scatter_add_(dense: torch.Tensor, indices: torch.Tensor,
         dense.data_ptr(), dense.numel(), sidx.data_ptr(), perm.data_ptr(),
         values.data_ptr(), indices.numel(), build.stream())
     build.check(rc, INFO.name)
-    INFO.launches += 1
+    build.count(INFO)
     return dense
 
 
@@ -129,5 +129,5 @@ def scatter_add_rows_(dense2d: torch.Tensor, rows, idx2d: torch.Tensor,
         sidx.data_ptr(), perm.data_ptr(), vals2d.data_ptr(), idx2d.shape[0],
         idx2d.shape[1], build.stream())
     build.check(rc, ROWS_INFO.name)
-    ROWS_INFO.launches += 1
+    build.count(ROWS_INFO)
     return dense2d

@@ -3,12 +3,15 @@
 (in, out) and ``b{i}``, ReLU between layers, and a cross-entropy
 ``grad_fn`` on ``torch.autograd`` -- the counterpart of the reference's
 ``jax.value_and_grad`` functions.
+
+``loss``, ``grad_fn`` and ``accuracy`` compute from the ``params`` dict they
+are given and never touch the module's own parameters, so many threads (the
+cluster's clients) may call them on one model at once.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.func import functional_call
 
 from repro_torch.device import resolve_device
 
@@ -35,13 +38,17 @@ class MLP(nn.Module):
                 f"b{j}", nn.Parameter(torch.zeros(b, device=device)))
             self.names.append((f"w{j}", f"b{j}"))
 
-    def forward(self, x):
+    def logits(self, params: dict, x):
+        """The network at ``params`` (a dict keyed like the parameters)."""
         h = x
         for i, (w, b) in enumerate(self.names):
-            h = h @ getattr(self, w) + getattr(self, b)
+            h = h @ params[w] + params[b]
             if i < len(self.names) - 1:
                 h = torch.relu(h)
         return h
+
+    def forward(self, x):
+        return self.logits(dict(self.named_parameters()), x)
 
     def params(self) -> dict:
         """The weights as a plain dict of tensors (the trainer's tree)."""
@@ -50,8 +57,7 @@ class MLP(nn.Module):
     def loss(self, params: dict, batch):
         """Mean cross-entropy of the model at ``params`` on ``(x, y)``."""
         x, y = batch
-        logits = functional_call(self, params, (x,))
-        return nn.functional.cross_entropy(logits, y)
+        return nn.functional.cross_entropy(self.logits(params, x), y)
 
     def grad_fn(self, params: dict, batch):
         """(loss, grads) at ``params`` -- the trainer's ``grad_fn``."""
@@ -65,5 +71,5 @@ class MLP(nn.Module):
     @torch.no_grad()
     def accuracy(self, params: dict, batch) -> float:
         x, y = batch
-        pred = functional_call(self, params, (x,)).argmax(-1)
+        pred = self.logits(params, x).argmax(-1)
         return float((pred == y).float().mean())

@@ -160,8 +160,8 @@ def test_rows_wrappers_take_the_plain_path_on_the_cpu(monkeypatch):
     tops.scatter_add_rows(x.clone(), [2, 0], torch.ones((2, 4),
                                                        dtype=torch.int32),
                           torch.ones(2, 4))
-    assert [info.launches for info in tkernels.KERNELS] == [0, 0, 0, 0]
-    assert tkernels.KERNELS[-1] is scatter_apply.ROWS_INFO
+    assert [info.launches for info in tkernels.KERNELS] == [0] * 6
+    assert scatter_apply.ROWS_INFO in tkernels.KERNELS
 
 
 # ------------------------------------------------------------ kernels 2, 3
