@@ -8,10 +8,16 @@ exits nonzero and prints no result line):
 
 * kernels -- builds the hand-written CUDA kernels from ``src/repro_torch/
   kernels/csrc`` and holds each against its plain PyTorch version on the card,
-  bit for bit, at the main path's shapes; times kernel, plain version and the
-  nearest library call, beside the memory bound.  The wire kernels (5-6) are
-  held byte for byte, at a message of phase B (k = 10,514 in 8 segments) and
-  at one 4,718,592-element vector.
+  bit for bit (-0 and +0 differ), at the main path's shapes; times kernel,
+  plain version and the nearest library call, beside the memory bound.  The
+  flat scatter-add also meets adversarial cases (all updates on one index or
+  in one CTA's range, duplicates across the kernel's rounds, out-of-range
+  indices, -0 runs with +0 pads, k = 0 and 1), the block top-k adversarial
+  blocks (all equal, zeros of both signs, denormals, ties across lanes,
+  infinities) at r from 1 to 1024 around its regime switch and at a 4-byte
+  offset; both report the C call alone and the wrapper's host time per call.
+  The wire kernels (5-6) are held byte for byte, at a message of phase B
+  (k = 10,514 in 8 segments) and at one 4,718,592-element vector.
 * a -- the quickstart configuration (8 workers, 600 events, asgd and dgs) on
   the card and on the CPU from the same weights and numpy batches; bytes,
   losses and accuracy must agree within the stated tolerances.
@@ -95,6 +101,18 @@ class Timer:
         return statistics.median(times)
 
 
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one call, microseconds: ``calls`` calls enqueued back to
+    back, no synchronization inside (the card runs behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -106,73 +124,116 @@ def kernel_phase(torch, timer, rate, results):
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
 
-    def compare(name, got, want):
+    def bits(t):
+        """A tensor's bit pattern: -0 and +0 differ, as the kernels' must."""
+        if t.dtype == torch.float32:
+            return t.view(torch.int32)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16)
+        return t
+
+    def compare(name, got, want, quiet=False):
         for g, w in zip(got, want):
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
                                      f"{w.shape}/{w.dtype}")
-            if not torch.equal(g, w):
-                bad = int((g != w).sum())
+            if not torch.equal(bits(g), bits(w)):
+                bad = int((bits(g) != bits(w)).sum())
                 raise AssertionError(f"{name}: {bad} elements differ")
             if g.is_floating_point():
                 err = float((g.double() - w.double()).abs().max())
                 errs[name.split("/")[0]] = max(errs.get(name.split("/")[0],
                                                         0.0), err)
         errs.setdefault(name.split("/")[0], 0.0)
-        log(f"  {name}: bit-equal")
+        if not quiet:
+            log(f"  {name}: bit-equal")
 
     # 1. scatter-add at the arena size, k = density 0.001 of every tensor
+    from repro_torch.kernels import build
     n, k = 10_512_650, 10_514
     dense = torch.randn(n, generator=gen, device="cuda")
     idx = torch.randperm(n, generator=gen, device="cuda")[:k].to(torch.int32)
     vals = torch.randn(k, generator=gen, device="cuda")
-    dup = idx.clone()
-    dup[::3] = dup[0]            # planted duplicates, summed in order
-    dup[1::7] = 123
-    for name, ii in (("scatter_add/unique", idx), ("scatter_add/dups", dup)):
-        a = scatter_apply.scatter_add_(dense.clone(), ii, vals)
-        b = scatter_apply.scatter_add_plain(dense.clone(), ii, vals)
-        compare(name, (a,), (b,))
+    dense[idx[:60].long()] = -torch.zeros(60, device="cuda")
+    for name, ii, vv in scatter_cases(torch, gen, n, idx, vals):
+        a = scatter_apply.scatter_add_(dense.clone(), ii, vv)
+        b = scatter_apply.scatter_add_plain(dense.clone(), ii, vv)
+        compare(f"scatter_add/{name}", (a,), (b,))
+        del a, b
     d1, d2, d3 = dense.clone(), dense.clone(), dense.clone()
     ms = timer(lambda: scatter_apply.scatter_add_(d1, idx, vals))
     plain_ms = timer(lambda: scatter_apply.scatter_add_plain(d2, idx, vals))
     lib_ms = timer(lambda: d3.index_add_(0, idx, vals))
+    # the launch alone: the C call on the same operands
+    launch_ms = timer(lambda: build.library().scatter_add(
+        d1.data_ptr(), n, idx.data_ptr(), vals.data_ptr(), k,
+        build.stream()))
     # k indices + k values read, k target words read and written
     nbytes = 4 * k + 4 * k + 8 * k
+    host = (host_us(torch, lambda: scatter_apply.scatter_add_(d1, idx, vals)),
+            host_us(torch, lambda: d3.index_add_(0, idx, vals)))
+    log(f"  scatter_add (n={n}, k={k}): wrapper {ms:.4f} ms (launch alone "
+        f"{launch_ms:.4f} ms), plain {plain_ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, bound {nbytes / rate * 1e3:.5f} ms; host per "
+        f"call: wrapper {host[0]:.1f} us, index_add_ {host[1]:.1f} us")
     results.append(dict(
         name=scatter_apply.INFO.name, route="cuda",
         source=scatter_apply.INFO.source, replaces=scatter_apply.INFO.replaces,
         max_abs_err=errs["scatter_add"], ms=ms, plain_ms=plain_ms,
-        bound_ms=nbytes / rate * 1e3, bound_by="bytes", library_ms=lib_ms))
+        bound_ms=nbytes / rate * 1e3, bound_by="bytes", library_ms=lib_ms,
+        launch_ms=launch_ms))
+    del d1, d2, d3
 
     # 2. block top-r on the 4,718,592-element leaf (w1 / w2 of the MLP)
     n2 = 2304 * 2048
     x = torch.randn(n2, generator=gen, device="cuda")
     x[::7] = 0.5                  # planted magnitude ties
     x[3::11] = -0.5
-    x[1024:2048] = 0.0            # an all-zero block
+    plant_blocks(torch, gen, x.view(-1, block_topk.BLOCK))
     x2d = x.reshape(-1, block_topk.BLOCK)
-    for r in (4, 32, 1024):
+    # the same blocks at a 4-byte offset: the kernel's scalar-load path
+    shifted = torch.empty(n2 + 1, device="cuda")
+    shifted[1:] = x
+    x2d_odd = shifted[1:].view(-1, block_topk.BLOCK)
+    sel_max = block_topk.SELECT_MAX_R
+    for r in (1, 2, 4, 20, 31, 32, 33, sel_max, sel_max + 1, 1023, 1024):
         compare(f"block_topk/r={r}", block_topk.block_topk_2d(x2d, r=r),
                 block_topk.block_topk_plain(x2d, r))
-    timings = {}
-    for r in (32, 1024):
-        timings[r] = (
-            timer(lambda: block_topk.block_topk_2d(x2d, r=r)),
-            timer(lambda: block_topk.block_topk_plain(x2d, r)),
-            timer(lambda: torch.topk(x2d.abs(), r, dim=1)))
-        nb = x2d.shape[0]
-        log(f"  block_topk r={r}: kernel {timings[r][0]:.4f} ms, plain "
-            f"{timings[r][1]:.4f} ms, torch.topk {timings[r][2]:.4f} ms, "
-            f"bound {(4 * n2 + 8 * nb * r) / rate * 1e3:.4f} ms")
+        compare(f"block_topk/r={r}, 4-byte offset",
+                block_topk.block_topk_2d(x2d_odd, r=r),
+                block_topk.block_topk_plain(x2d, r), quiet=True)
+    log("  block_topk: every r also bit-equal at a 4-byte offset")
+    del shifted, x2d_odd
     nb = x2d.shape[0]
-    ms, plain_ms, lib_ms = timings[1024]
+    timings = {}
+    for r in (32, sel_max, sel_max + 1, 1024):
+        vals_o = torch.empty((nb, r), device="cuda")
+        idx_o = torch.empty((nb, r), dtype=torch.int32, device="cuda")
+        timings[r] = dict(
+            ms=timer(lambda: block_topk.block_topk_2d(x2d, r=r)),
+            launch_ms=timer(lambda: build.library().block_topk(
+                x2d.data_ptr(), vals_o.data_ptr(), idx_o.data_ptr(), nb, r,
+                build.stream())),
+            plain_ms=timer(lambda: block_topk.block_topk_plain(x2d, r)),
+            library_ms=timer(lambda: torch.topk(x2d.abs(), r, dim=1)),
+            bound_ms=(4 * n2 + 8 * nb * r) / rate * 1e3)
+        del vals_o, idx_o
+        t = timings[r]
+        host = host_us(torch, lambda: block_topk.block_topk_2d(x2d, r=r))
+        log(f"  block_topk r={r} ({'select' if r <= sel_max else 'sort'}): "
+            f"kernel {t['ms']:.4f} ms (launch alone {t['launch_ms']:.4f} ms),"
+            f" plain {t['plain_ms']:.4f} ms, torch.topk "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; host "
+            f"per call {host:.1f} us")
+    t, t32 = timings[1024], timings[32]
     results.append(dict(
         name=block_topk.INFO.name, route="cuda", source=block_topk.INFO.source,
         replaces=block_topk.INFO.replaces, max_abs_err=errs["block_topk"],
-        ms=ms, plain_ms=plain_ms,
-        bound_ms=(4 * n2 + 8 * nb * 1024) / rate * 1e3, bound_by="bytes",
-        library_ms=lib_ms))
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by="bytes", library_ms=t["library_ms"],
+        launch_ms=t["launch_ms"], r32_ms=t32["ms"],
+        r32_launch_ms=t32["launch_ms"], r32_plain_ms=t32["plain_ms"],
+        r32_bound_ms=t32["bound_ms"], r32_library_ms=t32["library_ms"]))
 
     # 3. fused SAMomentum on the same leaf, thr planted on an element
     u = torch.randn(n2, generator=gen, device="cuda")
@@ -234,7 +295,6 @@ def kernel_phase(torch, timer, rate, results):
                                               accumulate=True))
     # the wrapper's parts: its per-row sort, and the launch alone on
     # inputs sorted beforehand
-    from repro_torch.kernels import build
     sidx, perm = torch.sort(idx2d, dim=1, stable=True)
     sort_ms = timer(lambda: torch.sort(idx2d, dim=1, stable=True))
     launch_ms = timer(lambda: build.library().scatter_add_rows_sorted(
@@ -271,11 +331,22 @@ def kernel_phase(torch, timer, rate, results):
     log(f"  hierarchical_topk (16, {n2}), k={k2}, r=1024: rows "
         f"{rows_ms:.4f} ms, 16 single calls {single_ms:.4f} ms")
     nb2 = B * n2 // block_topk.BLOCK
-    bt_ms = timer(lambda: block_topk.block_topk_2d(
-        xr.view(-1, block_topk.BLOCK), r=1024))
+    xr2d = xr.view(-1, block_topk.BLOCK)
+    vals_o = torch.empty((nb2, 1024), device="cuda")
+    idx_o = torch.empty((nb2, 1024), dtype=torch.int32, device="cuda")
+    bt_ms = timer(lambda: block_topk.block_topk_2d(xr2d, r=1024), reps=5)
+    bt_launch_ms = timer(lambda: build.library().block_topk(
+        xr2d.data_ptr(), vals_o.data_ptr(), idx_o.data_ptr(), nb2, 1024,
+        build.stream()), reps=5)
+    del vals_o, idx_o
+    bt_lib_ms = timer(lambda: torch.topk(xr2d.abs(), 1024, dim=1), reps=5)
+    bt_bound = (4 * B * n2 + 8 * nb2 * 1024) / rate * 1e3
     log(f"  block_topk rows launch ({nb2}, 1024), r=1024: kernel "
-        f"{bt_ms:.4f} ms, bound {(4 * B * n2 + 8 * nb2 * 1024) / rate * 1e3:.4f}"
-        f" ms")
+        f"{bt_ms:.4f} ms (launch alone {bt_launch_ms:.4f} ms), torch.topk "
+        f"{bt_lib_ms:.4f} ms, bound {bt_bound:.4f} ms")
+    row = next(r for r in results if r["name"] == block_topk.INFO.name)
+    row.update(rows16_ms=bt_ms, rows16_launch_ms=bt_launch_ms,
+               rows16_library_ms=bt_lib_ms, rows16_bound_ms=bt_bound)
     u2 = fma(m, xr, lr * torch.randn(B, n2, generator=gen, device="cuda"))
     thr2 = u2[:, 777].abs().contiguous()   # one element per row sits on it
     compare("samomentum_fused/rows, one threshold per row",
@@ -294,6 +365,81 @@ def kernel_phase(torch, timer, rate, results):
             f"bound {row['bound_ms']:.5f} ms")
 
 
+def scatter_cases(torch, gen, n, idx, vals):
+    """The flat scatter-add's cases at the arena size: (name, indices,
+    values).  Unique indices; planted duplicates; all k on one index and
+    all k inside one CTA's range (several rounds of the kernel's
+    ``ROUND`` kept updates in one CTA); duplicates on both sides of a round
+    boundary; indices outside [0, n) mixed in; -0 runs with and without
+    the sampled engine's +0 pads (the targets of ``idx[:60]`` are set to
+    -0 in the arena first); k = 0 and k = 1."""
+    from repro_torch.kernels.scatter_apply import ROUND
+
+    k = idx.numel()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w = -(-n // min(n, sms))              # one CTA's range of words
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, (size,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    dup = idx.clone()
+    dup[::3] = dup[0]
+    dup[1::7] = 123
+    straddle = ints(n - w, n, k)          # all in the last CTA's range
+    for j in range(1, k // ROUND + 1):
+        straddle[j * ROUND - 1:j * ROUND + 1] = n - 7
+    oor = idx.clone()
+    ar = torch.arange(0, k, 5, device="cuda", dtype=torch.int32)
+    oor[::5] = n + ar
+    oor[2::5] = -1 - ar[:oor[2::5].numel()]
+    oor[3], oor[4], oor[8] = 2**31 - 1, -2**31, n
+    zeros = torch.zeros(50, device="cuda")
+    neg0 = torch.cat([idx[:50], idx[:50], idx[50:60], idx[60:], idx[:1].repeat(16)])
+    neg0_vals = torch.cat([-zeros, zeros, -zeros[:10], vals[60:],
+                           torch.zeros(16, device="cuda")])
+    return [("unique", idx, vals), ("dups", dup, vals),
+            ("all on one index", torch.full_like(idx, 4242), vals),
+            ("all in one CTA's range", ints(0, min(w, 3000), k), vals),
+            ("duplicates across round boundaries", straddle, vals),
+            ("out-of-range indices", oor, vals),
+            ("-0 runs and +0 pads", neg0, neg0_vals),
+            ("k=0", idx[:0], vals[:0]), ("k=1", idx[:1], vals[:1])]
+
+
+def plant_blocks(torch, gen, x2d):
+    """Adversarial blocks for the block top-k, in place on rows 1-8: all
+    zero, all equal, zeros of both signs, denormals, magnitude ties across
+    lane and register boundaries, small integers (ties at every rank),
+    mostly zero with normals and denormals, and infinities."""
+    def normal(size=1024):
+        return torch.randn(size, generator=gen, device="cuda")
+
+    sign = torch.where(normal() > 0, 1.0, -1.0)
+    mult = torch.randint(0, 5, (1024,), generator=gen,
+                         device="cuda").float()
+    tiny = torch.tensor(1e-41, device="cuda")     # below 2**-126
+    x2d[1] = 0.0
+    x2d[2] = 0.5
+    x2d[3] = 0.0 * sign
+    x2d[4] = mult * tiny * sign
+    x2d[4, ::9] = torch.tensor(1e-45, device="cuda") * sign[::9]
+    pos = torch.tensor([0, 3, 4, 31, 32, 33, 127, 128, 129, 511, 512, 513,
+                        1020, 1023], device="cuda")
+    b = normal()
+    b[pos] = 3.0 * sign[pos]
+    b[pos[:-1] + 1] = 2.5 * sign[pos[:-1]]
+    x2d[5] = b
+    x2d[6] = torch.round(normal() * 2)
+    b = torch.zeros(1024, device="cuda")
+    b[::50] = normal(21)
+    b[7::33] = mult[7::33] * tiny
+    x2d[7] = b
+    b = normal()
+    b[5], b[700], b[701] = float("inf"), float("-inf"), float("inf")
+    x2d[8] = b
+
+
 def full_width_seg(density: float = 0.001) -> tuple:
     """The per-tensor entry counts of a phase B message: ``space.ks`` of
     run_big's MLP, leaves in sorted-key order (10,514 in 8 segments)."""
@@ -308,7 +454,9 @@ def full_width_seg(density: float = 0.001) -> tuple:
 def wire_kernels(torch, timer, rate, results, compare, errs):
     """Kernels 5 (each mode) and 6 against their plain versions, byte for
     byte, at a phase B message and at one 4,718,592-element vector; timed
-    with the plain versions and, for bf16, ``x.to(torch.bfloat16)``."""
+    with the plain versions.  No single PyTorch call computes kernel 5
+    (codes and dequantized values): for bf16 the two calls
+    ``x.to(torch.bfloat16)`` and its ``.float()`` are timed beside it."""
     from repro_torch.core.sparsify import quantize_segments
     from repro_torch.kernels import build, wire_pack
 
@@ -339,13 +487,13 @@ def wire_kernels(torch, timer, rate, results, compare, errs):
             ms = timer(lambda: wire_pack.wire_codes(x, scales, sg, mode))
             plain_ms = timer(lambda: wire_pack.wire_codes_plain(
                 x, scales, sg, mode))
-            lib_ms = (timer(lambda: x.to(torch.bfloat16)) if mode == "bf16"
-                      else None)
+            pair_ms = (timer(lambda: x.to(torch.bfloat16).float())
+                       if mode == "bf16" else None)
             # x read once, the code (2 B bf16, 1 B else) and dq written
             # once, the segment ends and scales read once
             nbytes = k * (4 + (2 if mode == "bf16" else 1) + 4) \
                 + 12 * len(sg)
-            rows["wire_codes", label, mode] = (ms, plain_ms, lib_ms,
+            rows["wire_codes", label, mode] = (ms, plain_ms, None,
                                               nbytes / rate * 1e3)
             # the launch alone, on outputs and segment ends made beforehand
             out = torch.empty_like(raw)
@@ -354,9 +502,11 @@ def wire_kernels(torch, timer, rate, results, compare, errs):
                 x.data_ptr(), k, wire_pack.MODES[mode], scales.data_ptr(),
                 ends.data_ptr(), len(sg), out.data_ptr(), dq.data_ptr(),
                 build.stream()))
+            pair = ("" if pair_ms is None else
+                    f", x.to(bfloat16).float() {pair_ms:.4f} ms")
             log(f"  wire_codes {label} (k={k}, {len(sg)} segments) {mode}: "
                 f"kernel {ms:.4f} ms (launch alone {launch_ms:.4f} ms), "
-                f"plain {plain_ms:.4f} ms, library {lib_ms} ms, bound "
+                f"plain {plain_ms:.4f} ms{pair}, bound "
                 f"{nbytes / rate * 1e3:.5f} ms")
         # raw: the last mode's codes, the tern signs
         ms = timer(lambda: wire_pack.tern_pack(raw))
@@ -622,6 +772,11 @@ def phase_b(torch, results, ref):
             f"({busy_us / 1e6 / wall:.3f} busy share)")
         for t, key in sorted(rows, reverse=True)[:10]:
             log(f"    {t / 1e3 / len(window):8.3f} ms/event  {key[:90]}")
+        for label, part in (("block top-k", "block_topk_"),
+                            ("flat scatter-add", "scatter_add_kernel")):
+            t = sum(t for t, key in rows if part in key)
+            log(f"  profiler: {label} kernels {t / 1e3 / len(window):.3f} "
+                f"ms/event")
     del sstate, workers
 
 
@@ -980,8 +1135,10 @@ def main() -> int:
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in results]}))
+    print(json.dumps({"kernels": [
+        {**{k: row[k] for k in keys},
+         **{k: v for k, v in row.items() if k not in keys}}
+        for row in results]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,10 @@
 
 Replaces the TPU's argmax-sweep kernel (``repro/kernels/block_topk.py``,
 ``block_topk_2d``).  For each block of 1024 elements: the r largest |x|,
-ties to the lower index, as signed values and block-local indices.
+ties to the lower index, as signed values and block-local indices.  |x| is
+the sign-cleared bit pattern: -0 ties +0, denormals rank by magnitude.  One
+warp per block; up to ``SELECT_MAX_R`` a radix select and a sort of the
+candidates, above it a register and merge sort of the whole block.
 
 The wrapper takes a CPU tensor to :func:`block_topk_plain` and launches the
 kernel for a CUDA tensor; anything else raises.
@@ -16,6 +19,7 @@ from . import build
 
 BLOCK = 1024     # elements per block
 GROUP = 8        # ops pads to whole groups of blocks, as the reference
+SELECT_MAX_R = 64   # kSelectMaxR in csrc/block_topk.cu: the regime switch
 
 INFO = build.KernelInfo(
     name="block_topk",

@@ -127,7 +127,7 @@ def build(verbose: bool = False) -> Path:
 def _declare(lib) -> None:
     """Declare every C function's argument and result types."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.scatter_add_sorted.argtypes = [p, i64, p, p, p, i64, p]
+    lib.scatter_add.argtypes = [p, i64, p, p, i64, p]
     lib.scatter_add_rows_sorted.argtypes = [p, i64, p, p, p, p, i64, i64, p]
     lib.block_topk.argtypes = [p, p, p, i64, i32, p]
     lib.samomentum_fused.argtypes = [p, p, p, p, p, ctypes.c_float,
@@ -135,7 +135,7 @@ def _declare(lib) -> None:
                                      p]
     lib.wire_codes.argtypes = [p, i64, i32, p, p, i32, p, p, p]
     lib.tern_pack.argtypes = [p, i64, p, p]
-    for fn in (lib.scatter_add_sorted, lib.scatter_add_rows_sorted,
+    for fn in (lib.scatter_add, lib.scatter_add_rows_sorted,
                lib.block_topk, lib.samomentum_fused, lib.wire_codes,
                lib.tern_pack):
         fn.restype = ctypes.c_int
@@ -155,8 +155,17 @@ def library():
     return _LIB
 
 
+# The raw binding PyTorch's own generated kernels launch on: the public
+# torch.cuda.current_stream() builds a Stream object at every call, which
+# costs more host time than a small kernel's launch.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream() -> int:
-    """The current CUDA stream as a pointer-sized integer."""
+    """The current device's current CUDA stream as a pointer-sized
+    integer."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(torch.cuda.current_device())
     return torch.cuda.current_stream().cuda_stream
 
 

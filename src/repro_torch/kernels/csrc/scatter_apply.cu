@@ -7,47 +7,264 @@
 // WHOLE arena through VMEM once per event: for the 10.5M-parameter model that
 // is 2 x 42 MB of traffic to apply about 10.5K updates.  On Hopper a random
 // word write costs one 32-byte sector, so the bound is the k updates
-// themselves: read k indices, k permutation entries and k values, and read
-// and write k target words (about 10.5K x 24 bytes, some 0.25 MB).  At that
-// size the launch, not the memory, sets the time.
+// themselves: read k indices and k values, and read and write k target words
+// (about 10.5K x 16 bytes, some 0.17 MB).  At that size the launch and the
+// host work around it, not the memory, set the time: the design is ONE
+// launch, with no library sort, no permutation and no allocation.
 //
-// Design: the wrapper sorts the indices with a STABLE library sort
-// (torch.sort), as the JAX wrapper argsorts outside the Pallas body.  One
-// thread per sorted update; the thread whose index differs from its
-// predecessor's owns the run of equal indices, adds the run's values in
-// their original order with __fadd_rn -- ((d + v0) + v1), the reference's
-// order -- and stores once.  No float atomics, so the sum is deterministic.
-// Indices outside [0, n) are dropped, as XLA's scatter drops them.
+// Design: a range partition.  P CTAs (one per SM, at most n); CTA c owns the
+// words [c*w, (c+1)*w), w = ceil(n / P), so no two CTAs ever write one word
+// and there are no float atomics.  Each CTA streams all k indices in tiles
+// of 12,288 positions (24 coalesced loads per thread, all in flight at once,
+// the next tile's during this tile's work; after the first CTA they come
+// from L2: 42 KB, one tile, at k = 10,514).  It keeps the updates that fall
+// in its range IN POSITION ORDER: a warp ballot per sub-tile, then one warp
+// scans the 384 (sub-tile, warp) counts into offsets.  A kept update becomes
+// the 64-bit key (index << 32 | slot) in shared memory, its position beside
+// it.  A round of at most kCap kept updates is then put in key order --
+// each key's rank by counting when the round has at most one per thread
+// (about 80 at phase B's message: no sort), else by a bitonic sort in
+// shared memory -- so equal indices stay in slot order, which is update
+// order.  The values and the old target words load meanwhile.  The first
+// key of each run adds the run's values to the old word in order with
+// __fadd_rn -- ((d + v0) + v1), the reference's order -- and stores once.
+// A CTA whose share exceeds kCap (all k on one index, or all in one range)
+// works in rounds of kCap kept updates in position order, each applied in
+// full before the next, so the order holds across rounds.  Zero updates are
+// applied, not skipped: (-0 + v) + 0 turns a -0 sum into +0.  Indices outside
+// [0, n) fall in no CTA's range and are dropped, as XLA's scatter drops them.
+//
+// Cost: P * k index reads from L2 and one round per kCap kept updates per
+// CTA; made for the sparse updates of DGS (k << n).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-__global__ void scatter_add_sorted_kernel(float* __restrict__ dense, long long n,
-                                          const int32_t* __restrict__ sidx,
-                                          const int64_t* __restrict__ perm,
-                                          const float* __restrict__ vals,
-                                          long long k) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
-  const int32_t d = sidx[i];
-  if (d < 0 || (long long)d >= n) return;
-  if (i > 0 && sidx[i - 1] == d) return;  // not the first of its run
-  float acc = dense[d];
-  for (long long j = i; j < k && sidx[j] == d; ++j) {
-    acc = __fadd_rn(acc, vals[perm[j]]);
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 24;                   // indices per thread per tile
+constexpr int kTile = kThreads * kUnroll;     // positions per tile
+constexpr int kScan = kUnroll * kWarps / 32;  // counts per lane of the scan
+constexpr int kCap = 2048;                    // kept updates per round
+constexpr int kPerThread = kCap / kThreads;
+
+// Bitonic sort of keys[0, m) ascending in shared memory, padded to a power
+// of two.
+__device__ void sort_keys(unsigned long long* keys, int m) {
+  const int t = threadIdx.x;
+  int mp = 1;
+  while (mp < m) mp <<= 1;
+  for (int i = m + t; i < mp; i += kThreads) keys[i] = ~0ull;
+  __syncthreads();
+  for (int size = 2; size <= mp; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = t; i < mp / 2; i += kThreads) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool ascending = (lo & size) == 0;
+        const unsigned long long a = keys[lo];
+        const unsigned long long b = keys[hi];
+        if ((a > b) == ascending) {
+          keys[lo] = b;
+          keys[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
   }
-  dense[d] = acc;
 }
 
-extern "C" int scatter_add_sorted(void* dense, long long n, const void* sidx,
-                                  const void* perm, const void* vals,
-                                  long long k, void* stream) {
-  if (k == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (k + threads - 1) / threads;
-  scatter_add_sorted_kernel<<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(
-      (float*)dense, n, (const int32_t*)sidx, (const int64_t*)perm,
-      (const float*)vals, k);
+// Apply one round of m kept updates: keys[s] = (index << 32 | s), pos[s]
+// its position.  Each key's rank in (index, slot) order -- by counting
+// when there is a key per thread, else by a sort -- places its index, value
+// and old target word in sorted order, their loads in flight meanwhile;
+// then the first of each run adds the run's values in order and stores
+// once.  The sorted index and old word reuse the keys' storage.
+__device__ void apply_round(float* __restrict__ dense,
+                            const float* __restrict__ vals,
+                            unsigned long long* keys, const int* pos,
+                            float* sv, int m) {
+  const int t = threadIdx.x;
+  int rank[kPerThread];
+  unsigned d[kPerThread];
+  float v[kPerThread], old[kPerThread];
+  int mine = 0;  // keys this thread places
+  if (m <= kThreads) {
+    if (t < m) {
+      const unsigned long long key = keys[t];
+      d[0] = (unsigned)(key >> 32);
+      v[0] = vals[pos[t]];
+      old[0] = dense[d[0]];
+      int r = 0;
+      for (int u = 0; u < m; ++u) r += keys[u] < key ? 1 : 0;
+      rank[0] = r;
+      mine = 1;
+    }
+  } else {
+    sort_keys(keys, m);
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int s = t + i * kThreads;
+      if (s < m) {
+        const unsigned long long key = keys[s];
+        d[i] = (unsigned)(key >> 32);
+        v[i] = vals[pos[key & 0xffffffffu]];
+        old[i] = dense[d[i]];
+        rank[i] = s;
+        mine = i + 1;
+      }
+    }
+  }
+  __syncthreads();  // every key is read before its storage is reused
+  unsigned* sd = reinterpret_cast<unsigned*>(keys);
+  float* sw = reinterpret_cast<float*>(keys) + kCap;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    if (i < mine) {
+      sd[rank[i]] = d[i];
+      sv[rank[i]] = v[i];
+      sw[rank[i]] = old[i];
+    }
+  }
+  __syncthreads();
+  for (int s = t; s < m; s += kThreads) {
+    const unsigned di = sd[s];
+    if (s > 0 && sd[s - 1] == di) continue;  // not the first of its run
+    float acc = sw[s];
+    for (int j = s; j < m && sd[j] == di; ++j) acc = __fadd_rn(acc, sv[j]);
+    dense[di] = acc;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+scatter_add_kernel(float* __restrict__ dense, long long n, long long w,
+                   const int32_t* __restrict__ idx,
+                   const float* __restrict__ vals, int k) {
+  __shared__ unsigned long long keys[kCap];
+  __shared__ int pos[kCap];
+  __shared__ float sv[kCap];
+  // per tile (two buffers, by tile parity): the kept count of each
+  // (sub-tile, warp), then its offset, then the tile's total
+  __shared__ int count_buf[2][kUnroll * kWarps + 1];
+  const long long lo = (long long)blockIdx.x * w;
+  const long long hi = lo + w < n ? lo + w : n;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const unsigned below = (1u << lane) - 1;
+  int fill = 0;  // kept updates in the current round
+  int next[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int p = u * kThreads + t;
+    next[u] = p < k ? idx[p] : -1;
+  }
+  for (int base = 0, tile = 0; base < k; base += kTile, ++tile) {
+    int* counts = count_buf[tile & 1];
+    int d[kUnroll];
+    bool keep[kUnroll];
+    unsigned ballot[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      d[u] = next[u];
+      const int p = base + kTile + u * kThreads + t;
+      if (p < k) next[u] = idx[p];  // the next tile's loads, in flight now
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      keep[u] = base + u * kThreads + t < k && d[u] >= lo && d[u] < hi;
+      ballot[u] = __ballot_sync(0xffffffffu, keep[u]);
+      if (lane == 0) counts[u * kWarps + warp] = __popc(ballot[u]);
+    }
+    __syncthreads();
+    if (warp == 0) {  // exclusive scan of the counts in position order
+      int c[kScan], sum = 0;
+#pragma unroll
+      for (int i = 0; i < kScan; ++i) {
+        c[i] = counts[kScan * lane + i];
+        sum += c[i];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      int run = incl - sum;
+#pragma unroll
+      for (int i = 0; i < kScan; ++i) {
+        counts[kScan * lane + i] = run;
+        run += c[i];
+      }
+      if (lane == 31) counts[kUnroll * kWarps] = incl;
+    }
+    __syncthreads();
+    int q[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      q[u] = counts[u * kWarps + warp] + __popc(ballot[u] & below);
+    }
+    const int total = counts[kUnroll * kWarps];
+    // place this tile's kept updates, the q-th at slot fill + q, applying
+    // every full round before the rest of the tile
+    for (int done = 0;;) {
+      const int take = total - done < kCap - fill ? total - done : kCap - fill;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (keep[u] && q[u] >= done && q[u] < done + take) {
+          const int slot = fill + q[u] - done;
+          keys[slot] =
+              ((unsigned long long)(unsigned)d[u] << 32) | (unsigned)slot;
+          pos[slot] = base + u * kThreads + t;
+        }
+      }
+      fill += take;
+      done += take;
+      if (fill < kCap) break;
+      __syncthreads();
+      apply_round(dense, vals, keys, pos, sv, kCap);
+      fill = 0;
+      if (done == total) break;
+    }
+  }
+  if (fill > 0) {
+    __syncthreads();
+    apply_round(dense, vals, keys, pos, sv, fill);
+  }
+}
+
+// the current device's SM count, asked once per device
+cudaError_t sm_count(int* sms) {
+  static std::atomic<int> cached[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  int count = cached[dev].load(std::memory_order_relaxed);
+  if (count == 0) {
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cached[dev].store(count, std::memory_order_relaxed);
+  }
+  *sms = count;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int scatter_add(void* dense, long long n, const void* idx,
+                           const void* vals, long long k, void* stream) {
+  if (k <= 0 || n <= 0) return 0;
+  if (k > 0x7fffffffLL - 2 * kTile) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const long long parts = n < sms ? n : sms;
+  const long long w = (n + parts - 1) / parts;
+  const long long grid = (n + w - 1) / w;
+  scatter_add_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (float*)dense, n, w, (const int32_t*)idx, (const float*)vals, (int)k);
   return (int)cudaGetLastError();
 }

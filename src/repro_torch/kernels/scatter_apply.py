@@ -1,6 +1,7 @@
 """In-place sparse scatter-adds with duplicate indices summed in update
-order: kernel 1 of the port, the flat ``dense[idx] += vals``
-(``csrc/scatter_apply.cu``), and kernel 4, its multi-row twin
+order and indices outside ``[0, n)`` dropped: kernel 1 of the port, the
+flat ``dense[idx] += vals`` (``csrc/scatter_apply.cu``, a range partition
+with no sort), and kernel 4, its multi-row twin
 ``dense2d[rows[b], idx2d[b]] += vals2d[b]`` for pairwise-distinct rows
 (``csrc/scatter_apply_rows.cu``).
 
@@ -25,6 +26,9 @@ INFO = build.KernelInfo(
     name="scatter_add",
     source="src/repro_torch/kernels/csrc/scatter_apply.cu",
     replaces="src/repro/kernels/scatter_apply.py:33")
+# kept updates a CTA of the flat kernel applies per round (kCap in
+# csrc/scatter_apply.cu); a share beyond it takes several rounds
+ROUND = 2048
 
 ROWS_INFO = build.KernelInfo(
     name="scatter_add_rows",
@@ -34,13 +38,17 @@ ROWS_INFO = build.KernelInfo(
 
 def scatter_add_plain(dense: torch.Tensor, indices: torch.Tensor,
                       values: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version, in place: the same stable sort, then the
-    values of each run of equal indices added in their original order,
-    ``((d + v0) + v1)``, one rank of every run per pass."""
-    if indices.numel() == 0:
+    """Plain PyTorch version, in place: indices outside ``[0, n)`` dropped,
+    the same stable sort, then the values of each run of equal indices
+    added in their original order, ``((d + v0) + v1)``, one rank of every
+    run per pass."""
+    idx = indices.to(torch.int64)
+    ok = (idx >= 0) & (idx < dense.shape[0])
+    idx, vals = idx[ok], values.to(dense.dtype)[ok]
+    if idx.numel() == 0:
         return dense
-    sidx, perm = torch.sort(indices.to(torch.int64), stable=True)
-    vals = values.to(dense.dtype)[perm]
+    sidx, perm = torch.sort(idx, stable=True)
+    vals = vals[perm]
     uniq, counts = torch.unique_consecutive(sidx, return_counts=True)
     starts = torch.cumsum(counts, 0) - counts
     acc = dense[uniq]
@@ -54,7 +62,8 @@ def scatter_add_plain(dense: torch.Tensor, indices: torch.Tensor,
 def scatter_add_(dense: torch.Tensor, indices: torch.Tensor,
                  values: torch.Tensor) -> torch.Tensor:
     """``dense[indices] += values`` in place on a flat f32 tensor; returns
-    ``dense``.  CPU -> plain version, CUDA -> the kernel."""
+    ``dense``.  CPU -> plain version, CUDA -> ONE launch of the kernel (no
+    sort, no allocation; none at all for k = 0)."""
     if dense.device.type == "cpu":
         return scatter_add_plain(dense, indices, values)
     if dense.device.type != "cuda":
@@ -66,12 +75,13 @@ def scatter_add_(dense: torch.Tensor, indices: torch.Tensor,
             or values.shape != indices.shape:
         raise ValueError(f"scatter_add_: shapes {tuple(dense.shape)}, "
                          f"{tuple(indices.shape)}, {tuple(values.shape)}")
-    sidx, perm = torch.sort(indices, stable=True)
-    rc = build.library().scatter_add_sorted(
-        dense.data_ptr(), dense.numel(), sidx.data_ptr(), perm.data_ptr(),
-        values.data_ptr(), indices.numel(), build.stream())
-    build.check(rc, INFO.name)
-    build.count(INFO)
+    k = indices.numel()
+    if k:
+        rc = build.library().scatter_add(
+            dense.data_ptr(), dense.numel(), indices.data_ptr(),
+            values.data_ptr(), k, build.stream())
+        build.check(rc, INFO.name)
+        build.count(INFO)
     return dense
 
 

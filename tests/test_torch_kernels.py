@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.block_topk import block_topk_2d as jblock_topk_2d
 from repro_torch.kernels import block_topk, build, samomentum_kernel
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -47,6 +48,11 @@ def _np(a):
 
 def _equal(t, j):
     np.testing.assert_array_equal(_np(t), _np(j))
+
+
+def _bits_equal(t, j):
+    """float32 bit patterns equal: -0 and +0 differ."""
+    np.testing.assert_array_equal(_np(t).view(np.int32), _np(j).view(np.int32))
 
 
 # ------------------------------------------------------------ SAMomentum
@@ -145,6 +151,63 @@ def test_block_topk_bf16_plain_matches_reference_oracle():
     _equal(ti[:3], ri)
 
 
+def _adversarial_blocks(rng):
+    """One reference group of 8 blocks for the kernel's two regimes.  Rows
+    0-5: all equal at a power of two, zeros of both signs, magnitude ties
+    across the lane and register boundaries of the kernel's layout (element
+    128 q + 4 lane + c), small integers (ties at every rank), mostly zeros
+    with infinities, and all equal off a power of two.  Rows 6-7: denormals
+    (multiples of 1e-41 and the smallest, both signs) among zeros, row 7
+    with normal values mixed in."""
+    x = rng.normal(size=(8, 1024)).astype(np.float32)
+    sign = np.where(rng.random(1024) < 0.5, -1.0, 1.0).astype(np.float32)
+    x[0] = 0.5
+    x[1] = np.float32(0.0) * sign
+    pos = np.asarray([0, 3, 4, 31, 32, 33, 127, 128, 129, 511, 512, 513,
+                      1020, 1023])
+    x[2, pos] = 3.0 * sign[pos]
+    x[2, pos[:-1] + 1] = 2.5 * sign[pos[:-1]]
+    x[3] = np.round(x[3] * 2)
+    x[4] = 0.0
+    x[4, ::50] = rng.normal(size=21).astype(np.float32)
+    x[4, [5, 700, 701]] = [np.inf, -np.inf, np.inf]
+    x[5] = -0.3
+    x[6:] = rng.integers(0, 5, (2, 1024)).astype(np.float32) \
+        * np.float32(1e-41) * sign
+    x[6:, ::9] = np.float32(1e-45) * sign[::9]
+    x[7, ::50] = rng.normal(size=21).astype(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("r", [1, 2, 31, 32, 33, block_topk.SELECT_MAX_R,
+                               block_topk.SELECT_MAX_R + 1, 1023, 1024])
+def test_block_topk_adversarial_blocks_bit_equal(r):
+    """The plain version (the CUDA kernel's yardstick) against the
+    reference's Pallas kernel in interpret mode, around the kernel's regime
+    switch and at the full block.  The reference runs on XLA's CPU, which
+    compares denormals as zero: on the denormal blocks it equals the port
+    on the input flushed to +-0 (the port ranks denormals by magnitude, the
+    sign-cleared bit pattern, as its kernel does)."""
+    x = _adversarial_blocks(_rng("adv", r))
+    jv, ji = jblock_topk_2d(jnp.asarray(x), r=r)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    tv, ti = block_topk.block_topk_2d(torch.from_numpy(x), r=r)
+    _bits_equal(tv[:6], jv[:6])
+    _equal(ti[:6], ji[:6])
+    # denormals: the port's order is the bit pattern's ...
+    den = x[6:]
+    mag = den.view(np.int32) & 0x7fffffff
+    want = np.argsort(-mag.astype(np.int64), axis=1, kind="stable")[:, :r]
+    np.testing.assert_array_equal(ti[6:].numpy(), want)
+    _bits_equal(tv[6:], np.take_along_axis(den, want, 1))
+    # ... and the reference's is the port's on the flushed input
+    tiny = np.abs(den) < np.float32(2.0 ** -126)
+    flushed = np.where(tiny, np.float32(0.0) * np.sign(den), den)
+    _, fi = block_topk.block_topk_2d(torch.from_numpy(flushed), r=r)
+    _equal(fi, ji[6:])
+    _bits_equal(np.take_along_axis(den, ji[6:], 1), jv[6:])
+
+
 # ------------------------------------------------------------ scatter-add
 
 @pytest.mark.parametrize("n,k", [(1000, 10), (5000, 200), (8192, 64),
@@ -181,6 +244,82 @@ def test_scatter_add_duplicates_sum_in_update_order(cap):
     for j in np.flatnonzero(idx == 5):
         acc = np.float32(acc + vals[j])
     assert got[5].item() == acc
+
+
+SCATTER_CASES = ["all on one index", "all in one range",
+                 "duplicates across round boundaries", "out-of-range indices",
+                 "-0 runs and +0 pads", "k=0", "k=1"]
+
+
+def _scatter_case(case, rng, n):
+    """(dense, indices, values) for one adversarial case of the flat
+    scatter-add; the kernel applies at most ``scatter_apply.ROUND`` kept
+    updates per CTA round, so the long cases span several rounds."""
+    rnd = scatter_apply.ROUND
+    dense = rng.normal(size=n).astype(np.float32)
+    if case == "all on one index":
+        idx = np.full(2 * rnd + 17, 1234)
+    elif case == "all in one range":
+        idx = rng.integers(0, 300, 3 * rnd)
+    elif case == "duplicates across round boundaries":
+        idx = rng.integers(n - 400, n, 2 * rnd + 5)
+        idx[rnd - 1:rnd + 1] = idx[2 * rnd - 1:2 * rnd + 1] = n - 7
+    elif case == "out-of-range indices":
+        idx = rng.integers(0, n, 600)
+        idx[::5] = n + np.arange(idx[::5].size)
+        idx[3] = 2**31 - 1
+    elif case == "-0 runs and +0 pads":
+        # the sampled engine pads a message with its strongest index at
+        # value 0: (-0 + -0) + 0 is +0, so the pads must be applied
+        dense[:60] = -0.0
+        idx = np.concatenate([np.arange(50), np.arange(50), np.arange(50, 60),
+                              rng.integers(60, n, 300), np.zeros(16, int)])
+        vals = np.concatenate([np.full(50, -0.0), np.zeros(50),
+                               np.full(10, -0.0), rng.normal(size=300),
+                               np.zeros(16)]).astype(np.float32)
+        return dense, idx.astype(np.int32), vals
+    else:
+        idx = rng.integers(0, n, int(case[2:]))
+    vals = (rng.normal(size=idx.size) * 1e3).astype(np.float32)
+    return dense, idx.astype(np.int32), vals
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_scatter_add_adversarial_bit_equal(case):
+    """The plain version (the CUDA kernel's yardstick) against the
+    reference's scatter, bit for bit: in-order duplicate sums within and
+    across the kernel's rounds, out-of-range indices dropped, -0 kept."""
+    dense, idx, vals = _scatter_case(case, _rng("scadv", case), 5000)
+    want = jops.scatter_add(jnp.asarray(dense), jnp.asarray(idx),
+                            jnp.asarray(vals))
+    got = tops.scatter_add(torch.from_numpy(dense.copy()),
+                           torch.from_numpy(idx), torch.from_numpy(vals))
+    _bits_equal(got, want)
+    if case == "all on one index":
+        acc = np.float32(dense[1234])
+        for v in vals:
+            acc = np.float32(acc + v)
+        assert got[1234].item() == acc
+    if case == "-0 runs and +0 pads":
+        assert np.signbit(got[50:60].numpy()).all()
+        assert not np.signbit(got[1:50].numpy()).any()
+
+
+def test_scatter_add_drops_negative_indices():
+    """The port drops every index outside [0, n), as its kernel does.  The
+    reference's XLA scatter drops those at or above n but wraps [-n, -1]
+    (numpy indexing), so it is held to the port without them."""
+    rng = _rng("neg")
+    n = 3000
+    dense = rng.normal(size=n).astype(np.float32)
+    idx = rng.integers(-n - 50, n + 50, 900).astype(np.int32)
+    vals = rng.normal(size=900).astype(np.float32)
+    ok = (idx >= 0) & (idx < n)
+    want = jops.scatter_add(jnp.asarray(dense), jnp.asarray(idx[ok]),
+                            jnp.asarray(vals[ok]))
+    got = tops.scatter_add(torch.from_numpy(dense.copy()),
+                           torch.from_numpy(idx), torch.from_numpy(vals))
+    _bits_equal(got, want)
 
 
 def test_scatter_add_row_bit_equal_and_in_place():
