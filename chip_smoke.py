@@ -8,16 +8,26 @@ exits nonzero and prints no result line):
 
 * kernels -- builds the hand-written CUDA kernels from ``src/repro_torch/
   kernels/csrc`` and holds each against its plain PyTorch version on the card,
-  bit for bit (-0 and +0 differ), at the main path's shapes; times kernel,
-  plain version and the nearest library call, beside the memory bound.  The
-  flat scatter-add also meets adversarial cases (all updates on one index or
-  in one CTA's range, duplicates across the kernel's rounds, out-of-range
-  indices, -0 runs with +0 pads, k = 0 and 1), the block top-k adversarial
-  blocks (all equal, zeros of both signs, denormals, ties across lanes,
-  infinities) at r from 1 to 1024 around its regime switch and at a 4-byte
-  offset; both report the C call alone and the wrapper's host time per call.
-  The wire kernels (5-6) are held byte for byte, at a message of phase B
-  (k = 10,514 in 8 segments) and at one 4,718,592-element vector.
+  bit for bit (-0 and +0 differ; NaN bits too, but for the elementwise
+  kernels 4, 4a and 4b, whose NaNs all read as one), at the main path's
+  shapes; times kernel, plain version and the nearest library call, beside
+  the memory bound.  The flat scatter-add also meets adversarial cases (all
+  updates on one index or in one CTA's range, duplicates across the
+  kernel's rounds, out-of-range indices, -0 runs with +0 pads, k = 0 and
+  1), the block top-k adversarial blocks (all equal, zeros of both signs,
+  denormals, ties across lanes, infinities) at r from 1 to 1024 around its
+  regime switch and at a 4-byte offset; the multi-row scatter-add one such
+  case per lane of 16 permuted rows, each lane alone (B = 1), the identity
+  rows, k = 0 and 600 lanes; the fused SAMomentum pass rows of 10, 2,049
+  and 2,304 elements at 0-, 4- and 8-byte offsets with ties, denormals,
+  +-0, +-inf and NaN, aliased and separate u and g, and the
+  4,718,592-element leaf and 16 rows of it; its float32 fused
+  multiply-adds (the velocity accumulate, fma) values within an ulp of a
+  float32 halfway point, IEEE corner cases and every operand form on
+  strided leaf views.  Each reports the C call alone and the wrapper's
+  host time per call.  The wire kernels (5-6) are held byte for byte, at a
+  message of phase B (k = 10,514 in 8 segments) and at one
+  4,718,592-element vector.
 * a -- the quickstart configuration (8 workers, 600 events, asgd and dgs) on
   the card and on the CPU from the same weights and numpy batches; bytes,
   losses and accuracy must agree within the stated tolerances.
@@ -25,9 +35,10 @@ exits nonzero and prints no result line):
   workers, dgs at density 0.001 with the blockwise engine on both sides,
   96 events through the serial loop, ``AsyncTrainer.run``.  Every kernel's
   launch counter must rise (the serial worker step is the row-wise one at
-  B = 1, so its support repair is kernel 4); losses are finite and the wire
-  bytes are the static frame sizes.  Prints events/s, the per-stage split
-  and peak memory.
+  B = 1, so its support repair is the multi-row scatter-add); losses are
+  finite and the wire bytes are the static frame sizes.  Prints events/s,
+  the per-stage split, peak memory and a profiler window's device time by
+  kernel, in which no float64 kernel may run.
 * c -- phase B's configuration, schedule and batches through the batched
   loop, ``AsyncTrainer.run_batched`` with ``max_batch=16``, with a Recorder
   and the metrics on.  It must be bit-equal to phase B's run (losses, final
@@ -64,6 +75,9 @@ ROOT = Path(__file__).resolve().parent
 # device memory rate by card, bytes/s (NVIDIA data sheets)
 HBM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12,
             "H200": 4.8e12}
+
+
+NAN_BITS = 0x7FC00000      # the canonical float32 NaN
 
 
 def log(*args):
@@ -118,30 +132,42 @@ def host_us(torch, fn, calls: int = 200) -> float:
 # ---------------------------------------------------------------------------
 
 def kernel_phase(torch, timer, rate, results):
-    from repro_torch.arith import fma
-    from repro_torch.kernels import block_topk, samomentum_kernel, scatter_apply
+    from repro_torch.kernels import block_topk, scatter_apply
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
 
-    def bits(t):
-        """A tensor's bit pattern: -0 and +0 differ, as the kernels' must."""
+    def bits(t, nan_as_one):
+        """A tensor's bit pattern: -0 and +0 differ, as the kernels' must.
+        With ``nan_as_one`` every float32 NaN reads as one pattern: IEEE
+        754 leaves the sign and payload of a NaN that arithmetic makes to
+        the implementation (the elementwise kernels' __fmaf_rn against
+        their plain versions' float64 emulation).  Without it a NaN's bits
+        must match too (the kernels that copy or scatter their inputs)."""
         if t.dtype == torch.float32:
+            if nan_as_one:
+                return torch.where(torch.isnan(t), NAN_BITS,
+                                   t.view(torch.int32))
             return t.view(torch.int32)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16)
         return t
 
-    def compare(name, got, want, quiet=False):
+    def compare(name, got, want, quiet=False, nan_as_one=False):
         for g, w in zip(got, want):
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
                                      f"{w.shape}/{w.dtype}")
-            if not torch.equal(bits(g), bits(w)):
-                bad = int((bits(g) != bits(w)).sum())
+            gb, wb = bits(g, nan_as_one), bits(w, nan_as_one)
+            if not torch.equal(gb, wb):
+                bad = int((gb != wb).sum())
                 raise AssertionError(f"{name}: {bad} elements differ")
             if g.is_floating_point():
-                err = float((g.double() - w.double()).abs().max())
+                # the bits are equal: only non-finite elements (whose
+                # difference is NaN) are left out of the reported error
+                ok = torch.isfinite(g) & torch.isfinite(w)
+                err = float((g.double() - w.double())[ok].abs().max()) \
+                    if bool(ok.any()) else 0.0
                 errs[name.split("/")[0]] = max(errs.get(name.split("/")[0],
                                                         0.0), err)
         errs.setdefault(name.split("/")[0], 0.0)
@@ -235,85 +261,15 @@ def kernel_phase(torch, timer, rate, results):
         r32_launch_ms=t32["launch_ms"], r32_plain_ms=t32["plain_ms"],
         r32_bound_ms=t32["bound_ms"], r32_library_ms=t32["library_ms"]))
 
-    # 3. fused SAMomentum on the same leaf, thr planted on an element
-    u = torch.randn(n2, generator=gen, device="cuda")
-    g = torch.randn(n2, generator=gen, device="cuda")
-    m, lr = 0.7, 0.05
-    uacc = fma(m, u, lr * g)
-    thr = uacc[12345].abs().reshape(1)     # one element sits exactly on it
-    compare("samomentum_fused/(u,g,lr)",
-            samomentum_kernel.samomentum_fused_flat(u, g, thr, momentum=m,
-                                                    lr=lr),
-            samomentum_kernel.samomentum_plain(u, g, thr, momentum=m, lr=lr))
-    compare("samomentum_fused/(uacc,uacc,1-m)",
-            samomentum_kernel.samomentum_fused_flat(uacc, uacc, thr,
-                                                    momentum=m, lr=1.0 - m),
-            samomentum_kernel.samomentum_plain(uacc, uacc, thr, momentum=m,
-                                               lr=1.0 - m))
-    ms = timer(lambda: samomentum_kernel.samomentum_fused_flat(
-        uacc, uacc, thr, momentum=m, lr=1.0 - m))
-    plain_ms = timer(lambda: samomentum_kernel.samomentum_plain(
-        uacc, uacc, thr, momentum=m, lr=1.0 - m))
-    # the (uacc, uacc) call reads one array: 4 bytes in, 8 out per element
-    results.append(dict(
-        name=samomentum_kernel.INFO.name, route="cuda",
-        source=samomentum_kernel.INFO.source,
-        replaces=samomentum_kernel.INFO.replaces,
-        max_abs_err=errs["samomentum_fused"], ms=ms, plain_ms=plain_ms,
-        bound_ms=12 * n2 / rate * 1e3, bound_by="bytes", library_ms=None))
+    # 3. fused SAMomentum (kernel 4), its float32 fused multiply-adds
+    # (4a, 4b) and the multi-row scatter-add (kernel 2)
+    samomentum_kernels(torch, timer, rate, results, compare, errs)
+    scatter_rows_kernel(torch, timer, rate, results, compare, errs)
 
-    # 4. multi-row scatter-add at the batched commit's shapes: the
-    # (100, n) v, 16 distinct rows, k per row, duplicates in one row
-    from repro_torch.kernels import ops
-    n_rows, B = 100, 16
-    rows = np.random.default_rng(4).permutation(n_rows)[:B]
-    dense2d = torch.randn(n_rows, n, generator=gen, device="cuda")
-    idx2d = torch.stack([torch.randperm(n, generator=gen, device="cuda")[:k]
-                         for _ in range(B)]).to(torch.int32)
-    dup2d = idx2d.clone()
-    dup2d[3, ::5] = dup2d[3, 0]          # planted duplicates, summed in order
-    dup2d[3, 1::7] = 99
-    vals2d = torch.randn(B, k, generator=gen, device="cuda")
-    sel = torch.from_numpy(rows).cuda()
-    for name, ii in (("scatter_add_rows/unique", idx2d),
-                     ("scatter_add_rows/dups", dup2d)):
-        a = scatter_apply.scatter_add_rows_(dense2d.clone(), rows, ii, vals2d)
-        b = scatter_apply.scatter_add_rows_plain(dense2d.clone(), rows, ii,
-                                                 vals2d)
-        compare(name, (a[sel],), (b[sel],))
-        if not torch.equal(a, b):
-            raise AssertionError(f"{name}: rows outside the batch differ")
-        del a, b
-    # timed on the unique indices of the main path (top-k supports)
-    rows_dev = sel[:, None].expand(B, k)
-    idx64 = idx2d.to(torch.int64)
-    ms = timer(lambda: scatter_apply.scatter_add_rows_(dense2d, rows, idx2d,
-                                                       vals2d))
-    plain_ms = timer(lambda: scatter_apply.scatter_add_rows_plain(
-        dense2d, rows, idx2d, vals2d))
-    lib_ms = timer(lambda: dense2d.index_put_((rows_dev, idx64), vals2d,
-                                              accumulate=True))
-    # the wrapper's parts: its per-row sort, and the launch alone on
-    # inputs sorted beforehand
-    sidx, perm = torch.sort(idx2d, dim=1, stable=True)
-    sort_ms = timer(lambda: torch.sort(idx2d, dim=1, stable=True))
-    launch_ms = timer(lambda: build.library().scatter_add_rows_sorted(
-        dense2d.data_ptr(), n, sel.data_ptr(), sidx.data_ptr(),
-        perm.data_ptr(), vals2d.data_ptr(), B, k, build.stream()))
-    log(f"  scatter_add_rows ({B} rows, k={k}): wrapper {ms:.4f} ms = sort "
-        f"{sort_ms:.4f} ms + launch alone {launch_ms:.4f} ms + host work")
-    del dense2d
-    # B*k indices + B*k values read, B*k target words read and written
-    results.append(dict(
-        name=scatter_apply.ROWS_INFO.name, route="cuda",
-        source=scatter_apply.ROWS_INFO.source,
-        replaces=scatter_apply.ROWS_INFO.replaces,
-        max_abs_err=errs["scatter_add_rows"], ms=ms, plain_ms=plain_ms,
-        bound_ms=B * k * (4 + 4 + 8) / rate * 1e3, bound_by="bytes",
-        library_ms=lib_ms))
-
-    # the row-wise calls of kernels 2 and 3 at the batched worker step's
+    # the row-wise calls of the block top-k at the batched worker step's
     # shapes: 16 rows of the 4,718,592-element leaf, k = 4,719, r = 1024
+    from repro_torch.kernels import ops
+    B = 16
     xr = torch.randn(B, n2, generator=gen, device="cuda")
     xr[:, ::7] = 0.5
     xr[:, 3::11] = -0.5
@@ -347,22 +303,443 @@ def kernel_phase(torch, timer, rate, results):
     row = next(r for r in results if r["name"] == block_topk.INFO.name)
     row.update(rows16_ms=bt_ms, rows16_launch_ms=bt_launch_ms,
                rows16_library_ms=bt_lib_ms, rows16_bound_ms=bt_bound)
-    u2 = fma(m, xr, lr * torch.randn(B, n2, generator=gen, device="cuda"))
-    thr2 = u2[:, 777].abs().contiguous()   # one element per row sits on it
-    compare("samomentum_fused/rows, one threshold per row",
-            ops.samomentum_fused_rows(u2, u2, thr2, momentum=m, lr=1.0 - m),
-            samomentum_kernel.samomentum_plain(u2, u2, thr2[:, None],
-                                               momentum=m, lr=1.0 - m))
-    sam_rows_ms = timer(lambda: ops.samomentum_fused_rows(
-        u2, u2, thr2, momentum=m, lr=1.0 - m))
-    log(f"  samomentum_fused rows launch (16, {n2}): kernel "
-        f"{sam_rows_ms:.4f} ms, bound {12 * B * n2 / rate * 1e3:.4f} ms")
-    del xr, u2
+    del xr
     wire_kernels(torch, timer, rate, results, compare, errs)
     for row in results:
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
             f"bound {row['bound_ms']:.5f} ms")
+
+
+def halfway_cases(rng, size: int):
+    """float32 (a, b, c) whose exact a * b + c lies within far less than a
+    float32 ulp of a point halfway between two float32 values: rounded to
+    float64 first it would land ON the halfway point, and a second rounding
+    (to even) would err half the time.  Two families, scaled by powers of
+    two and signed at random: a * b an odd integer in [2^24, 2^25) (itself
+    a halfway point) plus a c of 2^-30 to 2^-60 of it; and a * b =
+    64 - 2^-40 beside a c of magnitude [2^30, 2^31) with an odd last bit,
+    whose ulp is 128."""
+    h = size // 2
+    a = np.concatenate([rng.integers(2048, 2896, h) * 2 + 1.0,
+                        np.full(size - h, 8.0 + 2.0 ** -20)])
+    b = np.concatenate([rng.integers(2048, 2896, h) * 2 + 1.0,
+                        np.full(size - h, 8.0 - 2.0 ** -20)])
+    c = np.concatenate([np.ldexp(1.0, -rng.integers(30, 60, h)),
+                        (2.0 ** 23 + rng.integers(0, 2 ** 22, size - h) * 2
+                         + 1) * 128.0])
+    s1, s2 = rng.integers(-40, 40, size), rng.integers(-40, 40, size)
+    a, b, c = np.ldexp(a, s1), np.ldexp(b, s2), np.ldexp(c, s1 + s2)
+    sign = rng.choice([-1.0, 1.0], (3, size))
+    return tuple((x * sg).astype(np.float32) for x, sg in zip((a, b, c), sign))
+
+
+def special_cases():
+    """float32 (a, b, c) of IEEE corner cases: (-0) * x + (-0) and its sign
+    variants, denormal products and sums, overflow to and just below
+    infinity, infinities (inf * 0 and inf - inf are NaN) and NaN."""
+    inf, nan, tiny = float("inf"), float("nan"), 2.0 ** -70
+    rows = [(-0.0, 3.0, -0.0), (0.0, -3.0, -0.0), (-0.0, -3.0, 0.0),
+            (3.0, 0.0, -0.0), (tiny, tiny, 0.0), (tiny, -tiny, 1e-45),
+            (tiny, tiny * 3, -1e-42), (2.0 ** -75, 2.0 ** -75, -0.0),
+            (1e-38, 0.5, -1e-38), (2.0 ** 64, 2.0 ** 64, 0.0),
+            (3.4028235e38, 1.0, 3.4028235e38 * 2.0 ** -24),
+            (3.4028235e38, 1.0, 3.4028235e38 * 2.0 ** -25),
+            (inf, 0.0, 1.0), (inf, 2.0, -inf), (inf, 2.0, 5.0),
+            (-inf, 2.0, 5.0), (2.0, 3.0, inf), (nan, 1.0, 2.0),
+            (1.0, nan, 2.0), (1.0, 2.0, nan), (1e30, 1e10, -inf)]
+    return tuple(np.asarray(col, np.float32) for col in zip(*rows))
+
+
+def samomentum_kernels(torch, timer, rate, results, compare, errs):
+    """Kernel 4 (the fused SAMomentum pass) and its float32 fused
+    multiply-adds, 4a (the velocity accumulate) and 4b (fma), against their
+    plain versions bit for bit (every NaN as one).  Kernel 4: rows of 10,
+    2,049 and 2,304 elements (rows that start off 16-byte alignment),
+    inputs at a 4- and an 8-byte offset, aliased and separate u and g, a
+    threshold tied with an element, a denormal and a zero threshold, and
+    +-0, denormals, +-inf and NaN in u and g; 16 rows of the
+    4,718,592-element leaf.  4a and 4b: values within an ulp of a float32
+    halfway point (where a double rounding errs), IEEE corner cases, every
+    operand form (a float, a (B, 1) column, full contiguous and full
+    strided views) on a small arena whose rows start at every offset modulo
+    16 bytes, and the main path's shapes: the eight leaf views of phase B's
+    (1, total) arena and of phase C's (16, total) one (row stride total, the
+    specials planted), as the accumulate, the repair's epilogue and GD's
+    residual take them, and DGC's residual over the whole (16, total)
+    arena.  Then timed: kernel 4 at the leaf and at 16 rows, 4a and 4b on
+    the eight leaves of phase B's arena (one event's calls) and at the
+    leaf, beside torch.addcmul (whether its bits match is reported as
+    information: the port does not use it)."""
+    from repro_torch.arith import fma
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import samomentum_kernel as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rng = np.random.default_rng(7)
+    m, lr = 0.7, 0.05
+
+    def check(name, got, want, quiet=False):
+        compare(name, got, want, quiet=quiet, nan_as_one=True)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def plant(x):
+        """+-0, denormals, +-inf and NaN, in place on a flat tensor."""
+        x[1::17], x[2::17], x[3::17], x[4::17] = 0.0, -0.0, 1e-41, -3e-39
+        x[5::97], x[6::97] = float("inf"), float("-inf")
+        x[7::193] = float("nan")
+        return x
+
+    def cuda(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                for a in arrays]
+
+    # kernel 4
+    for n_row in (10, 2049, 2304):
+        rows = 3
+        u, g = plant(randn(rows * n_row)), plant(randn(rows * n_row))
+        uacc = fma(m, u, lr * g).view(rows, n_row)
+        thr = torch.stack([uacc[0, n_row // 3].abs(),
+                           torch.tensor(1e-41, device="cuda"),
+                           torch.tensor(0.0, device="cuda")])
+        for label, uu, gg, lr_ in (("u, g", u, g, lr), ("u, u", u, u, 1 - m)):
+            want = sk.samomentum_plain(uu.view(rows, -1), gg.view(rows, -1),
+                                       thr[:, None], momentum=m, lr=lr_)
+            check(f"samomentum_fused/{rows} rows of {n_row}, {label}",
+                    sk.samomentum_fused_flat(uu, gg, thr, momentum=m, lr=lr_),
+                    tuple(t.reshape(-1) for t in want), quiet=True)
+            for off in (1, 2):          # a 4- and an 8-byte offset
+                buf = torch.empty(2, rows * n_row + off, device="cuda")
+                buf[0, off:], buf[1, off:] = uu, gg
+                check(f"samomentum_fused/{n_row}, {label}, offset {off}",
+                        sk.samomentum_fused_flat(buf[0, off:], buf[1, off:],
+                                                 thr, momentum=m, lr=lr_),
+                        sk.samomentum_fused_flat(uu, gg, thr, momentum=m,
+                                                 lr=lr_), quiet=True)
+    log("  samomentum_fused: rows of 10, 2049, 2304 (ties, specials, "
+        "aliased and separate, 0/4/8-byte offsets) bit-equal")
+    n2, B = 2304 * 2048, 16
+    u2 = fma(m, randn(B, n2), lr * randn(B, n2))
+    u2[:, ::7] = 0.5
+    thr2 = u2[:, 777].abs().contiguous()   # one element per row sits on it
+    check("samomentum_fused/16 rows of the leaf, one threshold per row",
+            ops.samomentum_fused_rows(u2, u2, thr2, momentum=m, lr=1.0 - m),
+            sk.samomentum_plain(u2, u2, thr2[:, None], momentum=m,
+                                lr=1.0 - m))
+    u, g = randn(n2), randn(n2)
+    uacc = fma(m, u, lr * g)
+    thr = uacc[12345].abs().reshape(1)     # one element sits exactly on it
+    for label, uu, gg, lr_ in (("u, g", u, g, lr),
+                               ("uacc, uacc", uacc, uacc, 1.0 - m)):
+        check(f"samomentum_fused/the leaf, ({label})",
+                sk.samomentum_fused_flat(uu, gg, thr, momentum=m, lr=lr_),
+                sk.samomentum_plain(uu, gg, thr, momentum=m, lr=lr_))
+    del u, g
+    o1, o2 = torch.empty_like(uacc), torch.empty_like(uacc)
+    t = dict(
+        ms=timer(lambda: sk.samomentum_fused_flat(uacc, uacc, thr, momentum=m,
+                                                  lr=1.0 - m)),
+        launch_ms=timer(lambda: build.library().samomentum_fused(
+            uacc.data_ptr(), uacc.data_ptr(), thr.data_ptr(), o1.data_ptr(),
+            o2.data_ptr(), m, 1 - m, sk.rcp(m), 1, n2, build.stream())),
+        plain_ms=timer(lambda: sk.samomentum_plain(uacc, uacc, thr,
+                                                   momentum=m, lr=1.0 - m)),
+        rows16_ms=timer(lambda: ops.samomentum_fused_rows(
+            u2, u2, thr2, momentum=m, lr=1.0 - m)))
+    o1, o2 = torch.empty_like(u2), torch.empty_like(u2)
+    t["rows16_launch_ms"] = timer(lambda: build.library().samomentum_fused(
+        u2.data_ptr(), u2.data_ptr(), thr2.data_ptr(), o1.data_ptr(),
+        o2.data_ptr(), m, 1 - m, sk.rcp(m), B, n2, build.stream()))
+    del o1, o2
+    # the (uacc, uacc) call reads one array: 4 bytes in, 8 out per element
+    t["bound_ms"] = 12 * n2 / rate * 1e3
+    t["rows16_bound_ms"] = 12 * B * n2 / rate * 1e3
+    log(f"  samomentum_fused (leaf {n2}, u = g): kernel {t['ms']:.4f} ms "
+        f"(launch alone {t['launch_ms']:.4f} ms), plain {t['plain_ms']:.4f} "
+        f"ms, bound {t['bound_ms']:.4f} ms; 16 rows {t['rows16_ms']:.4f} ms "
+        f"(launch alone {t['rows16_launch_ms']:.4f} ms), bound "
+        f"{t['rows16_bound_ms']:.4f} ms")
+    results.append(dict(
+        name=sk.INFO.name, route="cuda", source=sk.INFO.source,
+        replaces=sk.INFO.replaces, max_abs_err=errs["samomentum_fused"],
+        bound_by="bytes", library_ms=None, **t))
+    del u2
+
+    # 4a and 4b: halfway points, corner cases, every operand form
+    a, b, c = cuda(*halfway_cases(rng, 4096))
+    sa, sb, sc = cuda(*special_cases())
+    for label, ops3 in (("halfway points", (a, b, c)),
+                        ("IEEE corner cases", (sa, sb, sc))):
+        check(f"fma/{label}", (sk.fused_multiply_add(*ops3),),
+              (sk.fused_multiply_add_plain(*ops3),))
+    # the accumulate's own halfway points: m * u an odd integer in
+    # [2^24, 2^25), lr * g = g of 2^-30 to 2^-60 of it
+    hu, hg = cuda((rng.integers(2048, 2896, 4096) * 2 + 1.0)
+                  .astype(np.float32),
+                  (np.ldexp(1.0, -rng.integers(6, 36, 4096))
+                   * rng.choice([-1.0, 1.0], 4096)).astype(np.float32))
+    check("samomentum_accumulate/halfway points",
+          (sk.velocity_accumulate(hu, hg, momentum=4097.0, lr=1.0),),
+          (sk.velocity_accumulate_plain(hu, hg, momentum=4097.0, lr=1.0),))
+    # strided leaf views of a (3, 7001) arena: odd row stride and offsets
+    # put the rows at every offset modulo 16 bytes
+    arena = [plant(randn(3 * 7001)).view(3, 7001) for _ in range(3)]
+    lrs = torch.tensor([[0.05], [0.1], [1.0]], device="cuda")
+    col = torch.tensor([[3.0], [-0.0], [1e-41]], device="cuda")
+    for off, size in ((0, 10), (10, 2049), (2059, 2304), (4363, 2638)):
+        x, y, z = (t_[:, off:off + size] for t_ in arena)
+        for lr_ in (lr, lrs):
+            check(f"samomentum_accumulate/leaf ({off}, {size})",
+                  (sk.velocity_accumulate(x, y, momentum=m, lr=lr_),),
+                  (sk.velocity_accumulate_plain(x, y, momentum=m, lr=lr_),),
+                  quiet=True)
+        for ops3 in ((x, y, z), (x, 1.0 / m - 1.0, z), (lrs, y, z),
+                     (col, 0.25, x), (x, -0.5, 1e-12), (0.25, y, 0.0)):
+            check(f"fma/leaf ({off}, {size})",
+                  (sk.fused_multiply_add(*ops3),),
+                  (sk.fused_multiply_add_plain(*ops3),), quiet=True)
+    check("fma/(B, 1) result, the int8 scale",
+          (sk.fused_multiply_add(col.abs(), sk.rcp(127.0), 1e-12),),
+          (sk.fused_multiply_add_plain(col.abs(), sk.rcp(127.0), 1e-12),))
+    log("  samomentum_accumulate, fma: strided leaf views at every 16-byte "
+        "offset, lr a float / (B, 1), operands as floats, columns and "
+        "views: bit-equal")
+    del arena
+
+    # the main path's shapes, leaves from phase B's ParamSpace: the leaf
+    # views of phase C's (16, total) arena (row stride total, per-row lr,
+    # specials planted), then of phase B's (1, total) one, which are timed
+    space = full_width_space(torch)
+    total, layout = space.total, list(zip(space.offsets, space.sizes))
+    scale = 1.0 / m - 1.0
+    for B in (16, 1):
+        u, g = randn(B, total), randn(B, total)
+        extra = [randn(B, s) for _, s in layout]    # the repair's blocks
+        u_new = [randn(B, s) for _, s in layout]
+        if B > 1:
+            lrB = torch.rand(B, 1, generator=gen, device="cuda") * 0.1
+            for x in [u, g] + extra + u_new:
+                plant(x.view(-1))
+        else:
+            lrB = torch.full((1, 1), lr, device="cuda")
+        views = [(u[:, o:o + s], g[:, o:o + s]) for o, s in layout]
+        for i, ((uv, gv), ex, un) in enumerate(zip(views, extra, u_new)):
+            check(f"samomentum_accumulate/({B}, total) leaf {i}",
+                  (sk.velocity_accumulate(uv, gv, momentum=m, lr=lrB),),
+                  (sk.velocity_accumulate_plain(uv, gv, momentum=m,
+                                                lr=lrB),), quiet=True)
+            for label, ops3 in (("repair epilogue", (ex, scale, un)),
+                                ("GD residual", (lrB, gv, uv))):
+                check(f"fma/({B}, total) leaf {i}, {label}",
+                      (sk.fused_multiply_add(*ops3),),
+                      (sk.fused_multiply_add_plain(*ops3),), quiet=True)
+        check(f"fma/({B}, total) arena, DGC residual",
+              (sk.fused_multiply_add(lrB, g, u),),
+              (sk.fused_multiply_add_plain(lrB, g, u),), quiet=True)
+        log(f"  samomentum_accumulate, fma: the 8 leaf views of the ({B}, "
+            f"{total}) arena (accumulate, repair epilogue, GD residual) and "
+            f"the whole arena (DGC residual) bit-equal")
+
+    # timed on phase B's arena: one event's eight calls, and the leaf
+    lr1 = lrB
+    lrg = [lr1 * gv for _, gv in views]
+    m_t, c_t = (torch.tensor(x, device="cuda") for x in (m, scale))
+    leaf = max(range(len(layout)), key=lambda i: layout[i][1])
+    # information only: the port does not call torch.addcmul
+    lib_bits = {
+        "samomentum_accumulate": all(torch.equal(
+            torch.addcmul(p, uv, m_t).view(torch.int32),
+            sk.velocity_accumulate(uv, gv, momentum=m, lr=lr1)
+            .view(torch.int32)) for (uv, gv), p in zip(views, lrg)),
+        "fma": all(torch.equal(
+            torch.addcmul(un, ex, c_t).view(torch.int32),
+            sk.fused_multiply_add(ex, scale, un).view(torch.int32))
+            for ex, un in zip(extra, u_new))}
+    out = torch.empty(layout[leaf][1], device="cuda")
+    (uv, gv), ex, un = views[leaf], extra[leaf], u_new[leaf]
+    for info, call, plain, lib, launch in (
+            (sk.ACC_INFO,
+             lambda i: sk.velocity_accumulate(*views[i], momentum=m, lr=lr1),
+             lambda i: sk.velocity_accumulate_plain(*views[i], momentum=m,
+                                                    lr=lr1),
+             lambda i: torch.addcmul(lrg[i], views[i][0], m_t),
+             lambda: build.library().samomentum_accumulate(
+                 uv.data_ptr(), total, gv.data_ptr(), total, lr1.data_ptr(),
+                 0, 0.0, out.data_ptr(), m, 1, uv.shape[1],
+                 build.stream())),
+            (sk.FMA_INFO,
+             lambda i: sk.fused_multiply_add(extra[i], scale, u_new[i]),
+             lambda i: sk.fused_multiply_add_plain(extra[i], scale, u_new[i]),
+             lambda i: torch.addcmul(u_new[i], extra[i], c_t),
+             lambda: build.library().fma_rows(
+                 ex.data_ptr(), ex.shape[1], 0.0, sk.FULL, None, 0, scale,
+                 sk.SCALAR, un.data_ptr(), un.shape[1], 0.0, sk.FULL,
+                 out.data_ptr(), 1, ex.shape[1], build.stream()))):
+        every = range(len(layout))
+        t = dict(
+            ms=timer(lambda: [call(i) for i in every]),
+            plain_ms=timer(lambda: [plain(i) for i in every]),
+            library_ms=timer(lambda: [lib(i) for i in every]),
+            bound_ms=12 * total / rate * 1e3,
+            leaf_ms=timer(lambda: call(leaf)),
+            leaf_launch_ms=timer(launch),
+            leaf_plain_ms=timer(lambda: plain(leaf)),
+            leaf_library_ms=timer(lambda: lib(leaf)),
+            leaf_bound_ms=12 * layout[leaf][1] / rate * 1e3,
+            library_bits_equal=lib_bits[info.name],
+            host_us=host_us(torch, lambda: call(leaf)))
+        log(f"  {info.name} (8 leaves, {total} elements, one event's calls):"
+            f" kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"addcmul {t['library_ms']:.4f} ms (bits equal, for information: "
+            f"{t['library_bits_equal']}), bound {t['bound_ms']:.4f} ms; leaf "
+            f"{layout[leaf][1]}: kernel {t['leaf_ms']:.4f} ms (launch alone "
+            f"{t['leaf_launch_ms']:.4f} ms), plain {t['leaf_plain_ms']:.4f} "
+            f"ms, addcmul {t['leaf_library_ms']:.4f} ms, bound "
+            f"{t['leaf_bound_ms']:.4f} ms; host per call {t['host_us']:.1f} "
+            f"us")
+        results.append(dict(
+            name=info.name, route="cuda", source=info.source,
+            replaces=info.replaces, max_abs_err=errs[info.name],
+            bound_by="bytes", **t))
+
+
+def scatter_rows_kernel(torch, timer, rate, results, compare, errs):
+    """Kernel 2, the multi-row scatter-add, against its plain version bit
+    for bit at the batched commit's shapes: 16 permuted rows of the
+    (100, 10,512,650) ``v``, k = 10,514 per lane, one adversarial case per
+    lane (all updates on one index; all in one CTA's range, so several
+    rounds of ``ROUND``; duplicates across round boundaries; out-of-range
+    and negative indices; zero values on -0 words; planted duplicates),
+    the same lanes one at a time (B = 1), the identity rows, k = 0, and
+    600 lanes (two launches).  Timed at 16 rows and at the blockwise
+    repair's B = 1 (1 x 4,718,592, k = 4,719, identity rows)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import scatter_apply as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n, k, n_rows, B = 10_512_650, 10_514, 100, 16
+    rows = np.random.default_rng(4).permutation(n_rows)[:B]
+    dense2d = torch.randn(n_rows, n, generator=gen, device="cuda")
+    idx2d = torch.stack([torch.randperm(n, generator=gen, device="cuda")[:k]
+                         for _ in range(B)]).to(torch.int32)
+    vals2d = torch.randn(B, k, generator=gen, device="cuda")
+    unique = idx2d.clone()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w = -(-n // (sms // B))                 # one CTA's range at B = 16
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, (size,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    adv = idx2d.clone()
+    adv[1] = 4242                                   # all on one index
+    adv[2] = ints(w, w + min(w, 3000), k)           # all in CTA 1's range
+    last = (-(-n // w) - 1) * w                     # the last CTA's range
+    adv[3] = ints(last, n, k)                       # across round boundaries
+    for j in range(1, k // sa.ROUND + 1):
+        adv[3, j * sa.ROUND - 1:j * sa.ROUND + 1] = n - 7
+    ar = torch.arange(0, k, 5, device="cuda", dtype=torch.int32)
+    adv[4, ::5] = n + ar                            # out of range
+    adv[4, 2::5] = -1 - ar[:adv[4, 2::5].numel()]
+    adv[4, 3], adv[4, 4], adv[4, 8] = 2**31 - 1, -2**31, n
+    adv[6, ::5] = adv[6, 0]                         # planted duplicates
+    adv[6, 1::7] = 99
+    avals = vals2d.clone()
+    avals[5, :100] = 0.0                            # zeros on -0 words ...
+    avals[5, 100:150] = -0.0
+    dense2d[int(rows[5]), adv[5, :150].long()] = -0.0
+    avals[5, 150:160] = 0.0                         # ... and a +0 pad on one
+    adv[5, 150:160] = adv[5, 0]
+    for label, ii, vv in (("one case per lane", adv, avals),
+                          ("unique", unique, vals2d)):
+        a = sa.scatter_add_rows_(dense2d.clone(), rows, ii, vv)
+        b = sa.scatter_add_rows_plain(dense2d.clone(), rows, ii, vv)
+        compare(f"scatter_add_rows/16 permuted rows, {label}", (a,), (b,))
+        del a, b
+    for lane in range(8):                           # each case at B = 1
+        r = [int(rows[lane])]
+        a = sa.scatter_add_rows_(dense2d.clone(), r, adv[lane:lane + 1],
+                                 avals[lane:lane + 1])
+        b = sa.scatter_add_rows_plain(dense2d.clone(), r, adv[lane:lane + 1],
+                                      avals[lane:lane + 1])
+        compare(f"scatter_add_rows/B = 1, lane {lane}", (a,), (b,),
+                quiet=True)
+        del a, b
+    log("  scatter_add_rows: each lane's case at B = 1 bit-equal")
+    head = dense2d[:B]                              # identity rows 0..15
+    compare("scatter_add_rows/identity rows",
+            (sa.scatter_add_rows_(head.clone(), None, adv, avals),),
+            (sa.scatter_add_rows_plain(head.clone(), None, adv, avals),))
+    two = torch.from_numpy(rows[:2]).cuda()
+    before = dense2d[two].clone()
+    sa.scatter_add_rows_(dense2d, rows[:2], adv[:2, :0], avals[:2, :0])
+    compare("scatter_add_rows/k=0", (dense2d[two],), (before,))
+    small = torch.randn(700, 5000, generator=gen, device="cuda")
+    many = np.random.default_rng(5).permutation(700)[:600]
+    mi = torch.randint(-5, 5005, (600, 37), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    mv = torch.randn(600, 37, generator=gen, device="cuda")
+    compare("scatter_add_rows/600 lanes (two launches)",
+            (sa.scatter_add_rows_(small.clone(), many, mi, mv),),
+            (sa.scatter_add_rows_plain(small.clone(), many, mi, mv),))
+    del small, head, before
+
+    # timed on the unique indices of the main path (top-k supports)
+    sel = torch.from_numpy(rows).cuda()
+    rows_dev = sel[:, None].expand(B, k)
+    idx64 = unique.to(torch.int64)
+    table = (ctypes.c_int32 * B)(*rows.tolist())
+    t = dict(
+        ms=timer(lambda: sa.scatter_add_rows_(dense2d, rows, unique, vals2d)),
+        launch_ms=timer(lambda: build.library().scatter_add_rows(
+            dense2d.data_ptr(), n, table, B, unique.data_ptr(),
+            vals2d.data_ptr(), k, build.stream())),
+        plain_ms=timer(lambda: sa.scatter_add_rows_plain(
+            dense2d, rows, unique, vals2d)),
+        library_ms=timer(lambda: dense2d.index_put_((rows_dev, idx64), vals2d,
+                                                    accumulate=True)),
+        # B*k indices + B*k values read, B*k target words read and written
+        bound_ms=B * k * (4 + 4 + 8) / rate * 1e3,
+        host_us=host_us(torch, lambda: sa.scatter_add_rows_(
+            dense2d, rows, unique, vals2d)))
+    del dense2d
+    # the blockwise repair's call: one lane, identity rows
+    n1, k1 = 2304 * 2048, 4719
+    d1 = torch.randn(1, n1, generator=gen, device="cuda")
+    i1 = torch.randperm(n1, generator=gen, device="cuda")[:k1].to(
+        torch.int32)[None]
+    v1 = torch.randn(1, k1, generator=gen, device="cuda")
+    zero_rows = torch.zeros((1, k1), dtype=torch.int64, device="cuda")
+    i1_64 = i1.to(torch.int64)
+    t.update(
+        b1_ms=timer(lambda: sa.scatter_add_rows_(d1, None, i1, v1)),
+        b1_launch_ms=timer(lambda: build.library().scatter_add_rows(
+            d1.data_ptr(), n1, None, 1, i1.data_ptr(), v1.data_ptr(), k1,
+            build.stream())),
+        b1_plain_ms=timer(lambda: sa.scatter_add_rows_plain(d1, None, i1,
+                                                            v1)),
+        b1_library_ms=timer(lambda: d1.index_put_((zero_rows, i1_64), v1,
+                                                  accumulate=True)),
+        b1_bound_ms=k1 * 16 / rate * 1e3,
+        b1_host_us=host_us(torch, lambda: sa.scatter_add_rows_(d1, None, i1,
+                                                               v1)))
+    log(f"  scatter_add_rows ({B} rows, k={k}): wrapper {t['ms']:.4f} ms "
+        f"(launch alone {t['launch_ms']:.4f} ms), plain {t['plain_ms']:.4f} "
+        f"ms, index_put_ {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.5f} ms; host per call {t['host_us']:.1f} us")
+    log(f"  scatter_add_rows B=1 (1 x {n1}, k={k1}, identity rows): wrapper "
+        f"{t['b1_ms']:.4f} ms (launch alone {t['b1_launch_ms']:.4f} ms), "
+        f"plain {t['b1_plain_ms']:.4f} ms, index_put_ "
+        f"{t['b1_library_ms']:.4f} ms, bound {t['b1_bound_ms']:.5f} ms; host "
+        f"per call {t['b1_host_us']:.1f} us")
+    results.append(dict(
+        name=sa.ROWS_INFO.name, route="cuda", source=sa.ROWS_INFO.source,
+        replaces=sa.ROWS_INFO.replaces, max_abs_err=errs["scatter_add_rows"],
+        bound_by="bytes", **t))
 
 
 def scatter_cases(torch, gen, n, idx, vals):
@@ -440,17 +817,6 @@ def plant_blocks(torch, gen, x2d):
     x2d[8] = b
 
 
-def full_width_seg(density: float = 0.001) -> tuple:
-    """The per-tensor entry counts of a phase B message: ``space.ks`` of
-    run_big's MLP, leaves in sorted-key order (10,514 in 8 segments)."""
-    from repro_torch.core.sparsify import density_to_k
-
-    sizes = {}
-    for i, (a, b) in enumerate(zip(FULL_DIMS[:-1], FULL_DIMS[1:])):
-        sizes[f"w{i}"], sizes[f"b{i}"] = a * b, b
-    return tuple(density_to_k(sizes[key], density) for key in sorted(sizes))
-
-
 def wire_kernels(torch, timer, rate, results, compare, errs):
     """Kernels 5 (each mode) and 6 against their plain versions, byte for
     byte, at a phase B message and at one 4,718,592-element vector; timed
@@ -461,7 +827,7 @@ def wire_kernels(torch, timer, rate, results, compare, errs):
     from repro_torch.kernels import build, wire_pack
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    seg = full_width_seg()
+    seg = full_width_space(torch).ks(0.001)     # 10,514 in 8 segments
     shapes = (("message", seg), ("vector", (2304 * 2048,)))
     rows = {}
     for label, sg in shapes:
@@ -608,34 +974,48 @@ def phase_a(torch):
 
 FULL_CAP = 96       # events of the full-width runs (run_big's own cap)
 FULL_DIMS = (512, 2048, 2304, 2048, 10)   # run_big's MLP
-# the kernel rows whose launch counts come from phase B; kernel 4's row
-# takes phase C's, the batched loop it was written for
-SERIAL_ROWS = ("scatter_add", "block_topk", "samomentum_fused")
+# the kernel rows whose launch counts come from phase B; the multi-row
+# scatter-add's takes phase C's, the batched loop it was written for
+SERIAL_ROWS = ("scatter_add", "block_topk", "samomentum_fused",
+               "samomentum_accumulate", "fma")
 # the kernels the simulator's loops run (phases B and C); the wire kernels
 # run in the codec, phase D
 SIM_KERNELS = SERIAL_ROWS + ("scatter_add_rows",)
+
+
+def _full_width_params(torch, rng):
+    """run_big's MLP's weights on the card, drawn from ``rng`` (He's scale,
+    zero biases), and the ParamSpace of their arena: 10,512,650 elements
+    in 8 leaves, in the arena's (sorted-key) order."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.paramspace import ParamSpace
+
+    params_np = {}
+    for i, (a, b) in enumerate(zip(FULL_DIMS[:-1], FULL_DIMS[1:])):
+        params_np[f"w{i}"] = (rng.normal(size=(a, b)).astype(np.float32)
+                              * np.float32((2.0 / a) ** 0.5))
+        params_np[f"b{i}"] = np.zeros(b, np.float32)
+    params0 = params_from_numpy(params_np, "cuda")
+    return params0, ParamSpace.from_tree(params0)
+
+
+def full_width_space(torch):
+    """The ParamSpace of phases B-D: leaf offsets and sizes of the arena."""
+    return _full_width_params(torch, np.random.default_rng(0))[1]
 
 
 def _full_width(torch):
     """Phase B's and phase C's shared set-up: the 10.5M-parameter MLP from
     a seed, the first 96 events of run_big's schedule and their batches,
     and the trainer.  Returns (space, params0, sched, batch_fn, trainer)."""
-    from repro_torch.convert import params_from_numpy
     from repro_torch.core import async_sim, make_strategy
     from repro_torch.core.engine import CompressionSpec
-    from repro_torch.core.paramspace import ParamSpace
     from repro_torch.models.mlp import MLP
 
     dims = FULL_DIMS
     n_workers, n_events = 100, 1_000_000
     rng = np.random.default_rng(0)
-    params_np = {}
-    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        params_np[f"w{i}"] = (rng.normal(size=(a, b)).astype(np.float32)
-                              * np.float32((2.0 / a) ** 0.5))
-        params_np[f"b{i}"] = np.zeros(b, np.float32)
-    params0 = params_from_numpy(params_np, "cuda")
-    space = ParamSpace.from_tree(params0)
+    params0, space = _full_width_params(torch, rng)
     sched = async_sim.make_schedule(n_workers, n_events, seed=7,
                                     hetero=0.8)[:FULL_CAP]
     centers = rng.normal(size=(10, 512))
@@ -759,9 +1139,10 @@ def phase_b(torch, results, ref):
         wall = time.perf_counter() - t0
     # device-side rows only (kernels, copies, fills): an aten op's row also
     # carries the time of the kernels it launched, and would count it twice
-    rows = [(a.self_device_time_total, a.key) for a in prof.key_averages()
-            if a.device_type == torch.autograd.DeviceType.CUDA
-            and a.self_device_time_total > 0]
+    device = [a for a in prof.key_averages()
+              if a.device_type == torch.autograd.DeviceType.CUDA
+              and a.self_device_time_total > 0]
+    rows = [(a.self_device_time_total, a.key) for a in device]
     busy_us = sum(t for t, _ in rows)
     if busy_us == 0:
         log("  profiler: no device time recorded (busy share not measured)")
@@ -769,14 +1150,23 @@ def phase_b(torch, results, ref):
         log(f"  profiler over {len(window)} events: device busy "
             f"{busy_us / 1e3 / len(window):.3f} ms/event of "
             f"{wall * 1e3 / len(window):.3f} ms/event wall "
-            f"({busy_us / 1e6 / wall:.3f} busy share)")
+            f"({busy_us / 1e6 / wall:.3f} busy share), "
+            f"{sum(a.count for a in device) / len(window):.1f} device "
+            f"kernels and copies per event")
         for t, key in sorted(rows, reverse=True)[:10]:
             log(f"    {t / 1e3 / len(window):8.3f} ms/event  {key[:90]}")
         for label, part in (("block top-k", "block_topk_"),
-                            ("flat scatter-add", "scatter_add_kernel")):
+                            ("scatter-add (flat and rows)",
+                             "scatter_add_kernel"),
+                            ("SAMomentum passes and fma", "rowmap_kernel"),
+                            ("float64 (names containing 'double')",
+                             "double")):
             t = sum(t for t, key in rows if part in key)
             log(f"  profiler: {label} kernels {t / 1e3 / len(window):.3f} "
                 f"ms/event")
+        doubles = [key for _, key in rows if "double" in key]
+        if doubles:
+            raise AssertionError(f"float64 kernels in the loop: {doubles}")
     del sstate, workers
 
 
@@ -1126,9 +1516,14 @@ def main() -> int:
             import traceback
             traceback.print_exc()
             failed.append(f"{phase}: {exc!r}")
+        # hand the phase's cached blocks back: phase D's subprocesses
+        # share the card
+        torch.cuda.empty_cache()
         log(f"== phase {phase}: {time.perf_counter() - t0:.1f} s")
     # every kernel row needs its launch count from its main-path run
-    if len(results) != 6 or any("launches" not in row for row in results):
+    from repro_torch import kernels
+    if len(results) != len(kernels.KERNELS) \
+            or any("launches" not in row for row in results):
         failed.append("kernel rows lack the main path's launch counts")
     if failed:
         print("chip_smoke FAILED: " + "; ".join(failed), file=sys.stderr)

@@ -12,7 +12,10 @@ the CPU that is not one rounding per written operator:
 PyTorch runs one rounding per operator, so the port spells these forms out
 with :func:`fma` and :func:`rcp`.  The CUDA kernels use the matching
 intrinsics (``__fmaf_rn``, ``__fmul_rn``), so a kernel, its plain version
-and the reference agree bit for bit.
+and the reference agree bit for bit.  :func:`fma` is the plain version of
+the float32 fused multiply-add kernel
+(``kernels.samomentum_kernel.fused_multiply_add``), which its callers take
+on the card.
 """
 from __future__ import annotations
 

@@ -24,7 +24,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.arith import fma
+from repro_torch.kernels.samomentum_kernel import fused_multiply_add
 
 from . import engine as engine_lib
 from . import samomentum
@@ -140,7 +140,8 @@ class GDAsync(_SparseStrategy):
         return StrategyState(inner=_zeros(params))
 
     def step_rows(self, state, g2d, lrs, space):
-        r = fma(lrs.reshape(-1, 1), g2d, state.inner)   # r + lr * g, fused
+        # r + lr * g, fused
+        r = fused_multiply_add(lrs.reshape(-1, 1), g2d, state.inner)
         msg = space.select_rows(r, space.ks(self.density), self.spec)
         # r is this step's own tensor, so it is zeroed in place
         r.scatter_(1, msg.indices.to(torch.int64), 0.0)
@@ -179,7 +180,8 @@ class DGCAsync(_SparseStrategy):
         # the reference's serial DGC step fuses lr*g, fma(lr, g, m*u) (its
         # batched step does not -- the reference's own 1-ulp serial/batched
         # disagreement), so the port follows the serial step
-        u = fma(lrs.reshape(-1, 1), g, self.momentum * state.inner.velocity)
+        u = fused_multiply_add(lrs.reshape(-1, 1), g,
+                               self.momentum * state.inner.velocity)
         r = state.inner.residual + u
         msg = space.select_rows(r, space.ks(self.density), self.spec)
         sent = msg.indices.to(torch.int64)

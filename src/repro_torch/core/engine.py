@@ -10,9 +10,10 @@ Three engines share the semantics contract of ``kernels/ref.py``:
                    exact top-k over only those.
 * ``blockwise`` -- the kernel path: ``ops.hierarchical_topk`` (per-block
                    top-r candidates, kernel 2) for selection,
-                   ``samomentum_fused`` (kernel 3) for the accumulate /
-                   threshold / rescale pass, ``scatter_add`` (kernel 1) for
-                   the support repair.  Exact whenever ``block_r >= k``.
+                   ``samomentum_fused`` (kernel 3) for the threshold /
+                   rescale pass, ``scatter_add_rows`` (kernel 4) and one
+                   fused multiply-add for the support repair.  Exact
+                   whenever ``block_r >= k``.
 
 ``engine="auto"`` picks exact below ``sampled_threshold_above`` elements and
 sampled at or above it.  The reference's ``interpret`` knob has no
@@ -33,7 +34,7 @@ from typing import Protocol, runtime_checkable
 
 import torch
 
-from repro_torch.arith import fma, rcp
+from repro_torch.arith import rcp
 
 from .sparsify import (
     SparseLeaf,
@@ -252,10 +253,14 @@ class BlockwiseEngine:
 
 def velocity_accumulate(u, g, *, momentum: float, lr):
     """Paper Eq. (11): u <- m * u + eta * g, as ``fma(m, u, eta * g)``
-    (the reference's rounding, see ``repro_torch.arith``).  ``lr`` is a
-    float, or a float32 tensor that broadcasts against ``g`` (one learning
-    rate per row of the batched loop)."""
-    return fma(momentum, u, lr * g)
+    (the reference's rounding, see ``repro_torch.arith``), a new
+    contiguous tensor.  ``lr`` is a float, or a float32 ``(B, 1)`` tensor
+    (one learning rate per row of the batched loop).  On the card, one
+    float32 kernel launch (``samomentum_kernel.velocity_accumulate``)."""
+    from repro_torch.kernels import samomentum_kernel
+
+    return samomentum_kernel.velocity_accumulate(u, g, momentum=momentum,
+                                                 lr=lr)
 
 
 def samomentum_rescale(uacc, sent_mask, momentum: float):
@@ -364,9 +369,11 @@ def _samomentum_step_blockwise_rows(u2d, g2d, eng: BlockwiseEngine, *,
        (m*uacc + (1-m)*uacc, evaluated, not shortcut),
     3. ``scatter_add_rows`` repairs the coordinates that pass the threshold
        but are not shipped (ties, r < k): they are rescaled like any unsent
-       one (kernel 4 on rows ``0..B-1`` of the step's own ``sent_dense``).
+       one (kernel 4 on rows ``0..B-1`` of the step's own ``sent_dense``),
+       and ``u_new + extra * (1/m - 1)`` is one fused multiply-add (the
+       float32 ``fma`` kernel on the card).
     """
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, samomentum_kernel
 
     uacc = velocity_accumulate(u2d, g2d, momentum=momentum, lr=lr)
     vals, idx = eng.select_rows(uacc, k)
@@ -374,8 +381,9 @@ def _samomentum_step_blockwise_rows(u2d, g2d, eng: BlockwiseEngine, *,
     sent_dense, u_new = ops.samomentum_fused_rows(
         uacc, uacc, thr, momentum=momentum, lr=1.0 - momentum)
     # extra = thresholded-but-not-shipped coordinates (0 on the support)
-    extra = ops.scatter_add_rows(sent_dense, range(uacc.shape[0]), idx, -vals)
-    return vals, idx, fma(extra, 1.0 / momentum - 1.0, u_new)
+    extra = ops.scatter_add_rows(sent_dense, None, idx, -vals)
+    return vals, idx, samomentum_kernel.fused_multiply_add(
+        extra, 1.0 / momentum - 1.0, u_new)
 
 
 def samomentum_step(u, g, *, momentum: float, lr: float, k: int,

@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.arith import fma, rcp
+from repro_torch.arith import rcp
 
 
 class SparseLeaf(NamedTuple):
@@ -125,9 +125,11 @@ def quantize_scales(values2d: torch.Tensor, mode: str) -> torch.Tensor:
     a batch of rows adds in the order one row alone does.
     """
     if mode == "int8":
+        from repro_torch.kernels.samomentum_kernel import fused_multiply_add
+
         # XLA: max / 127 + 1e-12  ->  fma(max, 1/127, 1e-12)
-        return fma(values2d.abs().amax(dim=1, keepdim=True), rcp(127.0),
-                   1e-12)
+        return fused_multiply_add(values2d.abs().amax(dim=1, keepdim=True),
+                                  rcp(127.0), 1e-12)
     if mode == "tern":
         nnz = torch.clamp((values2d != 0.0).sum(dim=1, keepdim=True), min=1)
         total = torch.stack([_tern_sum(row.abs()) for row in values2d])

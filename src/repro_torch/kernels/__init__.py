@@ -3,7 +3,8 @@ version beside it (see ``build.py`` for how they are built)."""
 from . import block_topk, samomentum_kernel, scatter_apply, wire_pack
 
 KERNELS = (scatter_apply.INFO, block_topk.INFO, samomentum_kernel.INFO,
-           scatter_apply.ROWS_INFO, wire_pack.INFO, wire_pack.PACK_INFO)
+           scatter_apply.ROWS_INFO, wire_pack.INFO, wire_pack.PACK_INFO,
+           samomentum_kernel.ACC_INFO, samomentum_kernel.FMA_INFO)
 
 
 def reset_launches() -> None:

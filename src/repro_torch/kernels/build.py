@@ -128,16 +128,19 @@ def _declare(lib) -> None:
     """Declare every C function's argument and result types."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.scatter_add.argtypes = [p, i64, p, p, i64, p]
-    lib.scatter_add_rows_sorted.argtypes = [p, i64, p, p, p, p, i64, i64, p]
+    f32 = ctypes.c_float
+    lib.scatter_add_rows.argtypes = [p, i64, p, i64, p, p, i64, p]
     lib.block_topk.argtypes = [p, p, p, i64, i32, p]
-    lib.samomentum_fused.argtypes = [p, p, p, p, p, ctypes.c_float,
-                                     ctypes.c_float, ctypes.c_float, i64, i64,
+    lib.samomentum_fused.argtypes = [p, p, p, p, p, f32, f32, f32, i64, i64,
                                      p]
+    lib.samomentum_accumulate.argtypes = [p, i64, p, i64, p, i64, f32, p,
+                                          f32, i64, i64, p]
+    lib.fma_rows.argtypes = [p, i64, f32, i32] * 3 + [p, i64, i64, p]
     lib.wire_codes.argtypes = [p, i64, i32, p, p, i32, p, p, p]
     lib.tern_pack.argtypes = [p, i64, p, p]
-    for fn in (lib.scatter_add, lib.scatter_add_rows_sorted,
-               lib.block_topk, lib.samomentum_fused, lib.wire_codes,
-               lib.tern_pack):
+    for fn in (lib.scatter_add, lib.scatter_add_rows, lib.block_topk,
+               lib.samomentum_fused, lib.samomentum_accumulate, lib.fma_rows,
+               lib.wire_codes, lib.tern_pack):
         fn.restype = ctypes.c_int
 
 
@@ -175,11 +178,13 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, device) -> None:
-    """Validate one kernel operand before its pointer leaves Python."""
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, device, *,
+            contiguous: bool = True) -> None:
+    """Validate one kernel operand before its pointer leaves Python (a
+    kernel that takes strides checks them itself: ``contiguous=False``)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

@@ -1,26 +1,35 @@
-// Sparse scatter-add in place: dense[idx[j]] += vals[j], duplicates summed
-// in update order.
+// Sparse scatter-adds in place, duplicates summed in update order:
+//   scatter_add       dense[idx[j]] += vals[j] on a flat arena, and
+//   scatter_add_rows  dense2d[rows[b], idx[b, j]] += vals[b, j] for every
+//                     lane b of a (B, k) batch, the rows pairwise distinct.
 //
-// Replaces: src/repro/kernels/scatter_apply.py, _kernel / scatter_apply_blocked.
+// Replaces: src/repro/kernels/scatter_apply.py, _kernel /
+// scatter_apply_blocked (the flat one) and _rows_kernel /
+// scatter_apply_blocked_rows (the multi-row one).
 //
-// The TPU kernel buckets the updates by 2048-element block and streams the
-// WHOLE arena through VMEM once per event: for the 10.5M-parameter model that
-// is 2 x 42 MB of traffic to apply about 10.5K updates.  On Hopper a random
-// word write costs one 32-byte sector, so the bound is the k updates
-// themselves: read k indices and k values, and read and write k target words
-// (about 10.5K x 16 bytes, some 0.17 MB).  At that size the launch and the
-// host work around it, not the memory, set the time: the design is ONE
-// launch, with no library sort, no permutation and no allocation.
+// The TPU kernels bucket the updates by 2048-element block and stream WHOLE
+// rows through VMEM once per event: for the 10.5M-parameter model that is
+// 2 x 42 MB of traffic per row to apply about 10.5K updates.  On Hopper a
+// random word write costs one 32-byte sector, so the bound is the updates
+// themselves: per lane, read k indices and k values, and read and write k
+// target words (about 10.5K x 16 bytes, some 0.17 MB).  At that size the
+// launch and the host work around it, not the memory, set the time: the
+// design is ONE launch for all lanes, with no library sort, no permutation
+// and no allocation.
 //
-// Design: a range partition.  P CTAs (one per SM, at most n); CTA c owns the
-// words [c*w, (c+1)*w), w = ceil(n / P), so no two CTAs ever write one word
-// and there are no float atomics.  Each CTA streams all k indices in tiles
-// of 12,288 positions (24 coalesced loads per thread, all in flight at once,
-// the next tile's during this tile's work; after the first CTA they come
-// from L2: 42 KB, one tile, at k = 10,514).  It keeps the updates that fall
-// in its range IN POSITION ORDER: a warp ballot per sub-tile, then one warp
-// scans the 384 (sub-tile, warp) counts into offsets.  A kept update becomes
-// the 64-bit key (index << 32 | slot) in shared memory, its position beside
+// Design: a range partition per lane.  The grid is (P, B): CTA c of lane b
+// owns the words [c*w, (c+1)*w) of that lane's row, w = ceil(n / P), so no
+// two CTAs ever write one word (the rows are distinct) and there are no
+// float atomics.  P = max(1, SMs / B) per lane: the grid is one wave, one
+// CTA per SM (512 threads at 128 registers fill an SM's register file), so
+// a lane of a batch has fewer CTAs, each with a larger share of its k.
+// Each CTA streams all k indices of its lane in tiles of 12,288 positions
+// (24 coalesced loads per thread, all in flight at once, the next tile's
+// during this tile's work; after the first CTA they come from L2: 42 KB,
+// one tile, at k = 10,514).  It keeps the updates that fall in its range
+// IN POSITION ORDER: a warp ballot per sub-tile, then one warp scans the
+// 384 (sub-tile, warp) counts into offsets.  A kept update becomes the
+// 64-bit key (index << 32 | slot) in shared memory, its position beside
 // it.  A round of at most kCap kept updates is then put in key order --
 // each key's rank by counting when the round has at most one per thread
 // (about 80 at phase B's message: no sort), else by a bitonic sort in
@@ -34,8 +43,13 @@
 // applied, not skipped: (-0 + v) + 0 turns a -0 sum into +0.  Indices outside
 // [0, n) fall in no CTA's range and are dropped, as XLA's scatter drops them.
 //
-// Cost: P * k index reads from L2 and one round per kCap kept updates per
-// CTA; made for the sparse updates of DGS (k << n).
+// Lanes: the flat call is one lane on row 0.  The row ids travel in the
+// launch's own parameters (a table of up to kMaxLanes ids, larger batches in
+// several launches), or not at all for the identity rows 0..B-1 (the
+// blockwise support repair): no device copy of them, no host sync.
+//
+// Cost: P * k index reads from L2 per lane and one round per kCap kept
+// updates per CTA; made for the sparse updates of DGS (k << n).
 
 #include <atomic>
 #include <cstdint>
@@ -50,6 +64,18 @@ constexpr int kTile = kThreads * kUnroll;     // positions per tile
 constexpr int kScan = kUnroll * kWarps / 32;  // counts per lane of the scan
 constexpr int kCap = 2048;                    // kept updates per round
 constexpr int kPerThread = kCap / kThreads;
+constexpr int kMaxLanes = 512;                // row ids per launch
+
+// Target rows of the lanes: lane b writes row b ...
+struct Identity {
+  __device__ long long operator()(int lane) const { return lane; }
+};
+
+// ... or row row[b], the ids passed by value in the launch.
+struct RowTable {
+  int32_t row[kMaxLanes];
+  __device__ long long operator()(int lane) const { return row[lane]; }
+};
 
 // Bitonic sort of keys[0, m) ascending in shared memory, padded to a power
 // of two.
@@ -140,10 +166,16 @@ __device__ void apply_round(float* __restrict__ dense,
   __syncthreads();
 }
 
+// One lane per blockIdx.y: lane b's k updates (idx and vals at b * k) go
+// to row rows(b) of dense, n words long.
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
 scatter_add_kernel(float* __restrict__ dense, long long n, long long w,
                    const int32_t* __restrict__ idx,
-                   const float* __restrict__ vals, int k) {
+                   const float* __restrict__ vals, int k, Rows rows) {
+  dense += rows(blockIdx.y) * n;
+  idx += (long long)blockIdx.y * k;
+  vals += (long long)blockIdx.y * k;
   __shared__ unsigned long long keys[kCap];
   __shared__ int pos[kCap];
   __shared__ float sv[kCap];
@@ -252,19 +284,58 @@ cudaError_t sm_count(int* sms) {
   return cudaSuccess;
 }
 
+// Launch lanes [0, lanes) of a batch: P CTAs per lane over its n words,
+// one wave in all while there are fewer lanes than SMs.
+template <class Rows>
+cudaError_t launch(float* dense, long long n, const int32_t* idx,
+                   const float* vals, int k, int lanes, const Rows& rows,
+                   cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  long long parts = sms / lanes;
+  if (parts < 1) parts = 1;
+  if (parts > n) parts = n;
+  const long long w = (n + parts - 1) / parts;
+  const dim3 grid((unsigned)((n + w - 1) / w), (unsigned)lanes);
+  scatter_add_kernel<Rows><<<grid, kThreads, 0, stream>>>(dense, n, w, idx,
+                                                          vals, k, rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int scatter_add(void* dense, long long n, const void* idx,
                            const void* vals, long long k, void* stream) {
   if (k <= 0 || n <= 0) return 0;
   if (k > 0x7fffffffLL - 2 * kTile) return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  const cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return (int)err;
-  const long long parts = n < sms ? n : sms;
-  const long long w = (n + parts - 1) / parts;
-  const long long grid = (n + w - 1) / w;
-  scatter_add_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (float*)dense, n, w, (const int32_t*)idx, (const float*)vals, (int)k);
-  return (int)cudaGetLastError();
+  return (int)launch((float*)dense, n, (const int32_t*)idx,
+                     (const float*)vals, (int)k, 1, Identity{},
+                     (cudaStream_t)stream);
+}
+
+// rows: b host row ids, pairwise distinct (the wrapper checks), or null for
+// the rows 0..b-1.  One launch per kMaxLanes lanes.
+extern "C" int scatter_add_rows(void* dense, long long n, const int32_t* rows,
+                                long long b, const void* idx,
+                                const void* vals, long long k, void* stream) {
+  if (k <= 0 || n <= 0 || b <= 0) return 0;
+  if (k > 0x7fffffffLL - 2 * kTile) return (int)cudaErrorInvalidValue;
+  for (long long b0 = 0; b0 < b; b0 += kMaxLanes) {
+    const int lanes = (int)(b - b0 < kMaxLanes ? b - b0 : kMaxLanes);
+    const int32_t* ii = (const int32_t*)idx + b0 * k;
+    const float* vv = (const float*)vals + b0 * k;
+    cudaError_t err;
+    if (rows == nullptr) {
+      err = launch((float*)dense + b0 * n, n, ii, vv, (int)k, lanes,
+                   Identity{}, (cudaStream_t)stream);
+    } else {
+      RowTable table;
+      for (int i = 0; i < lanes; ++i) table.row[i] = rows[b0 + i];
+      err = launch((float*)dense, n, ii, vv, (int)k, lanes, table,
+                   (cudaStream_t)stream);
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -115,6 +115,6 @@ def scatter_add_rows(dense2d, rows, idx2d, vals2d):
     """Batched multi-row scatter-add, in place: ``dense2d[rows[b],
     idx2d[b]] += vals2d[b]`` for every lane b, ONE launch of kernel 4.
     ``rows`` is a host sequence of pairwise-distinct row ids (the batching
-    rule); returns ``dense2d``."""
+    rule), or ``None`` for the rows ``0..B-1``; returns ``dense2d``."""
     return scatter_add_rows_(dense2d, rows, idx2d.contiguous(),
                              vals2d.to(dense2d.dtype).contiguous())

@@ -1,13 +1,13 @@
 """In-place sparse scatter-adds with duplicate indices summed in update
 order and indices outside ``[0, n)`` dropped: kernel 1 of the port, the
-flat ``dense[idx] += vals`` (``csrc/scatter_apply.cu``, a range partition
-with no sort), and kernel 4, its multi-row twin
-``dense2d[rows[b], idx2d[b]] += vals2d[b]`` for pairwise-distinct rows
-(``csrc/scatter_apply_rows.cu``).
+flat ``dense[idx] += vals``, and kernel 4, its multi-row twin
+``dense2d[rows[b], idx2d[b]] += vals2d[b]`` for pairwise-distinct rows --
+one range-partition kernel with no sort (``csrc/scatter_apply.cu``), the
+flat call its one-lane case.
 
 Replace the TPU's blocked kernels (``repro/kernels/scatter_apply.py``,
 ``scatter_apply_blocked`` and ``scatter_apply_blocked_rows``): the TPU
-streams whole arena rows through VMEM; the Hopper kernels touch only the
+streams whole arena rows through VMEM; the Hopper kernel touches only the
 target words, in place.
 
 Each wrapper takes a CPU tensor to its plain version and launches its
@@ -15,10 +15,10 @@ kernel for a CUDA tensor; anything else raises.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
-
-from repro_torch.device import from_host
 
 from . import build
 
@@ -26,13 +26,16 @@ INFO = build.KernelInfo(
     name="scatter_add",
     source="src/repro_torch/kernels/csrc/scatter_apply.cu",
     replaces="src/repro/kernels/scatter_apply.py:33")
-# kept updates a CTA of the flat kernel applies per round (kCap in
-# csrc/scatter_apply.cu); a share beyond it takes several rounds
+# kept updates a CTA applies per round (kCap in csrc/scatter_apply.cu); a
+# share beyond it takes several rounds
 ROUND = 2048
+# lanes per launch of the multi-row kernel (kMaxLanes): their row ids
+# travel in the launch's parameters
+MAX_LANES = 512
 
 ROWS_INFO = build.KernelInfo(
     name="scatter_add_rows",
-    source="src/repro_torch/kernels/csrc/scatter_apply_rows.cu",
+    source="src/repro_torch/kernels/csrc/scatter_apply.cu",
     replaces="src/repro/kernels/scatter_apply.py:65")
 
 
@@ -85,16 +88,25 @@ def scatter_add_(dense: torch.Tensor, indices: torch.Tensor,
     return dense
 
 
-def _host_rows(rows, n_rows: int) -> np.ndarray:
-    """Validate the lanes' target rows on the host: in range and pairwise
-    distinct (the batching rule), so no two lanes write one word."""
-    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
-    if rows.size and (rows.min() < 0 or rows.max() >= n_rows):
-        raise ValueError(f"scatter_add_rows_: rows {rows.tolist()} outside "
+def _host_rows(rows, n_rows: int, n_lanes: int) -> list:
+    """The lanes' target rows as host ints, checked: ``None`` means the
+    rows ``0..B-1``; else one per lane, in range and pairwise distinct (the
+    batching rule), so no two lanes write one word."""
+    if rows is None:
+        if n_lanes > n_rows:
+            raise ValueError(f"scatter_add_rows_: {n_lanes} lanes for "
+                             f"{n_rows} rows")
+        return list(range(n_lanes))
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1).tolist()
+    if len(rows) != n_lanes:
+        raise ValueError(f"scatter_add_rows_: {len(rows)} rows for "
+                         f"{n_lanes} lanes")
+    if rows and (min(rows) < 0 or max(rows) >= n_rows):
+        raise ValueError(f"scatter_add_rows_: rows {rows} outside "
                          f"[0, {n_rows})")
-    if np.unique(rows).size != rows.size:
-        raise ValueError(f"scatter_add_rows_: rows {rows.tolist()} are not "
-                         f"pairwise distinct")
+    if len(set(rows)) != len(rows):
+        raise ValueError(f"scatter_add_rows_: rows {rows} are not pairwise "
+                         f"distinct")
     return rows
 
 
@@ -104,11 +116,12 @@ def scatter_add_rows_plain(dense2d: torch.Tensor, rows, idx2d: torch.Tensor,
     to flat coordinates ``rows[b] * n + idx``, then the same stable sort
     and in-order run sums as :func:`scatter_add_plain` (distinct rows keep
     every lane's run inside its own row)."""
-    rows = _host_rows(rows, dense2d.shape[0])
+    rows = _host_rows(rows, dense2d.shape[0], idx2d.shape[0])
     n = dense2d.shape[1]
     idx = idx2d.to(torch.int64)
     ok = (idx >= 0) & (idx < n)
-    flat = torch.from_numpy(rows).to(dense2d.device)[:, None] * n + idx
+    flat = torch.tensor(rows, dtype=torch.int64,
+                        device=dense2d.device)[:, None] * n + idx
     scatter_add_plain(dense2d.view(-1), flat[ok], vals2d.to(dense2d.dtype)[ok])
     return dense2d
 
@@ -117,8 +130,9 @@ def scatter_add_rows_(dense2d: torch.Tensor, rows, idx2d: torch.Tensor,
                       vals2d: torch.Tensor) -> torch.Tensor:
     """``dense2d[rows[b], idx2d[b]] += vals2d[b]`` in place for every lane
     b; returns ``dense2d``.  ``rows`` is a host sequence of pairwise
-    distinct row ids.  CPU -> plain version, CUDA -> kernel 4 (ONE launch
-    for all lanes)."""
+    distinct row ids, or ``None`` for the rows ``0..B-1``.  CPU -> plain
+    version, CUDA -> kernel 4: ONE launch for up to ``MAX_LANES`` lanes,
+    the row ids in its parameters (none for ``None``), no device copy."""
     if dense2d.device.type == "cpu":
         return scatter_add_rows_plain(dense2d, rows, idx2d, vals2d)
     if dense2d.device.type != "cuda":
@@ -126,18 +140,17 @@ def scatter_add_rows_(dense2d: torch.Tensor, rows, idx2d: torch.Tensor,
     build.require(dense2d, "dense2d", torch.float32, dense2d.device)
     build.require(idx2d, "idx2d", torch.int32, dense2d.device)
     build.require(vals2d, "vals2d", torch.float32, dense2d.device)
-    rows = _host_rows(rows, dense2d.shape[0])
     if dense2d.dim() != 2 or idx2d.dim() != 2 \
-            or vals2d.shape != idx2d.shape or idx2d.shape[0] != rows.size:
+            or vals2d.shape != idx2d.shape:
         raise ValueError(f"scatter_add_rows_: shapes {tuple(dense2d.shape)}, "
-                         f"{rows.size} rows, {tuple(idx2d.shape)}, "
-                         f"{tuple(vals2d.shape)}")
-    rows_dev = from_host(rows, dense2d.device)
-    sidx, perm = torch.sort(idx2d, dim=1, stable=True)
-    rc = build.library().scatter_add_rows_sorted(
-        dense2d.data_ptr(), dense2d.shape[1], rows_dev.data_ptr(),
-        sidx.data_ptr(), perm.data_ptr(), vals2d.data_ptr(), idx2d.shape[0],
-        idx2d.shape[1], build.stream())
-    build.check(rc, ROWS_INFO.name)
-    build.count(ROWS_INFO)
+                         f"{tuple(idx2d.shape)}, {tuple(vals2d.shape)}")
+    lanes, k = idx2d.shape
+    ids = _host_rows(rows, dense2d.shape[0], lanes)
+    if lanes and k:
+        table = None if rows is None else (ctypes.c_int32 * lanes)(*ids)
+        rc = build.library().scatter_add_rows(
+            dense2d.data_ptr(), dense2d.shape[1], table, lanes,
+            idx2d.data_ptr(), vals2d.data_ptr(), k, build.stream())
+        build.check(rc, ROWS_INFO.name)
+        build.count(ROWS_INFO, -(-lanes // MAX_LANES))
     return dense2d

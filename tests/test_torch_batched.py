@@ -146,6 +146,40 @@ def test_scatter_add_rows_on_other_devices_raises():
             torch.empty((2, 3), device="meta"))
 
 
+def test_scatter_add_rows_identity_rows_are_rows_0_to_b():
+    """``rows=None`` (the blockwise repair's call) means lanes 0..B-1; the
+    plain version takes it as the explicit rows."""
+    dense, _, idx, vals = _rows_problem(_rng("ident"), 4, 600, 3, 25)
+    idx[1, 3] = -2
+    want = tops.scatter_add_rows(torch.from_numpy(dense.copy()), [0, 1, 2],
+                                 torch.from_numpy(idx), torch.from_numpy(vals))
+    got = tops.scatter_add_rows(torch.from_numpy(dense.copy()), None,
+                                torch.from_numpy(idx), torch.from_numpy(vals))
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("rows,lanes", [(None, 6), ([0, 1, 2], 2),
+                                        ([3], 2)])
+def test_scatter_add_rows_refuses_rows_that_do_not_fit_the_lanes(rows, lanes):
+    with pytest.raises(ValueError, match="lanes"):
+        tops.scatter_add_rows(torch.zeros(5, 10), rows,
+                              torch.zeros((lanes, 3), dtype=torch.int32),
+                              torch.ones(lanes, 3))
+
+
+def test_kernel_constants_match_the_cuda_source():
+    """The wrapper's launch count and the tests' round size follow the
+    constants of csrc/scatter_apply.cu."""
+    import re
+    from pathlib import Path
+
+    src = (Path(scatter_apply.__file__).parent / "csrc"
+           / "scatter_apply.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kMaxLanes"]) == scatter_apply.MAX_LANES
+    assert int(consts["kCap"]) == scatter_apply.ROUND
+
+
 def test_rows_wrappers_take_the_plain_path_on_the_cpu(monkeypatch):
     from repro_torch.kernels import build
 
@@ -160,7 +194,8 @@ def test_rows_wrappers_take_the_plain_path_on_the_cpu(monkeypatch):
     tops.scatter_add_rows(x.clone(), [2, 0], torch.ones((2, 4),
                                                        dtype=torch.int32),
                           torch.ones(2, 4))
-    assert [info.launches for info in tkernels.KERNELS] == [0] * 6
+    assert [info.launches for info in tkernels.KERNELS] == \
+        [0] * len(tkernels.KERNELS)
     assert scatter_apply.ROWS_INFO in tkernels.KERNELS
 
 

@@ -215,6 +215,45 @@ def test_samomentum_step_bit_equal(spec):
     _eq(t_u, j_u)
 
 
+@pytest.mark.parametrize("B", [1, 3])
+def test_blockwise_step_rows_bit_equal_to_reference_per_row(B):
+    """The port's row-wise blockwise step (accumulate on strided leaf views
+    of a wider arena, selection, fused pass, repair, fma epilogue) at
+    ``block_r=4``, one learning rate per row, against the reference's
+    jitted ``_samomentum_step_blockwise`` on each row: values, indices and
+    the new velocity bit for bit; and ``velocity_accumulate`` alone against
+    the reference's step's first line."""
+    rng = _rng("bwrows", B)
+    n, k, off = 3000, 40, 5
+    u = np.stack([_planted(rng, n) for _ in range(B)])
+    g = rng.normal(size=(B, n)).astype(np.float32)
+    lrs = np.asarray([0.05, 0.1, 0.013][:B], np.float32)
+    spec = dict(engine="blockwise", block_r=4)
+    jeng = jengine.get_engine("blockwise", jengine.CompressionSpec(**spec))
+    teng = tengine.get_engine("blockwise", tengine.CompressionSpec(**spec))
+    step = jax.jit(lambda u, g, lr: jengine._samomentum_step_blockwise(
+        u, g, jeng, momentum=0.7, lr=lr, k=k))
+    acc = jax.jit(lambda u, g, lr: jengine.velocity_accumulate(
+        u, g, momentum=0.7, lr=lr))
+    arena = torch.zeros(2, B, n + 11)
+    arena[0, :, off:off + n] = torch.from_numpy(u)
+    arena[1, :, off:off + n] = torch.from_numpy(g)
+    tu, tg = arena[0, :, off:off + n], arena[1, :, off:off + n]
+    tlr = torch.from_numpy(lrs)[:, None]
+    vals, idx, u_new = tengine._samomentum_step_blockwise_rows(
+        tu, tg, teng, momentum=0.7, lr=tlr, k=k)
+    uacc = tengine.velocity_accumulate(tu, tg, momentum=0.7, lr=tlr)
+    for b in range(B):
+        msg, want_u = step(u[b], g[b], lrs[b])
+        _eq(vals[b], msg.values)
+        _eq(idx[b], msg.indices)
+        np.testing.assert_array_equal(u_new[b].numpy().view(np.int32),
+                                      np.asarray(want_u).view(np.int32))
+        np.testing.assert_array_equal(
+            uacc[b].numpy().view(np.int32),
+            np.asarray(acc(u[b], g[b], lrs[b])).view(np.int32))
+
+
 def test_engine_registry():
     assert set(tengine.ENGINES) == {"exact", "sampled", "blockwise"}
     assert isinstance(tengine.resolve_engine(tengine.DEFAULT_SPEC, 10),

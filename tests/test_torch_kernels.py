@@ -7,6 +7,7 @@ values and indices, scatters.  The CUDA kernels themselves are held against
 these plain versions on the card by chip_smoke.py.
 """
 import zlib
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -102,6 +103,200 @@ def test_samomentum_kernel_within_an_ulp_of_the_eager_oracle():
                                atol=1e-7)
     np.testing.assert_allclose(unew.numpy(), r_unew.numpy(), rtol=3e-7,
                                atol=1e-7)
+
+
+# ------------------------------------------------------------ the FMAs
+
+F32_MAX = float(np.finfo(np.float32).max)
+# a float32 result at or beyond this magnitude rounds to infinity
+F32_OVERFLOW = Fraction(2) ** 128 - Fraction(2) ** 103
+
+
+def _exact_fma(a, b, c):
+    """float32 ``a * b + c`` rounded once, to nearest even, from exact
+    rationals (IEEE signs of zero, underflow to denormals and overflow to
+    infinity); non-finite operands or products through float64, where no
+    rounding is left to get wrong."""
+    a, b, c = (np.float32(x) for x in (a, b, c))
+    if not all(np.isfinite([a, b, c])):
+        with np.errstate(invalid="ignore", over="ignore"):
+            return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+    prod = Fraction(float(a)) * Fraction(float(b))
+    exact = prod + Fraction(float(c))
+    if exact == 0:
+        # an exact zero is -0 only as (-0) + (-0)
+        neg = prod == 0 and np.signbit(a) != np.signbit(b) and np.signbit(c)
+        return np.float32(-0.0 if neg else 0.0)
+    if abs(exact) >= F32_OVERFLOW:
+        return np.float32(np.copysign(np.inf, float(exact)))
+    lo = np.float32(float(exact))      # within an ulp of the exact value
+    with np.errstate(over="ignore"):
+        cands = [lo, np.nextafter(lo, np.float32(-np.inf)),
+                 np.nextafter(lo, np.float32(np.inf))]
+    cands = [x for x in cands if np.isfinite(x)]
+    best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                     int(np.float32(v).view(np.int32)) & 1))
+    if best == 0:                       # underflow keeps the sign
+        return np.float32(np.copysign(0.0, float(exact)))
+    return np.float32(best)
+
+
+def _halfway_cases(rng, size):
+    """float32 (a, b, c) whose exact a * b + c lies far within an ulp of a
+    point halfway between two float32 values (a float64 rounding first
+    would land on it): a * b an odd integer in [2^24, 2^25) plus a c of
+    2^-30 to 2^-60 of it, and 64 - 2^-40 beside a c in [2^30, 2^31) with an
+    odd last bit; scaled by powers of two, signs at random."""
+    h = size // 2
+    a = np.concatenate([rng.integers(2048, 2896, h) * 2 + 1.0,
+                        np.full(size - h, 8.0 + 2.0 ** -20)])
+    b = np.concatenate([rng.integers(2048, 2896, h) * 2 + 1.0,
+                        np.full(size - h, 8.0 - 2.0 ** -20)])
+    c = np.concatenate([np.ldexp(1.0, -rng.integers(30, 60, h)),
+                        (2.0 ** 23 + rng.integers(0, 2 ** 22, size - h) * 2
+                         + 1) * 128.0])
+    s1, s2 = rng.integers(-40, 40, size), rng.integers(-40, 40, size)
+    a, b, c = np.ldexp(a, s1), np.ldexp(b, s2), np.ldexp(c, s1 + s2)
+    sign = rng.choice([-1.0, 1.0], (3, size))
+    return tuple((x * sg).astype(np.float32) for x, sg in zip((a, b, c), sign))
+
+
+_INF, _NAN, _T = float("inf"), float("nan"), 2.0 ** -70
+# (a, b, c, a * b + c rounded once)
+_SPECIAL = [(-0.0, 3.0, -0.0, -0.0), (0.0, -3.0, -0.0, -0.0),
+            (-0.0, -3.0, 0.0, 0.0), (3.0, 0.0, -0.0, 0.0),
+            (_T, _T, 0.0, 2.0 ** -140), (_T, -_T, 2.0 ** -149,
+                                         -511 * 2.0 ** -149),
+            (2.0 ** -75, 2.0 ** -75, -0.0, 0.0),       # 2^-150: a tie, to 0
+            (2.0 ** -75, -2.0 ** -74, 0.0, -2.0 ** -149),
+            (2.0 ** 64, 2.0 ** 64, 0.0, _INF),
+            (F32_MAX, 1.0, F32_MAX * 2.0 ** -24, _INF),
+            (F32_MAX, 1.0, F32_MAX * 2.0 ** -25, F32_MAX),
+            (_INF, 0.0, 1.0, _NAN), (_INF, 2.0, -_INF, _NAN),
+            (_INF, 2.0, 5.0, _INF), (-_INF, 2.0, 5.0, -_INF),
+            (2.0, 3.0, _INF, _INF), (_NAN, 1.0, 2.0, _NAN),
+            (1.0, 2.0, _NAN, _NAN), (1e30, 1e10, -_INF, -_INF)]
+
+
+def _bits_nan(x):
+    """float32 bit patterns, every NaN as one."""
+    x = np.asarray(x, np.float32)
+    return np.where(np.isnan(x), 0x7FC00000, x.view(np.int32))
+
+
+def test_exact_fma_oracle_on_the_special_table():
+    for a, b, c, want in _SPECIAL:
+        np.testing.assert_array_equal(_bits_nan(_exact_fma(a, b, c)),
+                                      _bits_nan(want), err_msg=str((a, b, c)))
+
+
+@pytest.mark.parametrize("case", ["halfway", "special"])
+def test_fma_plain_is_correctly_rounded_on_hard_cases(case):
+    """The plain version of the fma kernel (``arith.fma``'s float64
+    round-to-odd emulation) against exact rationals, bit for bit, where a
+    double rounding would err and at IEEE corner cases."""
+    if case == "halfway":
+        a, b, c = _halfway_cases(_rng("halfway"), 400)
+    else:
+        a, b, c = (np.asarray(col, np.float32)
+                   for col in list(zip(*_SPECIAL))[:3])
+    got = samomentum_kernel.fused_multiply_add(
+        torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c))
+    want = [_exact_fma(*t) for t in zip(a, b, c)]
+    np.testing.assert_array_equal(_bits_nan(got.numpy()), _bits_nan(want))
+    # a float64 sum rounded again to float32 errs on the halfway cases
+    if case == "halfway":
+        twice = (a.astype(np.float64) * b + c).astype(np.float32)
+        assert (twice.view(np.int32) != np.asarray(want).view(np.int32)).any()
+
+
+@pytest.mark.parametrize("lr", ["float", "rows"])
+def test_velocity_accumulate_plain_is_one_rounding_of_m_u_plus_lr_g(lr):
+    """fma(m, u, lr * g): lr * g rounded to float32, then one rounding of
+    the fused sum -- on halfway cases (m * u an odd integer in
+    [2^24, 2^25)), on strided leaf views, lr a float or a (B, 1)
+    column."""
+    rng = _rng("acc", lr)
+    B, n = 3, 300
+    u = (rng.integers(2048, 2896, (B, n)) * 2 + 1.0).astype(np.float32)
+    g = (np.ldexp(1.0, -rng.integers(6, 36, (B, n)))
+         * rng.choice([-1.0, 1.0], (B, n))).astype(np.float32)
+    g[:, ::7] = rng.normal(size=g[:, ::7].shape)
+    lrs = np.asarray([1.0, 0.5, 0.1], np.float32)[:, None]
+    arg = {"float": 1.0, "rows": torch.from_numpy(lrs)}[lr]
+    lr_np = {"float": np.ones((B, 1), np.float32), "rows": lrs}[lr]
+    arena = torch.zeros(2, B, n + 9)
+    arena[0, :, 5:5 + n], arena[1, :, 5:5 + n] = (torch.from_numpy(u),
+                                                  torch.from_numpy(g))
+    got = samomentum_kernel.velocity_accumulate(
+        arena[0, :, 5:5 + n], arena[1, :, 5:5 + n], momentum=4097.0, lr=arg)
+    assert got.is_contiguous() and got.shape == (B, n)
+    lrg = lr_np * g                       # float32 products, one rounding
+    want = np.vectorize(_exact_fma)(np.float32(4097.0), u, lrg)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.astype(np.float32).view(np.int32))
+
+
+def test_fma_wrappers_take_the_plain_path_on_the_cpu(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA build")
+
+    monkeypatch.setattr(build, "library", no_build)
+    reset_launches()
+    x = torch.randn(3, 50)
+    samomentum_kernel.velocity_accumulate(x, x, momentum=0.7,
+                                          lr=torch.ones(3, 1))
+    samomentum_kernel.fused_multiply_add(x, 0.5, x)
+    assert samomentum_kernel.ACC_INFO.launches == 0
+    assert samomentum_kernel.FMA_INFO.launches == 0
+
+
+def test_fma_operand_forms():
+    """The C entries' operand descriptors: (pointer, row stride, value,
+    kind) for floats, columns and full views."""
+    op = samomentum_kernel._operand
+    SCALAR, ROW, FULL = (samomentum_kernel.SCALAR, samomentum_kernel.ROW,
+                         samomentum_kernel.FULL)
+    arena = torch.zeros(3, 101)
+    view = arena[:, 7:57]
+    shape = view.shape
+    assert op(0.25, shape, view.device, "x") == (None, 0, 0.25, SCALAR)
+    assert op(view, shape, view.device, "x") == \
+        (view.data_ptr(), 101, 0.0, FULL)
+    col = torch.ones(3, 1)
+    assert op(col, shape, col.device, "x") == (col.data_ptr(), 1, 0.0, ROW)
+    flat = torch.ones(40)
+    assert op(flat, flat.shape, flat.device, "x")[3] == FULL
+    assert samomentum_kernel._rows((3, 50)) == (3, 50)
+    assert samomentum_kernel._rows((2, 3, 4)) == (1, 24)
+    assert samomentum_kernel._rows(()) == (1, 1)
+
+
+@pytest.mark.parametrize("bad", ["transposed", "row", "shape", "dtype",
+                                 "strided 1-d", "one element"])
+def test_fma_operand_forms_refused(bad):
+    """Operands are a float, a (B, 1) column or a tensor of the result's
+    shape: a row, another shape, a transposed or strided 1-d view, another
+    dtype and a one-element tensor against a (3, 50) result are refused."""
+    op = samomentum_kernel._operand
+    shape = torch.Size((3, 50))
+    x = {"transposed": torch.zeros(50, 3).t(), "row": torch.zeros(1, 50),
+         "shape": torch.zeros(3, 49), "dtype": torch.zeros(3, 50,
+                                                           dtype=torch.float64),
+         "strided 1-d": torch.zeros(100)[::2],
+         "one element": torch.tensor(2.0)}[bad]
+    with pytest.raises(TypeError if bad == "dtype" else ValueError):
+        op(x, shape if bad != "strided 1-d" else x.shape, x.device, "x")
+
+
+def test_fma_wrappers_on_other_devices_raise():
+    x = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        samomentum_kernel.fused_multiply_add(x, 0.5, x)
+    with pytest.raises(ValueError, match="no kernel"):
+        samomentum_kernel.velocity_accumulate(x, x, momentum=0.7, lr=0.1)
+    with pytest.raises(TypeError, match="no tensor"):
+        samomentum_kernel.fused_multiply_add(1.0, 2.0, 3.0)
 
 
 # ------------------------------------------------------------ block top-k
