@@ -25,9 +25,13 @@ exits nonzero and prints no result line):
   multiply-adds (the velocity accumulate, fma) values within an ulp of a
   float32 halfway point, IEEE corner cases and every operand form on
   strided leaf views.  Each reports the C call alone and the wrapper's
-  host time per call.  The wire kernels (5-6) are held byte for byte, at a
-  message of phase B (k = 10,514 in 8 segments) and at one
-  4,718,592-element vector.
+  host time per call.  The segmented quantize (rows 5-6: scales, codes,
+  shipped values and packed tern codes in one launch) is held byte for
+  byte in bf16, int8 and tern at a message of phase B (k = 10,514 in 8
+  segments), at one 4,718,592-element vector and at a (16, k) batch, with
+  NaN, +-inf, +-0, denormals, int8 and bf16 halfway values, an all-zero
+  segment and a segment of one element planted; the codec's frame tails
+  and frames too.
 * a -- the quickstart configuration (8 workers, 600 events, asgd and dgs) on
   the card and on the CPU from the same weights and numpy batches; bytes,
   losses and accuracy must agree within the stated tolerances.
@@ -36,19 +40,23 @@ exits nonzero and prints no result line):
   96 events through the serial loop, ``AsyncTrainer.run``.  Every kernel's
   launch counter must rise (the serial worker step is the row-wise one at
   B = 1, so its support repair is the multi-row scatter-add); losses are
-  finite and the wire bytes are the static frame sizes.  Prints events/s,
+  finite and the wire bytes are the static frame sizes; the segmented
+  quantize launches exactly once per event and the fma only in the
+  repair (once per leaf and event).  Prints events/s,
   the per-stage split, peak memory and a profiler window's device time by
   kernel, in which no float64 kernel may run.
 * c -- phase B's configuration, schedule and batches through the batched
   loop, ``AsyncTrainer.run_batched`` with ``max_batch=16``, with a Recorder
   and the metrics on.  It must be bit-equal to phase B's run (losses, final
-  params, M, v, bytes), and every kernel, kernel 4 included, must launch.
+  params, M, v, bytes), and every kernel, kernel 4 included, must launch
+  (the segmented quantize exactly once per batch).
   Prints events/s, the mean batch, launches per event, the host span
   totals per stage and peak memory.
 * d -- the cluster runtime at full width: phase B's model, schedule,
   batches and 100 worker slots through ``cluster.run_inprocess`` (50 client
-  threads and the coordinator, every message through the wire codec and
-  kernels 5-6).  D1 (int8 up, none down) must be bit-equal to phase B; D2
+  threads and the coordinator, every message through the wire codec, one
+  launch of the segmented quantize per encode).  D1 (int8 up, none down)
+  must be bit-equal to phase B; D2
   (tern up, bf16 down) bit-equal to the port's serial ``AsyncTrainer.run``
   of its configuration, run here; D3 runs ``python -m
   repro_torch.launch.cluster --smoke`` (two client processes over TCP) and
@@ -817,84 +825,290 @@ def plant_blocks(torch, gen, x2d):
     x2d[8] = b
 
 
+def int8_halfway(rng, s: float, count: int) -> np.ndarray:
+    """float32 values v whose float32 quotient v / s is exactly n + 0.5
+    (|n + 0.5| <= 126.5): where int8's round half to even decides the
+    code.  Each starts at (n + 0.5) * s and steps an ulp at a time."""
+    s = np.float32(s)
+    out = []
+    for n in rng.integers(-127, 127, count):
+        t = np.float32(n + 0.5)
+        v = np.float32(t * s)
+        for _ in range(8):
+            q = np.float32(v / s)
+            if q == t:
+                out.append(v)
+                break
+            v = np.nextafter(v, np.float32(np.inf if q < t else -np.inf))
+    return np.asarray(out, np.float32)
+
+
+def plant_wire(torch, rng, x, seg):
+    """The wire kernel's special values, in place, in a (k,) message x cut
+    by ``seg``: the segments of two elements get, in order, +0 and -0 (an
+    all-zero segment), a NaN and a +inf; a segment of one element a
+    denormal; one of 3 to 999 elements a -inf; every longer one +-0,
+    +-denormals, bf16 halfway patterns (low 16 bits 0x8000), a planted
+    maximum of 100 and int8 halfway values under its scale."""
+    from repro_torch.core.sparsify import quantize_scales_plain
+
+    short = iter(("zero", "nan", "inf"))
+    off = 0
+    for n in seg:
+        part = x[off:off + n]
+        off += n
+        if n == 1:
+            part[0] = -3e-39
+        elif n == 2:
+            kind = next(short, None)
+            if kind == "zero":
+                part[0], part[1] = 0.0, -0.0
+            elif kind is not None:
+                part[0] = float(kind)
+        elif n < 1000:
+            part[n // 2] = float("-inf")
+        else:
+            part[1::17], part[2::17] = 0.0, -0.0
+            part[3::17], part[4::17] = 1e-41, -3e-39
+            bits = part[5::13].view(torch.int32)
+            part[5::13] = ((bits & -65536) | 0x8000).view(torch.float32)
+            part[n // 3] = 100.0
+            s = float(quantize_scales_plain(part[None], "int8"))
+            vals = int8_halfway(rng, s, min(n // 20, 4096))
+            pos = 7 + 17 * np.arange(len(vals))
+            keep = pos != n // 3
+            part[torch.from_numpy(pos[keep]).cuda()] = \
+                torch.from_numpy(vals[keep]).cuda()
+
+
 def wire_kernels(torch, timer, rate, results, compare, errs):
-    """Kernels 5 (each mode) and 6 against their plain versions, byte for
-    byte, at a phase B message and at one 4,718,592-element vector; timed
-    with the plain versions.  No single PyTorch call computes kernel 5
-    (codes and dequantized values): for bf16 the two calls
-    ``x.to(torch.bfloat16)`` and its ``.float()`` are timed beside it."""
-    from repro_torch.core.sparsify import quantize_segments
-    from repro_torch.kernels import build, wire_pack
+    """The segmented quantize (rows 5 and 6, ``csrc/wire_pack.cu``)
+    against its plain version byte for byte -- codes, shipped values and
+    scales as bit patterns -- in bf16, int8 and tern, at a phase B message
+    (k = 10,514 in 8 segments), at one 4,718,592-element vector (one
+    segment: the two-launch path) and at a (16, k) batch of messages
+    (phase C's shape), each with ``plant_wire``'s values; the message also
+    at a 4-byte offset, the batch at a row stride of k + 3, the vector
+    with a NaN and +-inf in different chunks and with +-inf alone, and a
+    (3, k) batch that mixes segments of one chunk with one of three, with
+    specials in both.  The simulator's ``quantize_segments`` must ship the
+    plain version's bits.  The codec's frame tail (every mode, u8, u16 and
+    u32 indices) against its plain version, and ``pack_from_arena``'s
+    frames against that tail and against the per-segment
+    ``encode_arena_leaf_segments`` (on the card the same kernel: a
+    consistency check).  Timed: the wrapper, the C call alone
+    and the plain version at each shape and mode, and a message's whole
+    ``quantize_pack`` and ``pack_from_arena`` (host time per call, device
+    kernels and copies per encode).  No single PyTorch call writes codes
+    and shipped values: for bf16 the pair ``x.to(torch.bfloat16).float()``
+    is timed beside it, as information."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.cluster import wire
+    from repro_torch.core.sparsify import SparseLeaf, quantize_segments
+    from repro_torch.kernels import wire_pack
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    seg = full_width_space(torch).ks(0.001)     # 10,514 in 8 segments
-    shapes = (("message", seg), ("vector", (2304 * 2048,)))
-    rows = {}
-    for label, sg in shapes:
-        k = sum(sg)
-        x = torch.randn(k, generator=gen, device="cuda")
-        x[::9] = 0.0                      # zeros: tern's nnz
-        x[4::17] = -0.0
+    rng = np.random.default_rng(5)
+    space = full_width_space(torch)
+    seg = tuple(space.ks(0.001))              # 10,514 in 8 segments
+    k, n_vec = sum(seg), 2304 * 2048
+    msg = torch.randn(k, generator=gen, device="cuda")
+    plant_wire(torch, rng, msg, seg)
+    vec = torch.randn(n_vec, generator=gen, device="cuda")
+    plant_wire(torch, rng, vec, (n_vec,))
+    batch = torch.randn(16, k, generator=gen, device="cuda")
+    for row in batch:
+        plant_wire(torch, rng, row, seg)
+    odd = torch.empty(k + 1, device="cuda")
+    odd[1:] = msg
+    wide = torch.zeros(16, k + 3, device="cuda")
+    wide[:, :k] = batch
+    # the two-launch path with specials: a NaN and +-inf in different
+    # chunks of the vector's one segment (the partial pass's NaN flag and
+    # the combine of the chunk partials), +-inf alone; and one launch that
+    # mixes segments of one chunk (which the partial pass skips) with one
+    # of three chunks, a NaN in one chunk and +inf in another
+    ch = wire_pack.CHUNK
+    vec_nan = torch.randn(n_vec, generator=gen, device="cuda")
+    plant_wire(torch, rng, vec_nan, (n_vec,))
+    vec_inf = vec_nan.clone()
+    vec_nan[5 * ch + 11], vec_nan[-7] = float("nan"), float("-inf")
+    vec_nan[100 * ch + 3] = float("inf")
+    vec_inf[2 * ch + 1], vec_inf[300 * ch + 5] = float("inf"), float("-inf")
+    cut = (3, 2 * ch + 5, 1, 4719)
+    mixed = torch.randn(3, sum(cut), generator=gen, device="cuda")
+    for row in mixed:
+        plant_wire(torch, rng, row, cut)
+    mixed[1, 3 + ch + 100], mixed[1, 3 + 2 * ch + 2] = float("nan"), \
+        float("inf")
+    mixed[2, 3 + 17], mixed[2, 3 + ch + 17] = float("inf"), float("-inf")
+    names = {"tern": wire_pack.PACK_INFO.name}
+    cases = (("message", msg[None], seg), ("vector", vec[None], (n_vec,)),
+             ("batch", batch, seg))
+    extra = (("message at a 4-byte offset", odd[1:][None], seg),
+             ("batch at row stride k + 3", wide[:, :k], seg),
+             ("vector with a NaN and +-inf", vec_nan[None], (n_vec,)),
+             ("vector with +-inf", vec_inf[None], (n_vec,)),
+             (f"(3, {sum(cut)}) cut {cut}", mixed, cut))
+    for (label, x2d, sg), quiet in ([(c, False) for c in cases]
+                                    + [(c, True) for c in extra]):
         for mode in ("bf16", "int8", "tern"):
-            codes, scales, dq = wire_pack.quantize_pack(x, mode=mode, seg=sg)
-            raw = wire_pack.wire_codes(x, scales, sg, mode)[0]
-            pc, pdq = wire_pack.wire_codes_plain(x, scales, sg, mode)
-            if mode == "tern":
-                pc = wire_pack.tern_pack_plain(pc)
-            compare(f"wire_codes/{label} {mode}", (codes, dq), (pc, pdq))
-            if not torch.equal(dq.view(torch.int32), pdq.view(torch.int32)):
-                raise AssertionError(f"wire_codes/{label} {mode}: dq bytes")
-            if not torch.equal(dq, quantize_segments(x, mode, sg)):
-                raise AssertionError(f"wire_codes/{label} {mode}: shipped "
-                                     f"values differ from quantize_segments")
-            if mode == "tern":
-                compare(f"tern_pack/{label}", (codes,),
-                        (wire_pack.tern_pack_plain(raw),))
-            ms = timer(lambda: wire_pack.wire_codes(x, scales, sg, mode))
-            plain_ms = timer(lambda: wire_pack.wire_codes_plain(
-                x, scales, sg, mode))
-            pair_ms = (timer(lambda: x.to(torch.bfloat16).float())
-                       if mode == "bf16" else None)
-            # x read once, the code (2 B bf16, 1 B else) and dq written
-            # once, the segment ends and scales read once
-            nbytes = k * (4 + (2 if mode == "bf16" else 1) + 4) \
-                + 12 * len(sg)
-            rows["wire_codes", label, mode] = (ms, plain_ms, None,
-                                              nbytes / rate * 1e3)
-            # the launch alone, on outputs and segment ends made beforehand
-            out = torch.empty_like(raw)
-            ends = torch.from_numpy(np.cumsum(sg)).cuda()
-            launch_ms = timer(lambda: build.library().wire_codes(
-                x.data_ptr(), k, wire_pack.MODES[mode], scales.data_ptr(),
-                ends.data_ptr(), len(sg), out.data_ptr(), dq.data_ptr(),
-                build.stream()))
-            pair = ("" if pair_ms is None else
-                    f", x.to(bfloat16).float() {pair_ms:.4f} ms")
-            log(f"  wire_codes {label} (k={k}, {len(sg)} segments) {mode}: "
-                f"kernel {ms:.4f} ms (launch alone {launch_ms:.4f} ms), "
-                f"plain {plain_ms:.4f} ms{pair}, bound "
-                f"{nbytes / rate * 1e3:.5f} ms")
-        # raw: the last mode's codes, the tern signs
-        ms = timer(lambda: wire_pack.tern_pack(raw))
-        plain_ms = timer(lambda: wire_pack.tern_pack_plain(raw))
-        packed = wire_pack.tern_pack(raw)
-        launch_ms = timer(lambda: build.library().tern_pack(
-            raw.data_ptr(), k, packed.data_ptr(), build.stream()))
-        nbytes = k + (k + 3) // 4
-        rows["tern_pack", label] = (ms, plain_ms, None, nbytes / rate * 1e3)
-        log(f"  tern_pack {label} (k={k}): kernel {ms:.4f} ms (launch "
-            f"alone {launch_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-            f"{nbytes / rate * 1e3:.5f} ms")
-    # the table rows: phase D's shapes, a phase B message (int8 up in D1,
-    # tern up in D2)
-    for info, key in ((wire_pack.INFO, ("wire_codes", "message", "int8")),
-                      (wire_pack.PACK_INFO, ("tern_pack", "message"))):
-        ms, plain_ms, lib_ms, bound_ms = rows[key]
+            form = "packed" if mode == "tern" else "element"
+            name = names.get(mode, wire_pack.INFO.name)
+            got = wire_pack.segment_quantize(x2d, sg, mode, codes=form)
+            want = wire_pack.segment_quantize_plain(x2d, sg, mode,
+                                                    codes=form)
+            compare(f"{name}/{label} {mode}", got, want, quiet=quiet)
+            # the simulator's quantizer against the plain version
+            sim = quantize_segments(x2d, mode, sg)
+            if not torch.equal(sim.view(torch.int32),
+                               want.dq.view(torch.int32)):
+                raise AssertionError(f"{name}/{label} {mode}: the "
+                                     f"simulator's quantize_segments ships "
+                                     f"other values than the plain version")
+    log(f"  also bit-equal at a 4-byte offset, at row stride k + 3, at the "
+        f"vector with a NaN and +-inf in other chunks and with +-inf alone, "
+        f"and at a (3, {sum(cut)}) batch cut {cut} with specials; "
+        f"quantize_segments ships the plain version's values")
+    del vec_nan, vec_inf, mixed
+    for label, x2d, sg in cases[::2]:       # tern's codes one per element
+        compare(f"{wire_pack.INFO.name}/{label} tern, element codes",
+                wire_pack.segment_quantize(x2d, sg, "tern", codes="element"),
+                wire_pack.segment_quantize_plain(x2d, sg, "tern",
+                                                 codes="element"))
+
+    # the codec: frame tails and whole frames
+    idx = torch.randperm(space.total, generator=gen, device="cuda")[:k]
+    idx = idx.sort().values.to(torch.int32)
+    small_seg = (4, 9, 20)
+    for size in (256, 5000, space.total):
+        if size == space.total:
+            leaf = SparseLeaf(msg, idx, size)
+            sg = seg
+        else:
+            ii = torch.randperm(size, generator=gen, device="cuda")[:33]
+            leaf = SparseLeaf(msg[1045:1078], ii.sort().values.int(), size)
+            sg = small_seg
+        for mode in ("none", "bf16", "int8", "tern"):
+            name = names.get(mode, wire_pack.INFO.name)
+            plain = wire_pack.frame_tail_plain(leaf.values, leaf.indices, sg,
+                                               mode, size)
+            compare(f"{name}/frame tail {mode}, size {size}",
+                    wire_pack.frame_tail(leaf.values, leaf.indices, sg, mode,
+                                         size), plain, quiet=True)
+            # the frame's tail against the plain version (independent of
+            # the kernel); the whole frame against the per-segment encoder
+            frame = wire.pack_from_arena(leaf, mode, sg)[0]
+            if not frame.endswith(plain[0].cpu().numpy().tobytes()):
+                raise AssertionError(f"pack_from_arena {mode}, size {size}: "
+                                     f"frame's tail differs from the plain "
+                                     f"version's")
+            if frame != wire.encode_arena_leaf_segments(leaf, mode, sg)[0]:
+                raise AssertionError(f"pack_from_arena {mode}, size {size}: "
+                                     f"frame differs from the per-segment "
+                                     f"encoder's")
+    log("  frame tails bit-equal to the plain version, frames ending in its "
+        "bytes and byte-equal to the per-segment encoder: none, bf16, int8, "
+        "tern at u8, u16 and u32 indices")
+
+    def launch_alone(x2d, sg, mode, form):
+        """The C call alone (``wire_pack.launcher``), on outputs that one
+        wrapper call made beforehand."""
+        q = wire_pack.segment_quantize(x2d, sg, mode, codes=form)
+        return wire_pack.launcher(
+            x2d, sg, mode, scales=q.scales, dq=q.dq, codes=q.codes,
+            code_stride=q.codes.stride(0) * q.codes.element_size(),
+            form=form)[0]
+
+    # timed on the main path's kind of values, with no specials: a
+    # denormal sends the IEEE division of int8's codes down its slow path
+    def normal(*shape):
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        x[..., ::9] = 0.0
+        x[..., 4::17] = -0.0
+        return x
+
+    msg, vec, batch = normal(k), normal(n_vec), normal(16, k)
+    cases = (("message", msg[None], seg), ("vector", vec[None], (n_vec,)),
+             ("batch", batch, seg))
+    rows = {}
+    for label, x2d, sg in cases:
+        B, kk = x2d.shape
+        for mode in ("bf16", "int8", "tern"):
+            form = "packed" if mode == "tern" else "element"
+            code_bytes = {"bf16": 2 * kk, "int8": kk,
+                          "tern": (kk + 3) // 4}[mode]
+            # x read once; dq, the codes and the scales written once
+            nbytes = B * (8 * kk + code_bytes + 4 * len(sg))
+            t = dict(
+                ms=timer(lambda: wire_pack.segment_quantize(
+                    x2d, sg, mode, codes=form)),
+                launch_ms=timer(launch_alone(x2d, sg, mode, form)),
+                plain_ms=timer(lambda: wire_pack.segment_quantize_plain(
+                    x2d, sg, mode, codes=form), reps=5),
+                bound_ms=nbytes / rate * 1e3,
+                host_us=host_us(torch, lambda: wire_pack.segment_quantize(
+                    x2d, sg, mode, codes=form)))
+            pair = ""
+            if mode == "bf16":
+                t["pair_ms"] = timer(lambda: x2d.to(torch.bfloat16).float())
+                pair = f", x.to(bfloat16).float() {t['pair_ms']:.4f} ms"
+            rows[label, mode] = t
+            log(f"  segment_quantize {label} ({B} x {kk}, {len(sg)} "
+                f"segments) {mode}: wrapper {t['ms']:.4f} ms (launch alone "
+                f"{t['launch_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms"
+                f"{pair}, bound {t['bound_ms']:.5f} ms; host per call "
+                f"{t['host_us']:.1f} us")
+
+    # a message's whole codec calls
+    leaf = SparseLeaf(msg, idx, space.total)
+    codec = {}
+    for mode in ("none", "bf16", "int8", "tern"):
+        c = {}
+        if mode != "none":
+            c["quantize_pack_ms"] = timer(lambda: wire_pack.quantize_pack(
+                msg, mode=mode, seg=seg))
+            c["quantize_pack_host_us"] = host_us(
+                torch, lambda: wire_pack.quantize_pack(msg, mode=mode,
+                                                       seg=seg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            wire.pack_from_arena(leaf, mode, seg)
+        c["pack_from_arena_us"] = (time.perf_counter() - t0) / 100 * 1e6
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                wire.pack_from_arena(leaf, mode, seg)
+            torch.cuda.synchronize()
+        dev = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA
+               and a.self_device_time_total > 0]
+        c["kernels_per_encode"] = sum(
+            a.count for a in dev if "Memcpy" not in a.key) / 10
+        c["copies_per_encode"] = sum(
+            a.count for a in dev if "Memcpy" in a.key) / 10
+        codec[mode] = c
+        qp = ("" if mode == "none" else
+              f"quantize_pack {c['quantize_pack_ms']:.4f} ms (host "
+              f"{c['quantize_pack_host_us']:.1f} us a call), ")
+        log(f"  codec {mode}, one message: {qp}pack_from_arena "
+            f"{c['pack_from_arena_us']:.1f} us a call (host, its wait "
+            f"included), {c['kernels_per_encode']:.1f} device kernels and "
+            f"{c['copies_per_encode']:.1f} copies per encode")
+
+    # the table rows: a phase B message, int8 (phase B's and D1's UP) and
+    # tern with packed codes (D2's UP)
+    for info, mode in ((wire_pack.INFO, "int8"),
+                       (wire_pack.PACK_INFO, "tern")):
+        t = rows["message", mode]
         results.append(dict(
             name=info.name, route="cuda", source=info.source,
-            replaces=info.replaces, max_abs_err=errs[info.name], ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-            library_ms=lib_ms))
+            replaces=info.replaces, max_abs_err=errs[info.name], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by="bytes",
+            library_ms=None, launch_ms=t["launch_ms"],
+            shapes={f"{label} {m}": v for (label, m), v in rows.items()},
+            codec=codec))
 
 
 # ---------------------------------------------------------------------------
@@ -975,12 +1189,27 @@ def phase_a(torch):
 FULL_CAP = 96       # events of the full-width runs (run_big's own cap)
 FULL_DIMS = (512, 2048, 2304, 2048, 10)   # run_big's MLP
 # the kernel rows whose launch counts come from phase B; the multi-row
-# scatter-add's takes phase C's, the batched loop it was written for
+# scatter-add's takes phase C's, the batched loop it was written for, and
+# the tern packing's phase D2's, the codec that packs
 SERIAL_ROWS = ("scatter_add", "block_topk", "samomentum_fused",
-               "samomentum_accumulate", "fma")
-# the kernels the simulator's loops run (phases B and C); the wire kernels
-# run in the codec, phase D
+               "samomentum_accumulate", "fma", "segment_quantize")
+# the kernels the simulator's loops run (phases B and C); the tern packing
+# runs in the codec only, phase D
 SIM_KERNELS = SERIAL_ROWS + ("scatter_add_rows",)
+
+
+def check_quantize_launches(label, launches, steps, n_leaves):
+    """Phases B and C quantize one int8 UP message per step (an event, a
+    batch) in ONE launch of the segmented quantize (the DOWN message is
+    "none": none), pack no tern codes, and launch the fused multiply-add
+    only in the repair's epilogue, once per leaf and step (the int8 scale
+    is the quantize kernel's own)."""
+    want = {"segment_quantize": steps, "segment_quantize_tern_pack": 0,
+            "fma": n_leaves * steps}
+    got = {name: launches[name] for name in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    log(f"  {label}: launches as expected: {want}")
 
 
 def _full_width_params(torch, rng):
@@ -1064,6 +1293,7 @@ def phase_b(torch, results, ref):
             row["launches"] = launches[row["name"]]
     if min(launches[name] for name in SIM_KERNELS) == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
+    check_quantize_launches("B", launches, cap, space.n_leaves)
     if not np.all(np.isfinite(hist.losses)):
         raise AssertionError("non-finite loss")
     up = cap * wire.frame_bytes_static(space.ks(0.001), space.total, "int8")
@@ -1159,6 +1389,7 @@ def phase_b(torch, results, ref):
                             ("scatter-add (flat and rows)",
                              "scatter_add_kernel"),
                             ("SAMomentum passes and fma", "rowmap_kernel"),
+                            ("segmented quantize", "segment_quantize_kernel"),
                             ("float64 (names containing 'double')",
                              "double")):
             t = sum(t for t, key in rows if part in key)
@@ -1221,6 +1452,7 @@ def phase_c(torch, results, ref):
             row["launches"] = launches[row["name"]]
     if min(launches[name] for name in SIM_KERNELS) == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
+    check_quantize_launches("C", launches, len(batches), space.n_leaves)
     rows_launches = launches["scatter_add_rows"]
     if rows_launches != len(batches) * (2 + space.n_leaves):
         raise AssertionError(f"kernel 4 launched {rows_launches} times, not "
@@ -1279,6 +1511,9 @@ def _log_spans(label, spans, window, n_events):
                     if k in spans))
     log(f"  {label}: serving window {window * 1e3:.3f} ms, "
         f"{(n_events - 1) / window:.2f} events/s within it")
+    log(f"  {label}: codec spans per event: " + ", ".join(
+        f"{k} {spans[k] / n_events:.4f} ms"
+        for k in ("client/encode", "coord/encode") if k in spans))
 
 
 def _cluster_run(torch, label, tr, params0, sched, batch_fn, trace_dir):
@@ -1353,13 +1588,15 @@ def phase_d(torch, results, ref):
         torch, "D1", tr, params0, sched, batch_fn,
         ROOT / "build" / "phase_d1_trace")
     _same_run(torch, "D1", final, hist, ref["final"], ref["hist"])
-    if (launches["wire_codes"], launches["tern_pack"]) != (cap, 0):
-        raise AssertionError(f"D1: kernels 5 and 6 launched {launches}, "
-                             f"expected one int8 UP per event")
+    # every encode is one launch: an int8 UP and a "none" DOWN per event
+    got = (launches["segment_quantize"],
+           launches["segment_quantize_tern_pack"])
+    if got != (2 * cap, 0):
+        raise AssertionError(f"D1: the segmented quantize launched {got}, "
+                             f"expected an int8 UP and a none DOWN per "
+                             f"event: {(2 * cap, 0)}")
     log("  D1 bit-equal to phase B: losses, worker ids, staleness, final "
         "params, up and down bytes")
-    row = next(r for r in results if r["name"] == "wire_codes")
-    row["launches"] = launches["wire_codes"]
     del final
 
     # D2: tern up, bf16 down; held to the serial loop of the same
@@ -1380,13 +1617,18 @@ def phase_d(torch, results, ref):
         torch, "D2", tr2, params0, sched, batch_fn,
         ROOT / "build" / "phase_d2_trace")
     _same_run(torch, "D2", final, hist, want_final, want)
-    if (launches["wire_codes"], launches["tern_pack"]) != (2 * cap, cap):
-        raise AssertionError(f"D2: kernels 5 and 6 launched {launches}, "
-                             f"expected a tern UP and a bf16 DOWN per event")
+    # a tern UP (packed codes) and a bf16 DOWN per event, one launch each
+    got = (launches["segment_quantize"],
+           launches["segment_quantize_tern_pack"])
+    if got != (cap, cap):
+        raise AssertionError(f"D2: the segmented quantize launched {got}, "
+                             f"expected a bf16 DOWN and a tern UP per event:"
+                             f" {(cap, cap)}")
     log("  D2 bit-equal to the serial run: losses, worker ids, staleness, "
         "final params, up and down bytes")
-    row = next(r for r in results if r["name"] == "tern_pack")
-    row["launches"] = launches["tern_pack"]
+    row = next(r for r in results
+               if r["name"] == "segment_quantize_tern_pack")
+    row["launches"] = launches["segment_quantize_tern_pack"]
     del final, want_final
 
     # D3: the TCP launcher's smoke, two client processes on the card

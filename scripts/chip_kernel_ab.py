@@ -5,17 +5,22 @@
 
 Each turn is a fresh process that builds that checkout's CUDA kernels and
 runs its own ``chip_smoke.kernel_phase`` (every kernel held bit for bit
-against its plain version, then timed: medians of CUDA-event times with L2
-flushed), then times, through each checkout's own functions, the calls
-whose older design an older kernel phase does not time: the multi-row
-scatter-add at the blockwise repair's one lane (1 x 4,718,592, k = 4,719),
-and the velocity accumulate and the repair's fused multiply-add on the
-eight leaves of phase B's arena (one event's calls, with the number of
-device kernels they launch).  The timing lines of
-each turn are printed with the turn's label; the whole log of each turn goes to ``DIR/ab_<n>_<label>.log``
-(default ``build/kernel_ab``).
-Comparing the two checkouts inside one call keeps them on one card, under
-one power limit.  Needs the card; exits nonzero if any turn fails.
+against its plain version, then timed), then times, through the
+checkout's own public functions (the same calls in both trees), rows 5
+and 6 of the kernel table as the port's callers make them:
+``wire_pack.quantize_pack`` (scales, codes, shipped values, tern packed)
+at a phase B message (k = 10,514 in 8 segments) and at one
+4,718,592-element vector, in bf16, int8 and tern; the simulator's
+``sparsify.quantize_segments`` at the message and at a (16, k) batch of
+messages (phase C's shape); and a message's whole ``wire.pack_from_arena``
+in every mode, with its host time per call (its waits included) and the
+device kernels, copies and device time per encode from ``torch.profiler``.
+Medians of CUDA-event times with L2 flushed (``chip_smoke.Timer``), on
+seeded normal values with +-0.  The timing lines of each turn are printed
+with the turn's label; the whole log of each turn goes to
+``DIR/ab_<n>_<label>.log`` (default ``build/kernel_ab``).  Comparing the
+two checkouts inside one call keeps them on one card, under one power
+limit.  Needs the card; exits nonzero if any turn fails.
 """
 from __future__ import annotations
 
@@ -25,67 +30,74 @@ import sys
 from pathlib import Path
 
 TURN = """
-import sys, torch
+import sys, time, torch
 sys.path.insert(0, "src")
 sys.path.insert(0, ".")
 import chip_smoke
-from repro_torch.kernels import build
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.cluster import wire
+from repro_torch.core.sparsify import SparseLeaf, quantize_segments
+from repro_torch.kernels import build, wire_pack
 build.library()
 timer = chip_smoke.Timer(torch)
 rate = chip_smoke.card_rate(torch.cuda.get_device_name(0))
 results = []
 chip_smoke.kernel_phase(torch, timer, rate, results)
 torch.cuda.synchronize()
+gen = torch.Generator(device="cuda").manual_seed(5)
+space = chip_smoke.full_width_space(torch)
+seg = tuple(space.ks(0.001))
+k, n_vec = sum(seg), 2304 * 2048
 
-from repro_torch import arith
-from repro_torch.core import engine
-from repro_torch.kernels import samomentum_kernel, scatter_apply
-gen = torch.Generator(device="cuda").manual_seed(1)
-n1, k1 = 2304 * 2048, 4719
-d1 = torch.randn(1, n1, generator=gen, device="cuda")
-i1 = torch.randperm(n1, generator=gen, device="cuda")[:k1]
-i1 = i1.to(torch.int32)[None]
-v1 = torch.randn(1, k1, generator=gen, device="cuda")
-# the repair's rows: None (the identity) where the wrapper takes it
-rows = None if hasattr(scatter_apply, "MAX_LANES") else range(1)
-ms = timer(lambda: scatter_apply.scatter_add_rows_(d1, rows, i1, v1))
-print(f"ab scatter_add_rows B=1 (1 x {n1}, k={k1}): wrapper {ms:.4f} ms")
-sizes = {}
-dims = chip_smoke.FULL_DIMS
-for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-    sizes[f"w{i}"], sizes[f"b{i}"] = a * b, b
-layout, off = [], 0
-for key in sorted(sizes):
-    layout.append((off, sizes[key]))
-    off += sizes[key]
-u, g = (torch.randn(1, off, generator=gen, device="cuda") for _ in "ug")
-lr1 = torch.full((1, 1), 0.05, device="cuda")
-views = [(u[:, o:o + s], g[:, o:o + s]) for o, s in layout]
-ms = timer(lambda: [engine.velocity_accumulate(a, b, momentum=0.7, lr=lr1)
-                    for a, b in views])
-print(f"ab velocity_accumulate (8 leaves, {off} elements): {ms:.4f} ms")
-fma = getattr(samomentum_kernel, "fused_multiply_add", arith.fma)
-extra = [torch.randn(1, s, generator=gen, device="cuda") for _, s in layout]
-u_new = [torch.randn(1, s, generator=gen, device="cuda") for _, s in layout]
-ms = timer(lambda: [fma(e, 1.0 / 0.7 - 1.0, w) for e, w in zip(extra, u_new)])
-print(f"ab repair fma (8 leaves, {off} elements): {ms:.4f} ms")
-from torch.profiler import ProfilerActivity, profile
-torch.cuda.synchronize()
-with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for a, b in views:
-        engine.velocity_accumulate(a, b, momentum=0.7, lr=lr1)
-    for e, w in zip(extra, u_new):
-        fma(e, 1.0 / 0.7 - 1.0, w)
+
+def normal(*shape):
+    x = torch.randn(*shape, generator=gen, device="cuda")
+    x[..., ::9] = 0.0
+    x[..., 4::17] = -0.0
+    return x
+
+
+msg, vec, batch = normal(k), normal(n_vec), normal(16, k)
+for mode in ("bf16", "int8", "tern"):
+    for label, x, sg in (("message", msg, seg), ("vector", vec, (n_vec,))):
+        ms = timer(lambda: wire_pack.quantize_pack(x, mode=mode, seg=sg))
+        host = chip_smoke.host_us(
+            torch, lambda: wire_pack.quantize_pack(x, mode=mode, seg=sg))
+        print(f"ab quantize_pack {label} {mode}: {ms:.4f} ms, host "
+              f"{host:.1f} us a call")
+    for label, x in (("message", msg), ("batch (16, k)", batch)):
+        ms = timer(lambda: quantize_segments(x, mode, seg))
+        host = chip_smoke.host_us(torch,
+                                  lambda: quantize_segments(x, mode, seg))
+        print(f"ab quantize_segments {label} {mode}: {ms:.4f} ms, host "
+              f"{host:.1f} us a call")
+idx = torch.randperm(space.total, generator=gen, device="cuda")[:k]
+leaf = SparseLeaf(msg, idx.sort().values.to(torch.int32), space.total)
+for mode in ("none", "bf16", "int8", "tern"):
     torch.cuda.synchronize()
-kernels = sum(a.count for a in prof.key_averages()
-              if a.device_type == torch.autograd.DeviceType.CUDA
-              and a.self_device_time_total > 0)
-print(f"ab device kernels of one event's accumulates and repair fmas: "
-      f"{kernels}")
+    t0 = time.perf_counter()
+    for _ in range(100):
+        wire.pack_from_arena(leaf, mode, seg)
+    us = (time.perf_counter() - t0) / 100 * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            wire.pack_from_arena(leaf, mode, seg)
+        torch.cuda.synchronize()
+    dev = [a for a in prof.key_averages()
+           if a.device_type == torch.autograd.DeviceType.CUDA
+           and a.self_device_time_total > 0]
+    kernels = sum(a.count for a in dev if "Memcpy" not in a.key) / 10
+    copies = sum(a.count for a in dev if "Memcpy" in a.key) / 10
+    busy = sum(a.self_device_time_total for a in dev) / 10
+    print(f"ab pack_from_arena {mode}: {us:.1f} us a call, {kernels:.1f} "
+          f"device kernels, {copies:.1f} copies, {busy:.1f} us device time "
+          f"per encode")
 """
 KEEP = ("scatter_add (", "scatter_add:", "block_topk r=", "block_topk:",
         "block_topk rows launch", "samomentum_fused", "scatter_add_rows",
-        "samomentum_accumulate", "fma", "ab ")
+        "samomentum_accumulate", "fma", "wire_codes ", "wire_codes:",
+        "tern_pack ", "tern_pack:", "segment_quantize ", "segment_quantize:",
+        "segment_quantize_tern_pack:", "codec ", "ab ")
 
 
 def main() -> int:

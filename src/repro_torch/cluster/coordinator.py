@@ -8,7 +8,7 @@ batched server stages as ``AsyncTrainer.run_batched``
 codec between them:
 
     UP frames -> decode -> receive + send_select, per event
-              -> encode DOWN (the codec quantizes in flight, kernels 5-6)
+              -> encode DOWN (the codec quantizes in flight, one launch)
               -> commit the codec's *shipped* leaves (one multi-row scatter)
               -> DOWN frames
 

@@ -35,8 +35,10 @@ either package decodes the other's frames.  Dense leaves always travel f32
 (kind 1 or 2, whichever is smaller for the actual nnz).
 
 An ARENA encode (:func:`pack_from_arena`) quantizes and packs the values on
-the message's device with kernels 5 and 6 (``kernels/wire_pack.py``) and
-copies codes, scales and indices to the host.  Its ``shipped`` values are
+the message's device with one launch of the segmented quantize
+(``kernels/wire_pack.frame_tail``), which writes the frame's scales,
+narrowed indices and codes into one buffer; that buffer crosses to the host
+in one copy.  Its ``shipped`` values are
 bit for bit what :func:`decode_message` reconstructs on the far side, and
 what the simulator's :func:`quantize_message` stands in for, so a
 schedule-driven cluster run reproduces ``AsyncTrainer.run``.  The decoder
@@ -46,6 +48,7 @@ their device through pinned memory (``device.from_host``).
 from __future__ import annotations
 
 import struct
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -294,14 +297,37 @@ def encode_arena_leaf_segments(leaf: SparseLeaf, mode: str, seg):
     return _LEN.pack(len(body)) + body, shipped
 
 
+_PINNED = threading.local()
+
+
+def _host_bytes(tail: torch.Tensor) -> bytes:
+    """A ``uint8`` device buffer as bytes: one non-blocking copy into a
+    pinned buffer owned by the calling thread, one wait on an event
+    recorded after it, and the bytes copied out before the thread can
+    reuse the buffer (the cluster's client threads encode concurrently)."""
+    if tail.device.type == "cpu":
+        return tail.numpy().tobytes()
+    n = tail.numel()
+    buf = getattr(_PINNED, "buf", None)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * buf.numel() if buf is not None else 0)
+        buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        _PINNED.buf = buf
+    host = buf[:n]
+    host.copy_(tail, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return host.numpy().tobytes()
+
+
 def pack_from_arena(leaf: SparseLeaf, mode: str, seg):
     """ARENA encode on the message's device (``kernels/wire_pack.py``).
 
-    One ``quantize_pack`` quantizes every segment with its own scale and
-    emits the packed value block (kernels 5 and 6 on the card), the
-    per-tensor scales and the shipped values; the indices are narrowed on
-    the host after their one copy there.  Three buffers cross to the host
-    per message: codes, scales, indices.  Byte for byte equal to
+    One ``frame_tail`` quantizes every segment with its own scale and
+    writes the frame's tail (scales, narrowed indices, codes) into one
+    buffer (one kernel launch on the card); it crosses to the host in one
+    copy, the encode's one wait.  Byte for byte equal to
     :func:`encode_arena_leaf_segments`.  Returns ``(frame_bytes,
     shipped_leaf)``, the shipped values left on the device.
     """
@@ -313,14 +339,10 @@ def pack_from_arena(leaf: SparseLeaf, mode: str, seg):
         raise ValueError(f"seg {seg} sums to {sum(seg)}, message has {k}")
     if not seg:
         return _empty_arena_frame(leaf, mode)
-    codes, scales, dq = wire_pack.quantize_pack(leaf.values, mode=mode,
-                                                seg=seg)
-    idx = wire_pack.narrow_indices(leaf.indices, size=size)
+    tail, dq = wire_pack.frame_tail(leaf.values, leaf.indices, seg, mode,
+                                    size)
     body = _HEADER.pack(len(seg), MODES[mode], ARENA, k, size)
-    body += np.asarray(seg, np.uint32).tobytes()
-    if mode in ("int8", "tern"):
-        body += _host(scales).astype(np.float32).tobytes()
-    body += idx.tobytes() + _host(codes).tobytes()
+    body += np.asarray(seg, np.uint32).tobytes() + _host_bytes(tail)
     shipped = SparseLeaf(values=dq, indices=leaf.indices, size=size)
     return _LEN.pack(len(body)) + body, shipped
 

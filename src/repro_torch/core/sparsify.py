@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.arith import rcp
+from repro_torch.arith import fma, rcp
 
 
 class SparseLeaf(NamedTuple):
@@ -102,37 +102,40 @@ def sampled_threshold_rows(x2d: torch.Tensor, density: float, *,
 QUANTIZE_BITS = {"none": 32, "bf16": 16, "int8": 8, "tern": 2}
 
 
-def _tern_sum(x: torch.Tensor) -> torch.Tensor:
-    """Float32 sum of the tern scale.  On the CPU it is taken left to right,
-    the order in which XLA's CPU reduction adds short vectors (up to about
-    20 elements), so short segments match the reference bit for bit;
-    longer ones XLA reorders, and there the scale agrees to a tolerance.
-    A tensor on the card is summed there, by torch's own reduction, with
-    no copy to the host and no sync."""
-    if x.device.type != "cpu":
-        return x.sum()
-    total = np.cumsum(x.detach().numpy(), dtype=np.float32)[-1:]
-    return torch.from_numpy(total).reshape(())
+# the int8 scale's constants as XLA folds ``max / 127 + 1e-12``: fma(max,
+# f32(1/127), f32(1e-12)); the kernel takes these same two floats
+INT8_RCP = rcp(127.0)
+INT8_EPS = float(np.float32(1e-12))
 
 
-def quantize_scales(values2d: torch.Tensor, mode: str) -> torch.Tensor:
-    """The wire scale of each row of ``(B, k)`` f32, ``(B, 1)``: int8's
-    ``max|v| / 127 + 1e-12``, tern's mean ``|v|`` over the nonzeros, zero
-    for none and bf16.  :func:`quantize_rows` and the codec's
-    ``quantize_pack`` both take their scales from here.
+def _tern_sum(mag: torch.Tensor) -> torch.Tensor:
+    """Float32 sums over the last axis of the tern scale's magnitudes.  On
+    the CPU each row is taken left to right, the order in which XLA's CPU
+    reduction adds short vectors (up to about 20 elements), so short
+    segments match the reference bit for bit; longer ones XLA reorders, and
+    there the scale agrees to a tolerance.  Elsewhere in the card's order,
+    which depends on the length alone (``kernels.wire_pack.tern_sum``)."""
+    if mag.device.type != "cpu":
+        from repro_torch.kernels.wire_pack import tern_sum
 
-    The tern scale of each row is the 1-D :func:`_tern_sum` of that row, so
-    a batch of rows adds in the order one row alone does.
-    """
+        return tern_sum(mag)
+    total = np.cumsum(mag.detach().numpy(), axis=-1, dtype=np.float32)
+    return torch.from_numpy(np.ascontiguousarray(total[..., -1]))
+
+
+def quantize_scales_plain(values2d: torch.Tensor, mode: str) -> torch.Tensor:
+    """The wire scale of each row of ``(B, k)`` f32, ``(B, 1)``, on any
+    device: int8's ``fma(max|v|, 1/127, 1e-12)`` (``arith.fma``), tern's
+    ``sum|v| / max(nnz, 1)`` (:func:`_tern_sum`'s order), zeros for none
+    and bf16.  The plain version of the segmented quantize's scales
+    (``kernels.wire_pack.segment_quantize``), which compute these on the
+    card."""
     if mode == "int8":
-        from repro_torch.kernels.samomentum_kernel import fused_multiply_add
-
-        # XLA: max / 127 + 1e-12  ->  fma(max, 1/127, 1e-12)
-        return fused_multiply_add(values2d.abs().amax(dim=1, keepdim=True),
-                                  rcp(127.0), 1e-12)
+        return fma(values2d.abs().amax(dim=1, keepdim=True), INT8_RCP,
+                   INT8_EPS)
     if mode == "tern":
         nnz = torch.clamp((values2d != 0.0).sum(dim=1, keepdim=True), min=1)
-        total = torch.stack([_tern_sum(row.abs()) for row in values2d])
+        total = _tern_sum(values2d.abs())
         return total.reshape(-1, 1) / nnz.to(torch.float32)
     if mode in ("none", "bf16"):
         return torch.zeros((values2d.shape[0], 1), dtype=torch.float32,
@@ -142,8 +145,8 @@ def quantize_scales(values2d: torch.Tensor, mode: str) -> torch.Tensor:
 
 def quantize_rows(values2d: torch.Tensor, mode: str):
     """(codes, scale, dequantized) of each row of ``(B, k)``, each row with
-    its own scale (``(B, 1)``, from :func:`quantize_scales`) -- THE
-    quantization arithmetic.
+    its own scale (``(B, 1)``) -- THE quantization arithmetic, the
+    segmented quantize with one segment per row (one launch on the card).
 
     none  -- float32 passthrough; codes == values
     bf16  -- bfloat16 wire; codes are the bf16 values
@@ -151,17 +154,15 @@ def quantize_rows(values2d: torch.Tensor, mode: str):
     tern  -- TernGrad-style {-1, 0, +1} * mean|v| over the nonzeros
     """
     values = values2d.to(torch.float32)
-    scale = quantize_scales(values, mode)
     if mode == "none":
-        return values, scale, values
+        return values, quantize_scales_plain(values, mode), values
+    from repro_torch.kernels import wire_pack
+
+    codes, scale, deq = wire_pack.segment_quantize(
+        values, (values.shape[1],), mode, codes="element")
     if mode == "bf16":
-        b = values.to(torch.bfloat16)
-        return b, scale, b.to(torch.float32)
-    if mode == "int8":
-        q = torch.clamp(torch.round(values / scale), -127, 127)
-        return q.to(torch.int8), scale, q * scale
-    s = torch.sign(values)   # tern
-    return s.to(torch.int8), scale, s * scale
+        codes = codes.view(torch.bfloat16)
+    return codes, scale, deq
 
 
 def quantize_parts(values: torch.Tensor, mode: str):
@@ -182,11 +183,13 @@ def quantize_segments(values: torch.Tensor, mode: str, seg) -> torch.Tensor:
     """Segment-wise wire quantization of a concatenated value vector: each
     segment (one per parameter tensor) gets its own scale.  A stacked
     ``(B, k)`` batch of messages quantizes row by row: one scale per row
-    per segment; one ``(k,)`` message is that batch at B = 1."""
+    per segment; one ``(k,)`` message is that batch at B = 1.  One launch
+    of the segmented quantize on the card for the whole batch."""
     if mode == "none":
         return values
     if values.dim() == 1:
         return quantize_segments(values[None], mode, seg)[0]
-    return torch.cat([quantize_rows(part, mode)[2]
-                      for part in torch.split(values, list(seg), dim=1)],
-                     dim=1)
+    from repro_torch.kernels import wire_pack
+
+    return wire_pack.segment_quantize(values.to(torch.float32), seg,
+                                      mode).dq

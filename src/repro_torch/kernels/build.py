@@ -136,11 +136,12 @@ def _declare(lib) -> None:
     lib.samomentum_accumulate.argtypes = [p, i64, p, i64, p, i64, f32, p,
                                           f32, i64, i64, p]
     lib.fma_rows.argtypes = [p, i64, f32, i32] * 3 + [p, i64, i64, p]
-    lib.wire_codes.argtypes = [p, i64, i32, p, p, i32, p, p, p]
-    lib.tern_pack.argtypes = [p, i64, p, p]
+    lib.segment_quantize.argtypes = [p, i64, i32, i64, p, p, i32, i32, i32,
+                                     i32, f32, f32, p, p, i64, p, i64, i32,
+                                     p, p, i32, p, p]
     for fn in (lib.scatter_add, lib.scatter_add_rows, lib.block_topk,
                lib.samomentum_fused, lib.samomentum_accumulate, lib.fma_rows,
-               lib.wire_codes, lib.tern_pack):
+               lib.segment_quantize):
         fn.restype = ctypes.c_int
 
 

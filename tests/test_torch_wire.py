@@ -82,7 +82,7 @@ def test_quantize_pack_matches_reference(mode, seg, pallas):
 
 @pytest.mark.parametrize("mode", ["bf16", "int8", "tern"])
 def test_kernel_plain_version_is_the_simulators_quantizer(mode):
-    """What the codec ships (kernel 5's plain version from quantize_scales)
+    """What the codec ships (the segmented quantize's plain version)
     equals the simulator's quantize_segments bit for bit, sign of zero
     aside: the identity that keeps a cluster run equal to AsyncTrainer."""
     v = torch.from_numpy(_values(256, "sim", mode))
@@ -94,7 +94,7 @@ def test_kernel_plain_version_is_the_simulators_quantizer(mode):
 @pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 5, 127, 1000, 1001])
 def test_tern_pack_plain_matches_codec(k):
     codes = _rng("tp", k).integers(-1, 2, size=k).astype(np.int8)
-    packed = twp.tern_pack(torch.from_numpy(codes))
+    packed = twp.tern_pack_plain(torch.from_numpy(codes))
     assert packed.dtype == torch.uint8 and packed.numel() == (k + 3) // 4
     assert packed.numpy().tobytes() == jwire._pack_tern(codes)
     np.testing.assert_array_equal(
@@ -114,9 +114,12 @@ def test_narrow_indices_widths(size):
 def test_wrappers_take_only_cpu_or_cuda():
     meta = torch.empty(8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        twp.wire_codes(meta, torch.ones(1, device="meta"), (8,), "int8")
+        twp.segment_quantize(meta[None], (8,), "int8")
     with pytest.raises(ValueError, match="no kernel"):
-        twp.tern_pack(torch.empty(8, dtype=torch.int8, device="meta"))
+        twp.frame_tail(meta, torch.zeros(8, dtype=torch.int32,
+                                         device="meta"), (8,), "tern", 64)
+    with pytest.raises(ValueError, match="no kernel"):
+        tsp.quantize_rows(meta[None], "tern")
     with pytest.raises(ValueError, match="seg"):
         twp.quantize_pack(torch.ones(8), mode="int8", seg=(3, 4))
 
@@ -309,7 +312,7 @@ def test_library_builds_once_across_threads(monkeypatch):
     _run_threads(threads)
     assert len(builds) == 1 and loads == ["libfake.so"]
     assert len(got) == n and all(lib is got[0] for lib in got)
-    assert got[0].wire_codes.restype is not None
+    assert got[0].segment_quantize.restype is not None
 
 
 def test_launch_counts_are_atomic():
