@@ -45,6 +45,17 @@ exits nonzero and prints no result line):
   repair (once per leaf and event).  Prints events/s,
   the per-stage split, peak memory and a profiler window's device time by
   kernel, in which no float64 kernel may run.
+* e -- phase B's configuration, schedule and batches (stacked on the card)
+  through the scan runner, ``run_async_scan``: event 0 eagerly, then ONE
+  CUDA graph of the event replayed for the other 95 (run right after B).
+  It must be bit-equal to phase B (losses, final params, M, v, bytes), and
+  every kernel's launch count must equal phase B's (each replay adds the
+  capture's recorded launches; the segmented quantize once per event); a
+  run with ``metrics=True`` too, its drained counts the schedule's.
+  Prints events/s beside phase B's, capture seconds, host us per replay,
+  peak memory, and device ms/event and busy share from a profiler window
+  over a further run's replays (where the trace shows no graph kernels:
+  phase B's device ms/event over E's wall ms/event, said so).
 * c -- phase B's configuration, schedule and batches through the batched
   loop, ``AsyncTrainer.run_batched`` with ``max_batch=16``, with a Recorder
   and the metrics on.  It must be bit-equal to phase B's run (losses, final
@@ -620,8 +631,11 @@ def scatter_rows_kernel(torch, timer, rate, results, compare, errs):
     lane (all updates on one index; all in one CTA's range, so several
     rounds of ``ROUND``; duplicates across round boundaries; out-of-range
     and negative indices; zero values on -0 words; planted duplicates),
-    the same lanes one at a time (B = 1), the identity rows, k = 0, and
-    600 lanes (two launches).  Timed at 16 rows and at the blockwise
+    the same lanes one at a time (B = 1), the same with the row ids in
+    device memory (the scan runner's commit) against the host table and
+    the plain version, device rows out of range, the identity rows, k = 0,
+    and 600 lanes (two launches).  Timed at 16 rows, at the serial and
+    scan commit's B = 1 (a device row of ``v``) and at the blockwise
     repair's B = 1 (1 x 4,718,592, k = 4,719, identity rows)."""
     import ctypes
 
@@ -678,6 +692,31 @@ def scatter_rows_kernel(torch, timer, rate, results, compare, errs):
                 quiet=True)
         del a, b
     log("  scatter_add_rows: each lane's case at B = 1 bit-equal")
+    # device row ids (the scan runner's commit: this event's worker id in
+    # device memory), held to the host-table launch and the plain version
+    rows_t = torch.from_numpy(rows.astype(np.int64)).cuda()
+    a = sa.scatter_add_rows_(dense2d.clone(), rows_t, adv, avals)
+    compare("scatter_add_rows/16 device rows against the host table", (a,),
+            (sa.scatter_add_rows_(dense2d.clone(), rows, adv, avals),))
+    compare("scatter_add_rows/16 device rows against the plain version",
+            (a,), (sa.scatter_add_rows_plain(dense2d.clone(), rows_t, adv,
+                                             avals),))
+    del a
+    for lane in range(8):                           # the commit's B = 1
+        r = rows_t[lane:lane + 1]
+        a = sa.scatter_add_rows_(dense2d.clone(), r, adv[lane:lane + 1],
+                                 avals[lane:lane + 1])
+        b = sa.scatter_add_rows_(dense2d.clone(), [int(rows[lane])],
+                                 adv[lane:lane + 1], avals[lane:lane + 1])
+        compare(f"scatter_add_rows/device row, B = 1, lane {lane}", (a,),
+                (b,), quiet=True)
+        del a, b
+    log("  scatter_add_rows: device row ids, each lane at B = 1, bit-equal "
+        "to the host table")
+    bad = torch.tensor([n_rows, -1], dtype=torch.int64, device="cuda")
+    compare("scatter_add_rows/device rows out of range write nothing",
+            (sa.scatter_add_rows_(dense2d[:4].clone(), bad, adv[:2],
+                                  avals[:2]),), (dense2d[:4],))
     head = dense2d[:B]                              # identity rows 0..15
     compare("scatter_add_rows/identity rows",
             (sa.scatter_add_rows_(head.clone(), None, adv, avals),),
@@ -704,7 +743,7 @@ def scatter_rows_kernel(torch, timer, rate, results, compare, errs):
     t = dict(
         ms=timer(lambda: sa.scatter_add_rows_(dense2d, rows, unique, vals2d)),
         launch_ms=timer(lambda: build.library().scatter_add_rows(
-            dense2d.data_ptr(), n, table, B, unique.data_ptr(),
+            dense2d.data_ptr(), n, table, None, n_rows, B, unique.data_ptr(),
             vals2d.data_ptr(), k, build.stream())),
         plain_ms=timer(lambda: sa.scatter_add_rows_plain(
             dense2d, rows, unique, vals2d)),
@@ -714,6 +753,19 @@ def scatter_rows_kernel(torch, timer, rate, results, compare, errs):
         bound_ms=B * k * (4 + 4 + 8) / rate * 1e3,
         host_us=host_us(torch, lambda: sa.scatter_add_rows_(
             dense2d, rows, unique, vals2d)))
+    # the commit's call: one lane on a device row of the (100, n) v
+    r0, i0, v0 = rows_t[:1], unique[:1], vals2d[:1]
+    t.update(
+        commit_ms=timer(lambda: sa.scatter_add_rows_(dense2d, r0, i0, v0)),
+        commit_host_ms=timer(lambda: sa.scatter_add_rows_(
+            dense2d, [int(rows[0])], i0, v0)),
+        commit_bound_ms=k * 16 / rate * 1e3,
+        commit_host_us=host_us(torch, lambda: sa.scatter_add_rows_(
+            dense2d, r0, i0, v0)))
+    log(f"  scatter_add_rows commit (device row of the ({n_rows}, {n}) v, "
+        f"k={k}): {t['commit_ms']:.4f} ms (host-table row "
+        f"{t['commit_host_ms']:.4f} ms), bound {t['commit_bound_ms']:.5f} "
+        f"ms; host per call {t['commit_host_us']:.1f} us")
     del dense2d
     # the blockwise repair's call: one lane, identity rows
     n1, k1 = 2304 * 2048, 4719
@@ -726,8 +778,8 @@ def scatter_rows_kernel(torch, timer, rate, results, compare, errs):
     t.update(
         b1_ms=timer(lambda: sa.scatter_add_rows_(d1, None, i1, v1)),
         b1_launch_ms=timer(lambda: build.library().scatter_add_rows(
-            d1.data_ptr(), n1, None, 1, i1.data_ptr(), v1.data_ptr(), k1,
-            build.stream())),
+            d1.data_ptr(), n1, None, None, 1, 1, i1.data_ptr(), v1.data_ptr(),
+            k1, build.stream())),
         b1_plain_ms=timer(lambda: sa.scatter_add_rows_plain(d1, None, i1,
                                                             v1)),
         b1_library_ms=timer(lambda: d1.index_put_((zero_rows, i1_64), v1,
@@ -1307,7 +1359,8 @@ def phase_b(torch, results, ref):
     log(f"  losses first/last {hist.losses[0]:.5f} / {hist.losses[-1]:.5f}; "
         f"up {hist.up_bytes} B, down {hist.down_bytes} B (static frames)")
     ref.update(final={key: t.cpu() for key, t in final.items()},
-               M=sstate.M.cpu(), v=sstate.v.cpu(), hist=hist)
+               M=sstate.M.cpu(), v=sstate.v.cpu(), hist=hist,
+               launches=launches, events_s=cap / dt)
     del final, sstate
 
     # per-stage split: the same stage functions as run(), replayed with
@@ -1377,6 +1430,7 @@ def phase_b(torch, results, ref):
     if busy_us == 0:
         log("  profiler: no device time recorded (busy share not measured)")
     else:
+        ref["busy_ms"] = busy_us / 1e3 / len(window)
         log(f"  profiler over {len(window)} events: device busy "
             f"{busy_us / 1e3 / len(window):.3f} ms/event of "
             f"{wall * 1e3 / len(window):.3f} ms/event wall "
@@ -1399,6 +1453,172 @@ def phase_b(torch, results, ref):
         if doubles:
             raise AssertionError(f"float64 kernels in the loop: {doubles}")
     del sstate, workers
+
+
+# ---------------------------------------------------------------------------
+# phase E: phase B's run as one CUDA graph of the event, replayed per event
+# ---------------------------------------------------------------------------
+
+def _graph_window(torch, prof, n_replays):
+    """Device time of the replays in a profiler trace of a scan: the device
+    rows that start after the first graph launch.  Returns (busy ms/event,
+    busy share of the window from that launch to the last row's end,
+    device rows per event, [(ms/event, name)] of the ten costliest names),
+    or None when the trace shows no graph launch or no device row after
+    it."""
+    events = prof.events()
+    launches = [ev.time_range.start for ev in events
+                if "GraphLaunch" in ev.name]
+    if not launches:
+        return None
+    start = min(launches)
+    rows = [ev for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.time_range.start >= start and ev.time_range.elapsed_us()]
+    if not rows:
+        return None
+    end = max(ev.time_range.end for ev in rows)
+    busy = sum(ev.time_range.elapsed_us() for ev in rows)
+    by_name: dict = {}
+    for ev in rows:
+        by_name[ev.name] = by_name.get(ev.name, 0) + ev.time_range.elapsed_us()
+    top = sorted(((t / 1e3 / n_replays, name) for name, t in by_name.items()),
+                 reverse=True)[:10]
+    return busy / 1e3 / n_replays, busy / (end - start), \
+        len(rows) / n_replays, top
+
+
+def phase_e(torch, results, ref):
+    """``run_async_scan`` on phase B's configuration, schedule and batches
+    (stacked on the card): event 0 eagerly, then one CUDA graph of the
+    event, replayed for the other 95.  Bit-equal to phase B (losses, final
+    params, M, v, bytes), every kernel's launches equal to phase B's (the
+    replays counted by the capture's record), the segmented quantize once
+    per event; a run with ``metrics=True`` (the fold inside the graph)
+    bit-equal too, its drained counts those of the schedule.  Prints
+    events/s beside phase B's, capture seconds, host us per replay, peak
+    memory, and device ms/event and busy share from a profiler window over
+    a further run's replays."""
+    from repro_torch import kernels
+    from repro_torch.core import scan_runner
+    from repro_torch.telemetry import Recorder
+
+    if "hist" not in ref:
+        raise AssertionError("phase B left no result to hold phase E to")
+    space, params0, sched, batch_fn, tr = _full_width(torch)
+    cap = FULL_CAP
+    pool = [batch_fn(e, 0) for e in range(cap)]
+    batches = (torch.stack([x for x, _ in pool]),
+               torch.stack([y for _, y in pool]))
+    del pool
+
+    def scan(schedule, data, recorder=None, metrics=False):
+        return scan_runner.run_async_scan_with_state(
+            tr.strategy, tr.grad_fn, params0, schedule, data,
+            n_workers=tr.n_workers, lr=tr.lr,
+            secondary_density=tr.secondary_density,
+            secondary_spec=tr.secondary_spec, recorder=recorder,
+            metrics=metrics, device="cuda")
+
+    def same_as_b(label, final, sstate, hist):
+        want = ref["hist"]
+        if not np.array_equal(hist.losses, want.losses):
+            raise AssertionError(f"{label}: losses differ from phase B")
+        if (hist.up_bytes, hist.down_bytes) != (want.up_bytes,
+                                                want.down_bytes):
+            raise AssertionError(f"{label}: bytes differ from phase B")
+        for key, t in final.items():
+            if not torch.equal(t.cpu(), ref["final"][key]):
+                raise AssertionError(f"{label}: final {key} differs from "
+                                     f"phase B")
+        for name, t in (("M", sstate.M), ("v", sstate.v)):
+            if not torch.equal(t.cpu(), ref[name]):
+                raise AssertionError(f"{label}: {name} differs from phase B")
+
+    scan(sched[:8], tuple(b[:8] for b in batches))     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trace_dir = ROOT / "build" / "phase_e_trace"
+    rec = Recorder(trace_dir)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    final, sstate, hist = scan(sched, batches, rec)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec.instant("phase_e/synced")
+    launches = {info.name: info.launches for info in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    rec.close()
+    marks = {ev["name"]: ev for ev in json.loads(
+        (trace_dir / "trace.json").read_text())["traceEvents"]}
+    capture_s = marks["scan/capture"]["dur"] / 1e6
+    execute_s = marks["scan/execute"]["dur"] / 1e6
+    # from the first replay's enqueue to the sync after the last
+    replay_s = (marks["phase_e/synced"]["ts"]
+                - marks["scan/execute"]["ts"]) / 1e6
+    log(f"  {cap} events in {dt:.3f} s: {cap / dt:.2f} events/s, one sync "
+        f"at the end (state set-up, event 0 and the capture included); "
+        f"phase B {ref['events_s']:.2f} events/s in this run")
+    log(f"  event 0 eagerly and the capture: {capture_s:.3f} s; "
+        f"{cap - 1} replays enqueued in {execute_s * 1e3:.3f} ms: "
+        f"{execute_s / (cap - 1) * 1e6:.1f} host us per replay; "
+        f"{replay_s * 1e3 / (cap - 1):.3f} wall ms per replayed event, "
+        f"{(cap - 1) / replay_s:.2f} events/s over the replays")
+    log(f"  launches: {launches} ({ {k: v / cap for k, v in launches.items()} }"
+        f" per event)")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB")
+    for row in results:
+        row["launches_e"] = launches[row["name"]]
+    if launches != ref["launches"]:
+        raise AssertionError(f"launches {launches} differ from phase B's "
+                             f"{ref['launches']}")
+    check_quantize_launches("E", launches, cap, space.n_leaves)
+    same_as_b("E", final, sstate, hist)
+    log("  bit-equal to phase B: losses, final params, M, v, bytes; "
+        "every kernel's launches equal phase B's")
+    del final, sstate
+
+    # the metrics fold inside the graph: no bit changes, every event counted
+    final, sstate, hist = scan(sched, batches, metrics=True)
+    same_as_b("E with metrics", final, sstate, hist)
+    md = hist.metrics
+    from repro_torch.telemetry import metrics as metrics_lib
+    if md["n_events"] != cap or sum(md["update_mag_hist"]["counts"]) != cap \
+            or md["per_worker"] != np.bincount(
+                sched, minlength=tr.n_workers).tolist() \
+            or md["staleness_hist"] != metrics_lib.summarize_log2(
+                hist.staleness):
+        raise AssertionError(f"E with metrics: {md}")
+    log(f"  with metrics=True: bit-equal to phase B; drained {md['n_events']}"
+        f" events, staleness {md['staleness_hist']}")
+    del final, sstate
+
+    # device time per event over a further run's replays
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scan(sched, batches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    window = _graph_window(torch, prof, cap - 1)
+    if window is not None:
+        busy_ms, share, per_event, top = window
+        log(f"  profiler over the {cap - 1} replays of a further run: device "
+            f"busy {busy_ms:.3f} ms/event, {share:.3f} busy share of the "
+            f"replay window (phase B: {ref.get('busy_ms', float('nan')):.3f}"
+            f" ms/event), {per_event:.1f} device kernels and copies per "
+            f"event; the run {cap / wall:.2f} events/s under the profiler")
+        for ms, name in top:
+            log(f"    {ms:8.3f} ms/event  {name[:90]}")
+    else:
+        wall_ms = replay_s * 1e3 / (cap - 1)
+        log(f"  profiler: no graph kernels in the trace; phase B's device "
+            f"{ref.get('busy_ms', float('nan')):.3f} ms/event over E's "
+            f"{wall_ms:.3f} wall ms per replayed event: busy share "
+            f"{ref.get('busy_ms', float('nan')) / wall_ms:.3f} (derived)")
 
 
 # ---------------------------------------------------------------------------
@@ -1747,6 +1967,7 @@ def main() -> int:
                                                        results)),
                       ("a", lambda: phase_a(torch)),
                       ("b", lambda: phase_b(torch, results, ref)),
+                      ("e", lambda: phase_e(torch, results, ref)),
                       ("c", lambda: phase_c(torch, results, ref)),
                       ("d", lambda: phase_d(torch, results, ref))):
         log(f"== phase {phase}")

@@ -15,7 +15,12 @@ them IN PLACE: :func:`receive` writes ``M``, :func:`send_commit` writes row
 worker's ``theta``.  Each sparse update is ONE scatter (kernel 1 on a card).
 The batched loop's :func:`send_commit_rows` and :func:`apply_update_rows`
 fold a whole batch into its pairwise-distinct rows with ONE multi-row
-scatter (kernel 4).
+scatter (kernel 4); :func:`send_commit` is that scatter at B = 1.
+
+A worker id is a host int, or (the scan runner, whose CUDA graph replays
+one event for every worker) a one-element int64 tensor on the server's
+device: :func:`send_select` and :func:`send_commit` then index ``v`` on
+the device and read nothing back.
 """
 from __future__ import annotations
 
@@ -61,12 +66,20 @@ def receive(state: ServerState, msg) -> ServerState:
     return state._replace(t=state.t + 1)
 
 
-def send_select(state: ServerState, worker_id: int, *,
+def _row(v: torch.Tensor, worker_id) -> torch.Tensor:
+    """Row ``worker_id`` of ``v``: a view for a host int, a gathered copy
+    for a device id."""
+    if isinstance(worker_id, torch.Tensor):
+        return v.index_select(0, worker_id.reshape(1))[0]
+    return v[worker_id]
+
+
+def send_select(state: ServerState, worker_id, *,
                 secondary_density: float | None = None,
                 spec: CompressionSpec = engine_lib.EXACT_SPEC):
     """Select the RAW (unquantized) downward message G_k; no state change.
     The caller quantizes it, and :func:`send_commit` is fed what shipped."""
-    diff = state.M - state.v[worker_id]
+    diff = state.M - _row(state.v, worker_id)
     if secondary_density is None:
         return diff
     spec_raw = dataclasses.replace(spec, quantize="none")
@@ -74,14 +87,17 @@ def send_select(state: ServerState, worker_id: int, *,
                               spec_raw)
 
 
-def send_commit(state: ServerState, worker_id: int, G) -> ServerState:
-    """Account the SHIPPED message into v_k (Eq. 4), in place.  A dense G
-    means "everything": v_k becomes a copy of M (``v + (M - v)`` would lose
-    bits to f32 cancellation)."""
+def send_commit(state: ServerState, worker_id, G) -> ServerState:
+    """Account the SHIPPED message into v_k (Eq. 4), in place: a sparse G
+    with ONE multi-row scatter at B = 1 (kernel 4, as the batched commit).
+    A dense G means "everything": v_k becomes a copy of M (``v + (M - v)``
+    would lose bits to f32 cancellation)."""
     from repro_torch.kernels import ops
 
     if isinstance(G, SparseLeaf):
         ops.scatter_add_row(state.v, worker_id, G.indices, G.values)
+    elif isinstance(worker_id, torch.Tensor):
+        state.v.index_copy_(0, worker_id.reshape(1), state.M[None])
     else:
         state.v[worker_id].copy_(state.M)
     return state

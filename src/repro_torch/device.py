@@ -20,8 +20,15 @@ def from_host(array, device) -> torch.Tensor:
     """A small host array (worker ids, learning rates) as a tensor on
     ``device``.  To the card it goes through pinned memory with a
     non-blocking copy: a plain ``.to("cuda")`` from pageable memory waits
-    for the stream to drain, a host sync in the middle of the loop."""
+    for the stream to drain, a host sync in the middle of the loop.
+
+    Raises while the current stream captures a CUDA graph: the graph would
+    bake in the temporary pinned buffer and replay a copy of what it held
+    at capture."""
     t = torch.from_numpy(np.ascontiguousarray(array))
     if torch.device(device).type == "cpu":
         return t
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("from_host under CUDA graph capture: the graph "
+                           "would replay the capture's host values")
     return t.pin_memory().to(device, non_blocking=True)

@@ -11,12 +11,20 @@ Thread safety: the cluster runtime launches kernels from many threads, so
 the first build and load run under one lock (exactly one build per
 process) and the launch counters rise under another (:func:`count`).
 
+CUDA graphs: a launch made while the current stream captures a graph runs
+no kernel then, but once at each replay.  So :func:`count` adds nothing for
+it; it goes into the :class:`LaunchRecord` that :func:`recording` opened
+on this thread, and :meth:`LaunchRecord.replay` adds the recorded launches
+at each replay.  A counted launch under capture outside :func:`recording`
+raises: its replays would count nothing.
+
 Flags: ``sm_90a`` (Hopper), ``-O3`` and NO ``--use_fast_math``: the kernels'
 bit-equality with their plain versions rests on IEEE rounding and on the
 explicit ``__f*_rn`` intrinsics.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -54,9 +62,55 @@ _COUNT_LOCK = threading.Lock()
 BUILD_SECONDS: float | None = None
 
 
+class LaunchRecord:
+    """The launches one CUDA graph capture recorded, kernel by kernel: what
+    each replay of the graph launches."""
+
+    def __init__(self):
+        self.launches: dict[str, list] = {}   # name -> [KernelInfo, n]
+
+    def add(self, info: KernelInfo, n: int) -> None:
+        self.launches.setdefault(info.name, [info, 0])[1] += n
+
+    def replay(self, times: int = 1) -> None:
+        """Count ``times`` replays of the graph: every recorded launch's
+        counter rises by its count per replay, times ``times``."""
+        with _COUNT_LOCK:
+            for info, n in self.launches.values():
+                info.launches += n * times
+
+
+# the LaunchRecord open on each thread (recording())
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Open a :class:`LaunchRecord` on this thread for the launches made
+    under CUDA graph capture until the block ends; yields it."""
+    record = LaunchRecord()
+    outer = getattr(_CAPTURE, "record", None)
+    _CAPTURE.record = record
+    try:
+        yield record
+    finally:
+        _CAPTURE.record = outer
+
+
 def count(info: KernelInfo, n: int = 1) -> None:
     """Raise a kernel's launch counter by ``n``, atomically across
-    threads."""
+    threads; under CUDA graph capture record the launch instead (see the
+    module's docstring).  A stream can capture only once CUDA is
+    initialized, which it never is in a build of torch without CUDA."""
+    if torch.cuda.is_initialized() \
+            and torch.cuda.is_current_stream_capturing():
+        record = getattr(_CAPTURE, "record", None)
+        if record is None:
+            raise RuntimeError(f"{info.name}: launched under CUDA graph "
+                               f"capture outside build.recording(); its "
+                               f"replays would count nothing")
+        record.add(info, n)
+        return
     with _COUNT_LOCK:
         info.launches += n
 
@@ -129,7 +183,7 @@ def _declare(lib) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.scatter_add.argtypes = [p, i64, p, p, i64, p]
     f32 = ctypes.c_float
-    lib.scatter_add_rows.argtypes = [p, i64, p, i64, p, p, i64, p]
+    lib.scatter_add_rows.argtypes = [p, i64, p, p, i64, i64, p, p, i64, p]
     lib.block_topk.argtypes = [p, p, p, i64, i32, p]
     lib.samomentum_fused.argtypes = [p, p, p, p, p, f32, f32, f32, i64, i64,
                                      p]

@@ -46,7 +46,10 @@
 // Lanes: the flat call is one lane on row 0.  The row ids travel in the
 // launch's own parameters (a table of up to kMaxLanes ids, larger batches in
 // several launches), or not at all for the identity rows 0..B-1 (the
-// blockwise support repair): no device copy of them, no host sync.
+// blockwise support repair): no device copy of them, no host sync.  Or they
+// lie in device memory (int64, one per lane), where a CUDA graph's replay
+// finds the row that this event's worker id names: each CTA reads its
+// lane's id, and a lane whose id is outside [0, n_rows) writes nothing.
 //
 // Cost: P * k index reads from L2 per lane and one round per kCap kept
 // updates per CTA; made for the sparse updates of DGS (k << n).
@@ -71,10 +74,21 @@ struct Identity {
   __device__ long long operator()(int lane) const { return lane; }
 };
 
-// ... or row row[b], the ids passed by value in the launch.
+// ... or row row[b], the ids passed by value in the launch ...
 struct RowTable {
   int32_t row[kMaxLanes];
   __device__ long long operator()(int lane) const { return row[lane]; }
+};
+
+// ... or row row[b] read from device memory; -1 (no row) when it is out of
+// range.
+struct DeviceRows {
+  const long long* row;
+  long long n_rows;
+  __device__ long long operator()(int lane) const {
+    const long long r = row[lane];
+    return r >= 0 && r < n_rows ? r : -1;
+  }
 };
 
 // Bitonic sort of keys[0, m) ascending in shared memory, padded to a power
@@ -173,7 +187,9 @@ __global__ void __launch_bounds__(kThreads)
 scatter_add_kernel(float* __restrict__ dense, long long n, long long w,
                    const int32_t* __restrict__ idx,
                    const float* __restrict__ vals, int k, Rows rows) {
-  dense += rows(blockIdx.y) * n;
+  const long long row = rows(blockIdx.y);
+  if (row < 0) return;  // the whole CTA: a lane with no row writes nothing
+  dense += row * n;
   idx += (long long)blockIdx.y * k;
   vals += (long long)blockIdx.y * k;
   __shared__ unsigned long long keys[kCap];
@@ -314,9 +330,12 @@ extern "C" int scatter_add(void* dense, long long n, const void* idx,
                      (cudaStream_t)stream);
 }
 
-// rows: b host row ids, pairwise distinct (the wrapper checks), or null for
-// the rows 0..b-1.  One launch per kMaxLanes lanes.
+// rows: b host row ids, pairwise distinct (the wrapper checks); or, when
+// rows is null, rows_dev: b int64 row ids in device memory, pairwise
+// distinct by the caller's contract, ids outside [0, n_rows) dropped; or,
+// when both are null, the rows 0..b-1.  One launch per kMaxLanes lanes.
 extern "C" int scatter_add_rows(void* dense, long long n, const int32_t* rows,
+                                const long long* rows_dev, long long n_rows,
                                 long long b, const void* idx,
                                 const void* vals, long long k, void* stream) {
   if (k <= 0 || n <= 0 || b <= 0) return 0;
@@ -326,14 +345,17 @@ extern "C" int scatter_add_rows(void* dense, long long n, const int32_t* rows,
     const int32_t* ii = (const int32_t*)idx + b0 * k;
     const float* vv = (const float*)vals + b0 * k;
     cudaError_t err;
-    if (rows == nullptr) {
-      err = launch((float*)dense + b0 * n, n, ii, vv, (int)k, lanes,
-                   Identity{}, (cudaStream_t)stream);
-    } else {
+    if (rows != nullptr) {
       RowTable table;
       for (int i = 0; i < lanes; ++i) table.row[i] = rows[b0 + i];
       err = launch((float*)dense, n, ii, vv, (int)k, lanes, table,
                    (cudaStream_t)stream);
+    } else if (rows_dev != nullptr) {
+      err = launch((float*)dense, n, ii, vv, (int)k, lanes,
+                   DeviceRows{rows_dev + b0, n_rows}, (cudaStream_t)stream);
+    } else {
+      err = launch((float*)dense + b0 * n, n, ii, vv, (int)k, lanes,
+                   Identity{}, (cudaStream_t)stream);
     }
     if (err != cudaSuccess) return (int)err;
   }

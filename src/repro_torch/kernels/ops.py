@@ -104,17 +104,20 @@ def scatter_add(dense, indices, values):
     return scatter_add_(dense, indices, values.to(dense.dtype))
 
 
-def scatter_add_row(dense2d, row: int, indices, values):
+def scatter_add_row(dense2d, row, indices, values):
     """``dense2d[row, indices] += values`` in place -- one worker row of the
-    server's ``v`` (a contiguous view); returns ``dense2d``."""
-    scatter_add_(dense2d[row], indices, values.to(dense2d.dtype))
-    return dense2d
+    server's ``v``: :func:`scatter_add_rows` at B = 1, ``row`` a host int
+    or a one-element int64 tensor on ``dense2d``'s device (the scan
+    runner's worker id); returns ``dense2d``."""
+    rows = row.reshape(1) if isinstance(row, torch.Tensor) else (int(row),)
+    return scatter_add_rows(dense2d, rows, indices[None], values[None])
 
 
 def scatter_add_rows(dense2d, rows, idx2d, vals2d):
     """Batched multi-row scatter-add, in place: ``dense2d[rows[b],
     idx2d[b]] += vals2d[b]`` for every lane b, ONE launch of kernel 4.
     ``rows`` is a host sequence of pairwise-distinct row ids (the batching
-    rule), or ``None`` for the rows ``0..B-1``; returns ``dense2d``."""
+    rule), ``None`` for the rows ``0..B-1``, or their int64 tensor on the
+    device; returns ``dense2d``."""
     return scatter_add_rows_(dense2d, rows, idx2d.contiguous(),
                              vals2d.to(dense2d.dtype).contiguous())

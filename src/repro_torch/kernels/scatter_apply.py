@@ -110,18 +110,38 @@ def _host_rows(rows, n_rows: int, n_lanes: int) -> list:
     return rows
 
 
+def _device_rows(rows: torch.Tensor, dense2d: torch.Tensor,
+                 n_lanes: int) -> torch.Tensor:
+    """The lanes' target rows as a tensor on ``dense2d``'s device (a CUDA
+    graph's replay reads them there): int64, one per lane.  Their values
+    are not read on the host: ids outside the rows are dropped, and the
+    caller keeps them pairwise distinct."""
+    if rows.device != dense2d.device or rows.dtype != torch.int64 \
+            or rows.numel() != n_lanes:
+        raise ValueError(f"scatter_add_rows_: device rows {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device} for "
+                         f"{n_lanes} lanes on {dense2d.device}")
+    return rows.reshape(-1).contiguous()
+
+
 def scatter_add_rows_plain(dense2d: torch.Tensor, rows, idx2d: torch.Tensor,
                            vals2d: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version, in place: each lane's in-range updates moved
     to flat coordinates ``rows[b] * n + idx``, then the same stable sort
     and in-order run sums as :func:`scatter_add_plain` (distinct rows keep
-    every lane's run inside its own row)."""
-    rows = _host_rows(rows, dense2d.shape[0], idx2d.shape[0])
-    n = dense2d.shape[1]
+    every lane's run inside its own row).  ``rows`` as for
+    :func:`scatter_add_rows_`."""
+    n_rows, n = dense2d.shape
+    if isinstance(rows, torch.Tensor):
+        row = _device_rows(rows, dense2d, idx2d.shape[0])[:, None]
+        row_ok = (row >= 0) & (row < n_rows)
+    else:
+        row = torch.tensor(_host_rows(rows, n_rows, idx2d.shape[0]),
+                           dtype=torch.int64, device=dense2d.device)[:, None]
+        row_ok = True
     idx = idx2d.to(torch.int64)
-    ok = (idx >= 0) & (idx < n)
-    flat = torch.tensor(rows, dtype=torch.int64,
-                        device=dense2d.device)[:, None] * n + idx
+    ok = (idx >= 0) & (idx < n) & row_ok
+    flat = row * n + idx
     scatter_add_plain(dense2d.view(-1), flat[ok], vals2d.to(dense2d.dtype)[ok])
     return dense2d
 
@@ -130,9 +150,13 @@ def scatter_add_rows_(dense2d: torch.Tensor, rows, idx2d: torch.Tensor,
                       vals2d: torch.Tensor) -> torch.Tensor:
     """``dense2d[rows[b], idx2d[b]] += vals2d[b]`` in place for every lane
     b; returns ``dense2d``.  ``rows`` is a host sequence of pairwise
-    distinct row ids, or ``None`` for the rows ``0..B-1``.  CPU -> plain
-    version, CUDA -> kernel 4: ONE launch for up to ``MAX_LANES`` lanes,
-    the row ids in its parameters (none for ``None``), no device copy."""
+    distinct row ids (checked), ``None`` for the rows ``0..B-1``, or an
+    int64 tensor of row ids on ``dense2d``'s device, one per lane (pairwise
+    distinct by the caller's contract, ids outside the rows dropped: what a
+    CUDA graph's replay reads).  CPU -> plain version, CUDA -> kernel 4:
+    ONE launch for up to ``MAX_LANES`` lanes, the host row ids in its
+    parameters (none for ``None``), the device ones by pointer; no device
+    copy."""
     if dense2d.device.type == "cpu":
         return scatter_add_rows_plain(dense2d, rows, idx2d, vals2d)
     if dense2d.device.type != "cuda":
@@ -145,12 +169,19 @@ def scatter_add_rows_(dense2d: torch.Tensor, rows, idx2d: torch.Tensor,
         raise ValueError(f"scatter_add_rows_: shapes {tuple(dense2d.shape)}, "
                          f"{tuple(idx2d.shape)}, {tuple(vals2d.shape)}")
     lanes, k = idx2d.shape
-    ids = _host_rows(rows, dense2d.shape[0], lanes)
+    table = rows_dev = None
+    if isinstance(rows, torch.Tensor):
+        rows_dev = _device_rows(rows, dense2d, lanes)
+    else:
+        ids = _host_rows(rows, dense2d.shape[0], lanes)
+        if rows is not None:
+            table = (ctypes.c_int32 * lanes)(*ids)
     if lanes and k:
-        table = None if rows is None else (ctypes.c_int32 * lanes)(*ids)
         rc = build.library().scatter_add_rows(
-            dense2d.data_ptr(), dense2d.shape[1], table, lanes,
-            idx2d.data_ptr(), vals2d.data_ptr(), k, build.stream())
+            dense2d.data_ptr(), dense2d.shape[1], table,
+            None if rows_dev is None else rows_dev.data_ptr(),
+            dense2d.shape[0], lanes, idx2d.data_ptr(), vals2d.data_ptr(), k,
+            build.stream())
         build.check(rc, ROWS_INFO.name)
         build.count(ROWS_INFO, -(-lanes // MAX_LANES))
     return dense2d

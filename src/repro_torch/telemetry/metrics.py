@@ -93,34 +93,44 @@ def msg_sqnorm(msg) -> torch.Tensor:
     return torch.sum(vals.to(torch.float32) ** 2, dim=-1)
 
 
-def _count(hist: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
-    bins = bins.reshape(-1).to(torch.int64)
-    return hist.index_add(0, bins, torch.ones_like(bins, dtype=hist.dtype))
+def fold_(ms: MetricsState, worker_ids: torch.Tensor,
+          staleness: torch.Tensor, up_nnz, down_nnz, mag_sq) -> MetricsState:
+    """Fold one event (scalars) or one batch (``(B,)`` tensors) in, IN
+    PLACE, every operand a tensor on the state's device: the fold a CUDA
+    graph replays, which reads the worker id and the staleness from device
+    memory and leaves the result where the next replay reads it.
+    Duplicate buckets within a batch add, so the result equals folding the
+    events one at a time.  Returns ``ms``."""
+
+    def count_(hist, bins):
+        bins = bins.reshape(-1).to(torch.int64)
+        hist.index_add_(0, bins, torch.ones_like(bins, dtype=hist.dtype))
+
+    wid = worker_ids.reshape(-1).to(torch.int64)
+    ms.n_events.add_(int(wid.numel()))
+    count_(ms.per_worker, wid)
+    count_(ms.stale_hist, log2_bin(staleness.reshape(-1)))
+    count_(ms.up_nnz_hist, log2_bin(up_nnz))
+    count_(ms.down_nnz_hist, log2_bin(down_nnz))
+    count_(ms.mag_hist, mag_bin(mag_sq))
+    return ms
 
 
 def update(ms: MetricsState, worker_ids, staleness, up_nnz, down_nnz,
            mag_sq, overflow=0) -> MetricsState:
-    """Fold one event (scalars) or one batch (``(B,)`` arrays) in.
-
-    ``worker_ids`` and ``staleness`` are host values (numpy or ints); the
-    rest are device tensors.  Duplicate buckets within a batch add, so the
-    result equals folding the events one at a time.
-    """
+    """:func:`fold_` into a new state, ``worker_ids`` and ``staleness``
+    host values (numpy or ints), the rest device tensors; ``overflow``
+    adds to the dropped-entry counter."""
     dev = ms.n_events.device
     wid = from_host(np.asarray(worker_ids, np.int64).reshape(-1), dev)
     stal = from_host(np.asarray(staleness, np.int64).reshape(-1), dev)
     if not isinstance(overflow, torch.Tensor):
         overflow = torch.full((), int(np.sum(overflow)), dtype=torch.int32,
                               device=dev)
-    return MetricsState(
-        n_events=ms.n_events + int(wid.numel()),
-        per_worker=_count(ms.per_worker, wid),
-        stale_hist=_count(ms.stale_hist, log2_bin(stal)),
-        up_nnz_hist=_count(ms.up_nnz_hist, log2_bin(up_nnz)),
-        down_nnz_hist=_count(ms.down_nnz_hist, log2_bin(down_nnz)),
-        mag_hist=_count(ms.mag_hist, mag_bin(mag_sq)),
-        overflow=ms.overflow + overflow.sum().to(torch.int32),
-    )
+    out = fold_(MetricsState(*(t.clone() for t in ms)), wid, stal, up_nnz,
+                down_nnz, mag_sq)
+    out.overflow.add_(overflow.sum().to(torch.int32))
+    return out
 
 
 def make_metrics_step():
