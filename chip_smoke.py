@@ -31,7 +31,7 @@ exits nonzero and prints no result line):
   segments), at one 4,718,592-element vector and at a (16, k) batch, with
   NaN, +-inf, +-0, denormals, int8 and bf16 halfway values, an all-zero
   segment and a segment of one element planted; the codec's frame tails
-  and frames too.
+  and frames too, a delta checkpoint's one long segment among them.
 * a -- the quickstart configuration (8 workers, 600 events, asgd and dgs) on
   the card and on the CPU from the same weights and numpy batches; bytes,
   losses and accuracy must agree within the stated tolerances.
@@ -76,6 +76,25 @@ exits nonzero and prints no result line):
   measured bytes to an in-process run of the same problem.  Prints
   events/s, peak memory, launches per event, the coordinator's mean batch
   and the host span totals of each run.
+* f -- serving and delta checkpoints at full width.  F1 is phase D1's run
+  with the serve leg on: two inference replica threads (blockwise pushes
+  at density 0.001 with ``block_r=32``, int8 on the wire, staleness bound
+  4, each decode the MLP's accuracy on 512 samples) and a delta chain
+  appended every 8 events.  Its training must be bit-equal to phase B
+  (losses, worker ids, staleness, final params, bytes), both replicas'
+  arenas bit-equal to the server's final arena at version 96, the chain
+  restored on the card equal to it (version 96, as many deltas as the
+  ``ckpt_deltas`` counter) and again after ``compact`` of its first half;
+  the launches beyond D1's must cover the pushes' (a segmented quantize
+  and a flat scatter-add commit per push, a block top-k per leaf per
+  push, a flat scatter-add per applied diff).  Prints events/s beside
+  D1's, each replica's pushes, push bytes, lag and stale waits, the serve
+  spans' host totals, the chain's bytes and restore seconds, and peak
+  memory.  F2 runs ``python -m repro_torch.launch.serve --smoke`` (TCP, a
+  client and two replica processes, a checkpoint directory) and needs exit
+  code 0; F3 runs the fleet launcher at phase B's widths (4 client and 2
+  replica processes, 8 rounds) and holds both replicas' arenas and the
+  restored chain equal, the chain ending at version 32.
 
 The last two lines are the kernel table and the result, each one JSON object.
 """
@@ -1030,12 +1049,22 @@ def wire_kernels(torch, timer, rate, results, compare, errs):
                 wire_pack.segment_quantize_plain(x2d, sg, "tern",
                                                  codes="element"))
 
-    # the codec: frame tails and whole frames
+    # the codec: frame tails and whole frames; last, a delta checkpoint's
+    # frame: ONE segment of 8 events' changed entries (11 chunks)
     idx = torch.randperm(space.total, generator=gen, device="cuda")[:k]
     idx = idx.sort().values.to(torch.int32)
     small_seg = (4, 9, 20)
-    for size in (256, 5000, space.total):
-        if size == space.total:
+    dk = 8 * k + 1
+    delta = SparseLeaf(
+        torch.randn(dk, generator=gen, device="cuda"),
+        torch.randperm(space.total, generator=gen,
+                       device="cuda")[:dk].sort().values.to(torch.int32),
+        space.total)
+    plant_wire(torch, rng, delta.values, (dk,))
+    for size in (256, 5000, space.total, "delta"):
+        if size == "delta":
+            leaf, sg, size = delta, (dk,), space.total
+        elif size == space.total:
             leaf = SparseLeaf(msg, idx, size)
             sg = seg
         else:
@@ -1062,7 +1091,8 @@ def wire_kernels(torch, timer, rate, results, compare, errs):
                                      f"encoder's")
     log("  frame tails bit-equal to the plain version, frames ending in its "
         "bytes and byte-equal to the per-segment encoder: none, bf16, int8, "
-        "tern at u8, u16 and u32 indices")
+        f"tern at u8, u16 and u32 indices, and at one segment of {dk} "
+        f"(a delta checkpoint's frame)")
 
     def launch_alone(x2d, sg, mode, form):
         """The C call alone (``wire_pack.launcher``), on outputs that one
@@ -1704,7 +1734,10 @@ def phase_c(torch, results, ref):
 
 CLUSTER_SPANS = ("coord/server_batch", "coord/encode", "coord/commit",
                  "coord/reply", "client/step", "client/encode",
-                 "client/exchange", "client/apply")
+                 "client/exchange", "client/apply",
+                 # the serve leg's (phase F)
+                 "coord/push", "coord/sync", "coord/ckpt", "replica/apply",
+                 "replica/decode", "replica/sync")
 
 
 def _trace_spans(trace_dir):
@@ -1736,12 +1769,14 @@ def _log_spans(label, spans, window, n_events):
         for k in ("client/encode", "coord/encode") if k in spans))
 
 
-def _cluster_run(torch, label, tr, params0, sched, batch_fn, trace_dir):
+def _cluster_run(torch, label, tr, params0, sched, batch_fn, trace_dir,
+                 **serve):
     """One ``run_inprocess`` of trainer ``tr``'s configuration, one worker
-    slot per trainer worker, with a Recorder; the launch counters are set to
-    0 just before it and read just after.  Prints events/s, peak memory,
-    launches per event, the mean batch and the host span totals.  Returns
-    (final, hist, launches)."""
+    slot per trainer worker, with a Recorder (and ``serve``: the serve leg's
+    options); the launch counters are set to 0 just before it and read just
+    after.  Prints events/s, peak memory, launches per event, the mean
+    batch and the host span totals.  Returns (final, hist, launches,
+    events/s)."""
     from repro_torch import kernels
     from repro_torch.cluster import run_inprocess
     from repro_torch.telemetry import Recorder
@@ -1756,7 +1791,8 @@ def _cluster_run(torch, label, tr, params0, sched, batch_fn, trace_dir):
         tr.strategy, tr.grad_fn, params0, batch_fn, schedule=sched,
         n_workers=tr.n_workers, lr=tr.lr,
         secondary_density=tr.secondary_density,
-        secondary_spec=tr.secondary_spec, recorder=rec, timeout=300.0)
+        secondary_spec=tr.secondary_spec, recorder=rec, timeout=300.0,
+        **serve)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {info.name: info.launches for info in kernels.KERNELS}
@@ -1771,7 +1807,7 @@ def _cluster_run(torch, label, tr, params0, sched, batch_fn, trace_dir):
     log(f"  {label}: peak device memory {peak / 2**30:.2f} GiB")
     _log_spans(label, *_trace_spans(trace_dir), cap)
     log(f"  {label}: wall {dt * 1e3:.3f} ms")
-    return final, hist, launches
+    return final, hist, launches, cap / dt
 
 
 def _same_run(torch, label, final, hist, want_final, want):
@@ -1788,11 +1824,39 @@ def _same_run(torch, label, final, hist, want_final, want):
             raise AssertionError(f"{label}: final {key} differs")
 
 
+def _child_env() -> dict:
+    """The environment of a launcher subprocess: this one, with the
+    checkout's ``src`` first on ``PYTHONPATH``."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    return env
+
+
+def _run_launcher(label, module, flags, env):
+    """``python -m <module> <flags>`` from the checkout's root; prints the
+    output's last lines and fails unless it exits 0.  Returns the output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *flags], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=400)
+    out = proc.stdout + proc.stderr
+    for line in out.strip().splitlines()[-10:]:
+        log(f"  {label} | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: {module} exited {proc.returncode}")
+    log(f"  {label}: exit 0 in {time.perf_counter() - t0:.1f} s (process "
+        f"start-up included)")
+    return out
+
+
 def phase_d(torch, results, ref):
     """The cluster runtime at full width: D1 against phase B, D2 against
     the serial loop of its own configuration, D3 the TCP launcher."""
     import dataclasses
-    import os
 
     from repro_torch.core import make_strategy
 
@@ -1804,10 +1868,11 @@ def phase_d(torch, results, ref):
         f"workers, {tr.n_workers} slots")
 
     # D1: phase B's configuration (int8 up, none down), bit-equal to B
-    final, hist, launches = _cluster_run(
+    final, hist, launches, eps = _cluster_run(
         torch, "D1", tr, params0, sched, batch_fn,
         ROOT / "build" / "phase_d1_trace")
     _same_run(torch, "D1", final, hist, ref["final"], ref["hist"])
+    ref["d1_launches"], ref["d1_events_s"] = launches, eps   # for phase F1
     # every encode is one launch: an int8 UP and a "none" DOWN per event
     got = (launches["segment_quantize"],
            launches["segment_quantize_tern_pack"])
@@ -1833,7 +1898,7 @@ def phase_d(torch, results, ref):
     log(f"  D2 serial reference run: {cap / (time.perf_counter() - t0):.2f} "
         f"events/s")
     want_final = {key: t.cpu() for key, t in want_final.items()}
-    final, hist, launches = _cluster_run(
+    final, hist, launches, _ = _cluster_run(
         torch, "D2", tr2, params0, sched, batch_fn,
         ROOT / "build" / "phase_d2_trace")
     _same_run(torch, "D2", final, hist, want_final, want)
@@ -1852,21 +1917,9 @@ def phase_d(torch, results, ref):
     del final, want_final
 
     # D3: the TCP launcher's smoke, two client processes on the card
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
-                               else []))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.cluster", "--smoke",
-         "--timeout", "120"], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=400)
-    for line in (proc.stdout + proc.stderr).strip().splitlines()[-8:]:
-        log(f"  D3 | {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"D3: the TCP smoke exited {proc.returncode}")
-    log(f"  D3: TCP smoke exit 0 in {time.perf_counter() - t0:.1f} s")
-
+    env = _child_env()
+    _run_launcher("D3", "repro_torch.launch.cluster",
+                  ["--smoke", "--timeout", "120"], env)
     phase_d4(torch, env)
 
 
@@ -1892,18 +1945,8 @@ def phase_d4(torch, env):
     from repro_torch.launch import cluster as launcher
 
     trace_dir = ROOT / "build" / "phase_d4_trace"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.cluster", *D4_FLAGS,
-         "--trace-dir", str(trace_dir)], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=400)
-    out = proc.stdout + proc.stderr
-    for line in out.strip().splitlines()[-8:]:
-        log(f"  D4 | {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"D4: the TCP launcher exited {proc.returncode}")
-    log(f"  D4: TCP run exit 0 in {time.perf_counter() - t0:.1f} s (four "
-        f"client processes' start-up included)")
+    out = _run_launcher("D4", "repro_torch.launch.cluster",
+                        D4_FLAGS + ["--trace-dir", str(trace_dir)], env)
     events = re.search(r"\] (\d+) events in .*\| loss (\S+) -> (\S+)", out)
     wire_bytes = re.search(r"measured wire bytes: up=(\d+) .* down=(\d+) ",
                            out)
@@ -1920,7 +1963,7 @@ def phase_d4(torch, env):
         secondary_density=args.secondary_density,
         secondary_spec=launcher.secondary_spec(args), device=args.device)
     sched = np.tile(np.arange(args.clients), args.rounds)
-    _, hist, _ = _cluster_run(torch, "D4 in-process", tr, params0, sched,
+    _, hist, _, _ = _cluster_run(torch, "D4 in-process", tr, params0, sched,
                               batch_fn, ROOT / "build" / "phase_d4i_trace")
     got = (int(events.group(1)), int(wire_bytes.group(1)),
            int(wire_bytes.group(2)))
@@ -1929,6 +1972,172 @@ def phase_d4(torch, env):
         raise AssertionError(f"D4: TCP events and bytes {got} != in-process "
                              f"{want}")
     log(f"  D4: TCP events and bytes equal the in-process run's: {got}")
+
+
+# ---------------------------------------------------------------------------
+# phase F: serving and delta checkpoints at full width
+# ---------------------------------------------------------------------------
+
+def _restore_equal(torch, label, ckpt_dir, want, version):
+    """Restore the chain on the card, time it, and hold it equal
+    (``torch.equal``, the chain's contract) to ``want`` at ``version``."""
+    from repro_torch.checkpoint import load_delta_checkpoint
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arena, got, _ = load_delta_checkpoint(ckpt_dir)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if got != version or not torch.equal(arena, want):
+        raise AssertionError(f"{label}: the restored chain (version {got}) "
+                             f"!= the final arena (version {version})")
+    log(f"  {label}: restored on the card in {dt:.3f} s, equal to the "
+        f"final arena, version {got}")
+
+
+# F3: the fleet launcher at phase B's widths and density
+F3_FLAGS = ["--hidden", "2048,2304,2048", "--features", "512",
+            "--classes", "10", "--batch-size", "8", "--density", "0.001",
+            "--quantize", "int8", "--secondary-density", "0.001",
+            "--push-density", "0.001", "--clients", "4", "--rounds", "8",
+            "--replicas", "2", "--ckpt-every", "8", "--timeout", "120"]
+
+
+def phase_f(torch, results, ref):
+    """The serve leg and delta checkpoints at full width.  F1: phase D1's
+    run with two replica threads and a checkpoint chain, bit-equal to phase
+    B; F2: the serve launcher's ``--smoke``; F3: the fleet launcher at
+    phase B's widths."""
+    import shutil
+
+    from repro_torch.checkpoint import (compact, load_delta_checkpoint,
+                                        read_manifest)
+    from repro_torch.cluster.subscribe import SubscriberBook
+    from repro_torch.core.engine import CompressionSpec
+    from repro_torch.models.mlp import MLP
+
+    if "d1_launches" not in ref:
+        raise AssertionError("phase D left no D1 run to hold phase F1 to")
+    space, params0, sched, batch_fn, tr = _full_width(torch)
+    cap = FULL_CAP
+    # the replicas' decode: the MLP's accuracy on a 512-sample eval set
+    model = MLP(FULL_DIMS, device="cuda")
+    erng = np.random.default_rng(5)
+    x, y = _blobs(erng, erng.normal(size=(10, 512)), 512, 1.0)
+    eval_set = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    accs = []
+
+    def decode_fn(params, step):
+        accs.append(model.accuracy(params, eval_set))
+
+    ckpt_dir = ROOT / "build" / "phase_f_ckpt"
+    trace_dir = ROOT / "build" / "phase_f1_trace"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    push_spec = CompressionSpec(engine="blockwise", quantize="int8",
+                                block_r=32)
+    final, hist, launches, eps = _cluster_run(
+        torch, "F1", tr, params0, sched, batch_fn, trace_dir, n_replicas=2,
+        push_density=0.001, push_spec=push_spec, max_staleness=4,
+        replica_decode_fn=decode_fn, ckpt_dir=ckpt_dir, ckpt_every=8)
+    log(f"  F1: {eps:.2f} events/s against D1's {ref['d1_events_s']:.2f} in "
+        f"this run")
+    _same_run(torch, "F1", final, hist, ref["final"], ref["hist"])
+    log("  F1 training bit-equal to phase B: losses, worker ids, staleness, "
+        "final params, up and down bytes")
+
+    final_arena = space.pack({k: t.cuda() for k, t in final.items()})
+    cnt = hist.metrics["counters"]
+    replicas = hist.metrics["replicas"]
+    for i, r in enumerate(replicas):
+        if r["version"] != cap or not torch.equal(
+                r["arena"].view(torch.int32), final_arena.view(torch.int32)):
+            raise AssertionError(f"F1: replica {i} (version {r['version']}) "
+                                 f"!= the server's final arena")
+        log(f"  F1 replica {i}: pushes {cnt[f'sub/{i}/pushes']:.0f} (the "
+            f"SYNC included), push bytes {cnt[f'sub/{i}/push_bytes']:.0f}, "
+            f"lag_max {cnt[f'sub/{i}/lag_max']:.0f}, stale_waits "
+            f"{r['stale_waits']}, decodes {r['decodes']}, diffs applied "
+            f"{r['diffs']}, version {r['version']}")
+    log(f"  F1: both replicas bit-equal to the server's final arena; decode "
+        f"accuracy {accs[0]:.3f} -> {accs[-1]:.3f} over {len(accs)} decodes")
+
+    # the launches the pushes alone need: one segmented quantize a push,
+    # a block top-k a leaf a push, a flat scatter-add a push's commit and
+    # an applied diff's; the rest of the run is D1's
+    pushes = sum(cnt[f"sub/{i}/pushes"] - 1 for i in range(len(replicas)))
+    applied = sum(r["diffs"] for r in replicas)
+    need = {"segment_quantize": pushes,
+            "block_topk": space.n_leaves * pushes,
+            "scatter_add": pushes + applied}
+    extra = {k: launches[k] - ref["d1_launches"][k] for k in need}
+    if any(extra[k] < need[k] for k in need):
+        raise AssertionError(f"F1: launches beyond D1's {extra}, the pushes "
+                             f"need at least {need}")
+    log(f"  F1: {pushes} diff pushes, {applied} diffs applied; launches "
+        f"beyond D1's {extra} (the pushes need {need}; per push "
+        + ", ".join(f"{k} {extra[k] / pushes:.3f}" for k in need) + ")")
+    spans, _ = _trace_spans(trace_dir)
+    log(f"  F1 host ms per push {spans['coord/push'] / pushes:.3f}, per "
+        f"SYNC {spans['coord/sync'] / len(replicas):.3f}, per append "
+        f"{spans['coord/ckpt'] / cnt['ckpt_deltas']:.3f}, per applied diff "
+        f"{spans['replica/apply'] / applied:.3f}, per decode "
+        f"{spans['replica/decode'] / len(accs):.3f}")
+    # one push alone, off the run (no training or replica threads): the
+    # push's own cost, synchronized
+    book = SubscriberBook(space, push_density=0.001, push_spec=push_spec)
+    book.add(0)
+    M = final_arena - space.pack(params0)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        book.diff_payload(0, M, cap, False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"  F1 one push alone, synchronized: the catch-up {times[0]:.3f} "
+        f"ms, then {statistics.median(times[1:]):.3f} ms (median of 5)")
+    del book, M
+
+    manifest = read_manifest(ckpt_dir)
+    n = len(manifest["deltas"])
+    delta_bytes = (ckpt_dir / "deltas.bin").stat().st_size
+    if n != cnt["ckpt_deltas"] or delta_bytes != cnt["ckpt_bytes"]:
+        raise AssertionError(f"F1: {n} deltas of {delta_bytes} bytes on "
+                             f"disk, counters {cnt['ckpt_deltas']} and "
+                             f"{cnt['ckpt_bytes']}")
+    log(f"  F1 checkpoint: {n} deltas, {delta_bytes} bytes (k: "
+        f"{[e['k'] for e in manifest['deltas']]}), versions "
+        f"{[e['version'] for e in manifest['deltas']]}")
+    _restore_equal(torch, "F1 chain", ckpt_dir, final_arena, cap)
+    compact(ckpt_dir, upto=n // 2)
+    _restore_equal(torch, f"F1 chain compacted at {n // 2}", ckpt_dir,
+                   final_arena, cap)
+    del final, final_arena, replicas, hist
+
+    env = _child_env()
+    # F2: the serve launcher's smoke (1 client, 2 replica processes, a
+    # checkpoint directory) on the card
+    _run_launcher("F2", "repro_torch.launch.serve",
+                  ["--smoke", "--out-dir", str(ROOT / "build" / "phase_f2"),
+                   "--timeout", "120"], env)
+
+    # F3: the fleet launcher at phase B's widths: replicas' arenas and the
+    # restored chain equal, the chain's last version the run's 32 events
+    out_dir, f3_ckpt = ROOT / "build" / "phase_f3", ROOT / "build" / "f3_ckpt"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(f3_ckpt, ignore_errors=True)
+    _run_launcher("F3", "repro_torch.launch.serve",
+                  F3_FLAGS + ["--out-dir", str(out_dir), "--ckpt-dir",
+                              str(f3_ckpt)], env)
+    arenas = [np.load(out_dir / f"replica_{i}.npy") for i in range(2)]
+    chain = load_delta_checkpoint(f3_ckpt)[0].cpu().numpy()
+    last = read_manifest(f3_ckpt)["deltas"][-1]["version"]
+    if not (np.array_equal(arenas[0], arenas[1])
+            and np.array_equal(arenas[0], chain)) or last != 32:
+        raise AssertionError(f"F3: replica arenas and the restored chain "
+                             f"differ, or the chain ends at version {last}")
+    log("  F3: replica_0, replica_1 and the restored chain equal; the "
+        "chain's last version 32")
 
 
 def main() -> int:
@@ -1969,7 +2178,8 @@ def main() -> int:
                       ("b", lambda: phase_b(torch, results, ref)),
                       ("e", lambda: phase_e(torch, results, ref)),
                       ("c", lambda: phase_c(torch, results, ref)),
-                      ("d", lambda: phase_d(torch, results, ref))):
+                      ("d", lambda: phase_d(torch, results, ref)),
+                      ("f", lambda: phase_f(torch, results, ref))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()
         try:

@@ -9,14 +9,16 @@ and the runtime imports ``core.async_sim``):
 * ``coordinator`` -- the parameter-server side of the async loop
 * ``client``      -- the worker side
 * ``scenarios``   -- federated knobs: plans, participation, Dirichlet shards
-* ``runner``      -- coordinator + clients in one process
+* ``subscribe``   -- the serve leg's subscriber cursors and DIFF framing
+* ``replica``     -- the inference replica
+* ``runner``      -- coordinator + clients (+ replicas) in one process
 """
 from __future__ import annotations
 
 import importlib
 
 _SUBMODULES = ("wire", "transport", "coordinator", "client", "scenarios",
-               "runner")
+               "subscribe", "replica", "runner")
 
 __all__ = list(_SUBMODULES) + ["run_inprocess"]
 

@@ -64,7 +64,7 @@ class ClusterClient:
         if isinstance(self.transport, (list, tuple)):
             raise NotImplementedError(
                 "a client of sharded coordinators (one transport per shard) "
-                "is a later slice of the port (ROADMAP queue 1 item 13)")
+                "is a later slice of the port (ROADMAP queue 1 item 3)")
         # retransmits this client issued after a reply timed out -- the
         # observable half of the fault injector's drop accounting
         self.retries = 0

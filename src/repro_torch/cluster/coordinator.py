@@ -28,8 +28,15 @@ Federated behaviours:
 * measured bytes -- ``History.up_bytes``/``down_bytes`` are the actual
   serialized frame sizes moved through the transport.
 
-The sharded and mesh coordinators, the serve leg (subscribers) and delta
-checkpoints are later slices of the port and raise ``NotImplementedError``.
+The serve leg: inference replicas SUBscribe and PULL coalesced
+re-sparsified model diffs while training runs, and SYNC to the bit-exact
+final model (``cluster/subscribe.py``); their bytes stay out of
+``up_bytes``/``down_bytes``.  ``ckpt_dir`` appends delta checkpoints of the
+live arena ``theta_0 + M`` (``checkpoint/delta.py``).  Both compute on the
+coordinator's device.
+
+The sharded and mesh coordinators are a later slice of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,11 +54,11 @@ from repro_torch.core.paramspace import tree_leaves
 from repro_torch.core.sparsify import SparseLeaf
 from repro_torch.telemetry import metrics as metrics_lib
 
-from . import wire
+from . import subscribe, wire
 from .client import AUTO_SLOT
 from .transport import RecvTimeout
 
-_LATER = "a later slice of the port (ROADMAP queue 1 items 12-13)"
+_LATER = "a later slice of the port (ROADMAP queue 1 item 3)"
 
 
 def _stack(leaves):
@@ -82,16 +89,26 @@ class Coordinator:
     # bit-equal to the serial ones, so this is purely a speed knob.
     max_batch: int | None = None
     recorder: Any = None               # telemetry.Recorder (None = no-op)
-    # the reference's sharded, mesh, serve and checkpoint options: later
-    # slices of the port
+    # the reference's sharded and mesh options: a later slice of the port
     shard_spec: Any = None
     mesh_shards: int = 0
+    # serve leg: inference replicas SUBscribe and PULL coalesced
+    # re-sparsified model diffs while training runs.  ``push_density``
+    # picks the per-tensor top-k of each push (None = ship the exact
+    # nonzero residual), ``push_spec`` the engine and wire quantization.
+    # ``min_subscribers`` keeps the coordinator serving until that many
+    # replicas have subscribed AND left, closing the race where a short
+    # run quiesces before TCP replicas connect.
+    push_density: float | None = None
+    push_spec: CompressionSpec = engine_lib.EXACT_SPEC
     min_subscribers: int = 0
+    # delta checkpoints: append the live arena every ``ckpt_every`` served
+    # events (0 = the final state only)
     ckpt_dir: Any = None
+    ckpt_every: int = 0
 
     def __post_init__(self):
-        for name, off in (("shard_spec", None), ("mesh_shards", 0),
-                          ("min_subscribers", 0), ("ckpt_dir", None)):
+        for name, off in (("shard_spec", None), ("mesh_shards", 0)):
             if getattr(self, name) != off:
                 raise NotImplementedError(f"Coordinator({name}=...) is "
                                           f"{_LATER}")
@@ -127,6 +144,20 @@ class Coordinator:
         self._up_sizes: list[int] = []
         self._down_sizes: list[int] = []
         self.batch_sizes: list[int] = []   # events per server pass
+        # serve leg state: per-subscriber cursor arenas and the live-arena
+        # delta-checkpoint chain, all on the coordinator's device
+        self.book = subscribe.SubscriberBook(
+            self.sstate.space, push_density=self.push_density,
+            push_spec=self.push_spec, device=self._device)
+        self._training_over = False
+        self._theta0_arena = self.sstate.space.pack(self.params0)
+        self._ckpt = None
+        self._ckpt_last = 0
+        if self.ckpt_dir is not None:
+            from repro_torch.checkpoint import DeltaCheckpointWriter
+            self._ckpt = DeltaCheckpointWriter(
+                self.ckpt_dir, self._theta0_arena, version=0,
+                meta={"n_slots": self.n_slots, "shard_id": 0})
 
     def _count(self, name: str, n: float = 1):
         self.counters[name] = self.counters.get(name, 0) + n
@@ -194,9 +225,8 @@ class Coordinator:
             self._count("bye")
             return "bye", msg
         if msg.type in (wire.SUB, wire.PULL, wire.SYNC):
-            raise NotImplementedError(
-                f"{wire.TYPE_NAMES[msg.type]} from {src}: the serve leg is "
-                f"{_LATER}")
+            self._subscriber_msg(src, msg)
+            return "sub", msg
         if msg.type != wire.UP:
             raise ValueError(f"unexpected {wire.TYPE_NAMES[msg.type]}")
         if len(msg.leaves) != 1 or src not in self._slot_of:
@@ -282,6 +312,120 @@ class Coordinator:
                       batch=len(ups), loss=self._losses[-1],
                       up_bytes=self.up_bytes, down_bytes=self.down_bytes)
 
+        if self._ckpt is not None and self.ckpt_every and \
+                self.version - self._ckpt_last >= self.ckpt_every:
+            self._checkpoint()
+
+    def _checkpoint(self):
+        """Append the live arena to the delta-checkpoint chain."""
+        with self.recorder.span("coord/ckpt", version=self.version):
+            entry = self._ckpt.append(self._live_arena(), self.version)
+        self._ckpt_last = self.version
+        self._count("ckpt_deltas")
+        self._count("ckpt_bytes", entry["nbytes"])
+
+    def _live_arena(self) -> torch.Tensor:
+        """The served model's arena, ``theta_0 + M``, on the device: the
+        same f32 add as ``server.global_model``, so the checkpoint chain
+        restores the live model bit for bit."""
+        return self._theta0_arena + self.sstate.M
+
+    # -- serve leg ---------------------------------------------------------
+
+    @property
+    def version(self) -> int:
+        """Server version: committed training events so far."""
+        return len(self._losses)
+
+    def _training_done(self) -> bool:
+        """Every slot's client has joined and all have left."""
+        return (len(self._joined) >= self.n_slots
+                and self._joined <= self._left)
+
+    def _quiesced(self) -> bool:
+        return self._training_over or self._training_done()
+
+    def _subscriber_msg(self, src: int, msg):
+        """Serve one subscriber frame; never touches training state.
+
+        Every reply is a DIFF whose ``seq`` is the server version and whose
+        ``aux`` flags quiescence.  Push bytes land ONLY in the ``sub/{i}/*``
+        counters, never in ``up_bytes``/``down_bytes``, so a
+        schedule-driven run stays byte-identical to the simulator with or
+        without a fleet attached.
+        """
+        sid = src - wire.SUBSCRIBER_BASE
+        if msg.type == wire.SUB:
+            if src not in self.book.subs:
+                self.book.add(src)
+                self._count("sub_joins")
+            self._push(src, sid)     # the initial catch-up diff (v_sub = 0)
+        elif src not in self.book.subs:
+            self._count("ignored")
+        elif msg.type == wire.PULL:
+            self._push(src, sid)
+        else:  # SYNC: the dense full-M handshake, then the replica leaves
+            with self.recorder.span("coord/sync", sub=sid):
+                payload = self.book.sync_payload(src, self.sstate.M,
+                                                 self.version)
+                self.transport.send(src, payload)
+            self._count(f"sub/{sid}/pushes")
+            self._count(f"sub/{sid}/push_bytes", len(payload))
+            self.counters[f"sub/{sid}/version"] = self.version
+            self._count("sub_syncs")
+            self.book.drop(src)
+
+    def _push(self, src: int, sid: int):
+        version = self.version
+        lag = version - self.book.subs[src].version
+        with self.recorder.span("coord/push", sub=sid, lag=lag):
+            payload = self.book.diff_payload(src, self.sstate.M, version,
+                                             self._quiesced())
+            self.transport.send(src, payload)
+        self._count(f"sub/{sid}/pushes")
+        self._count(f"sub/{sid}/push_bytes", len(payload))
+        self.counters[f"sub/{sid}/lag_max"] = max(
+            self.counters.get(f"sub/{sid}/lag_max", 0), lag)
+        self.counters[f"sub/{sid}/version"] = version
+
+    def _serve_subscriber(self, src: int, payload: bytes):
+        try:
+            msg = wire.decode_message(payload, device=self._device)
+        except Exception:
+            self._count("ignored")
+            return
+        self._subscriber_msg(src, msg)
+
+    def _poll_subscribers(self):
+        """Answer pending subscriber traffic without blocking, at most one
+        frame per subscriber a call.  The schedule-driven loop calls this
+        between turns; the transport's selective ``poll`` stashes (never
+        consumes) the frames it does not accept, training clients' and a
+        subscriber's next, so the served event order is untouched.  (The
+        reference drains until no frame is pending: a replica that PULLs
+        again as soon as its diff lands then keeps the loop from the next
+        turn, and training stalls behind the pushes.)"""
+        poll = getattr(self.transport, "poll", None)
+        if poll is None:
+            return
+        served: set[int] = set()
+        while (got := poll(lambda src: wire.is_subscriber(src)
+                           and src not in served)) is not None:
+            served.add(got[0])
+            self._serve_subscriber(*got)
+
+    def _drain_subscribers(self):
+        """After training: answer PULLs with quiesced diffs until every
+        subscriber (at least ``min_subscribers`` of them) has SYNCed.  A
+        silence of ``recv_timeout`` raises ``RecvTimeout``."""
+        while len(self.book.seen) < self.min_subscribers or self.book.subs:
+            src, payload = self.transport.recv(None,
+                                               timeout=self.recv_timeout)
+            if wire.is_subscriber(src):
+                self._serve_subscriber(src, payload)
+            else:
+                self._classify(src, payload)   # stray dup/bye traffic
+
     def _account(self, client: int, nbytes: int):
         if self.scheduler is None:
             return
@@ -334,6 +478,7 @@ class Coordinator:
         events = 0
         while max_events is None or events < max_events:
             if self.scheduler is not None:
+                self._poll_subscribers()
                 remaining = None if max_events is None else max_events - events
                 turns = self._next_turns(remaining)
                 if not turns:
@@ -360,16 +505,24 @@ class Coordinator:
                 events += 1
             if self._all_done():
                 break
+        self._training_over = True
+        self._drain_subscribers()
         return self._finish()
 
     def _all_done(self) -> bool:
         # the real-time loop ends once every slot's client has joined and
-        # left: a fast client's BYE must not end a run whose other clients
-        # are still connecting
-        return (len(self._joined) >= self.n_slots
-                and self._joined <= self._left)
+        # left (a fast client's BYE must not end a run whose other clients
+        # are still connecting), the fleet has arrived (min_subscribers)
+        # and every live replica has SYNCed out
+        return (self._training_done()
+                and len(self.book.seen) >= self.min_subscribers
+                and not self.book.subs)
 
     def _finish(self):
+        if self._ckpt is not None:
+            if self._ckpt_last < self.version:
+                self._checkpoint()
+            self._ckpt.close()
         final = ps.global_model(self.params0, self.sstate)
         staleness = np.asarray(self._staleness, np.int64)
         metrics = {

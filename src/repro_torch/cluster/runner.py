@@ -12,11 +12,15 @@ Two modes of :func:`run_inprocess`:
   / bandwidth + fault delay), with partial participation, joins and
   leaves, and seeded frame drops (``inject_faults``).
 
-The coordinator and every client compute on the device of ``params0``; all
-their threads share that device's current stream.  The sharded and mesh
-coordinators (``n_shards``, ``mesh_shards``), the serve leg
-(``n_replicas``) and delta checkpoints (``ckpt_dir``) are later slices of
-the port and raise ``NotImplementedError``.
+``n_replicas > 0`` attaches a live inference fleet: replica threads on the
+same hub subscribe, pull re-sparsified model diffs between decode
+boundaries and SYNC to the bit-exact final model.  ``ckpt_dir`` makes the
+coordinator append delta checkpoints of the live arena.
+
+The coordinator, every client and every replica compute on the device of
+``params0``; all their threads share that device's current stream.  The
+sharded and mesh coordinators (``n_shards``, ``mesh_shards``) are a later
+slice of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,11 +34,12 @@ from repro_torch.core.engine import CompressionSpec
 from . import wire
 from .client import ClusterClient
 from .coordinator import Coordinator
+from .replica import InferenceReplica
 from .scenarios import ClientPlan
 from .transport import (FaultInjector, InProcHub, ScheduleDriven,
                         VirtualClock)
 
-_LATER = "a later slice of the port (ROADMAP queue 1 items 12-13)"
+_LATER = "a later slice of the port (ROADMAP queue 1 item 3)"
 
 
 def run_inprocess(
@@ -56,7 +61,12 @@ def run_inprocess(
     n_shards: int = 1,
     mesh_shards: int = 0,
     n_replicas: int = 0,
+    push_density: float | None = None,
+    push_spec: CompressionSpec = engine_lib.EXACT_SPEC,
+    max_staleness: int = 4,
+    replica_decode_fn=None,
     ckpt_dir=None,
+    ckpt_every: int = 0,
 ):
     """Run coordinator + clients on the in-process transport.
 
@@ -66,13 +76,15 @@ def run_inprocess(
     the coordinator's counters and histograms, the server passes' batch
     sizes, and each client's retries and injected drops.  ``timeout``
     bounds every receive and every join.
+
+    With ``n_replicas`` replicas, ``History.metrics["replicas"]`` holds each
+    one's stats, final arena (a tensor on the device) and version; the
+    training run's losses and bytes are untouched (serving reads M only).
     """
     if (schedule is None) == (plans is None):
         raise ValueError("pass exactly one of schedule= or plans=")
     for name, value, off in (("n_shards", n_shards, 1),
-                             ("mesh_shards", mesh_shards, 0),
-                             ("n_replicas", n_replicas, 0),
-                             ("ckpt_dir", ckpt_dir, None)):
+                             ("mesh_shards", mesh_shards, 0)):
         if value != off:
             raise NotImplementedError(f"run_inprocess({name}=...) is "
                                       f"{_LATER}")
@@ -110,6 +122,11 @@ def run_inprocess(
         virtual_costs=virtual_costs,
         recv_timeout=timeout,
         recorder=recorder,
+        push_density=push_density,
+        push_spec=push_spec,
+        min_subscribers=n_replicas,
+        ckpt_dir=ckpt_dir,
+        ckpt_every=ckpt_every,
     )
 
     clients, threads, errors, injectors = [], [], [], {}
@@ -148,6 +165,24 @@ def run_inprocess(
         threads.append(t)
         t.start()
 
+    replica_results = [None] * n_replicas
+    for i in range(n_replicas):
+        r = InferenceReplica(
+            hub.endpoint(wire.SUBSCRIBER_BASE + i), params0,
+            replica_id=i, max_staleness=max_staleness,
+            decode_fn=replica_decode_fn, recorder=recorder,
+            recv_timeout=timeout)
+
+        def _serve_replica(i=i, r=r):
+            try:
+                replica_results[i] = r.run()
+            except Exception as exc:
+                errors.append(exc)
+
+        t = threading.Thread(target=_serve_replica, daemon=True)
+        threads.append(t)
+        t.start()
+
     try:
         final, hist = coord.serve(max_events=max_events)
     except Exception:
@@ -159,12 +194,17 @@ def run_inprocess(
     if errors:
         raise errors[0]
     if any(t.is_alive() for t in threads):
-        raise TimeoutError(f"a client thread outlived the {timeout} s join")
+        raise TimeoutError(f"a client or replica thread outlived the "
+                           f"{timeout} s join")
     # fold the clients' fault accounting into the coordinator's metrics:
     # injected drops (from each FaultInjector) against observed retransmits
     per_client = {c.plan.client_id: {
         "retries": c.retries,
         "drops": getattr(injectors.get(c.plan.client_id), "dropped", 0),
     } for c in clients}
-    return final, hist._replace(metrics={**hist.metrics,
-                                         "clients": per_client})
+    metrics = {**hist.metrics, "clients": per_client}
+    if n_replicas:
+        metrics["replicas"] = [
+            {"arena": r.arena, "version": r.version, **r.stats}
+            for r in replica_results]
+    return final, hist._replace(metrics=metrics)

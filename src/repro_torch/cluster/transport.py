@@ -177,7 +177,7 @@ class ShardEndpointView:
     def __init__(self, endpoint, shard_addr: int):
         raise NotImplementedError(
             "sharded coordinators are a later slice of the port (ROADMAP "
-            "queue 1 item 13)")
+            "queue 1 item 3)")
 
 
 # ---------------------------------------------------------------------------

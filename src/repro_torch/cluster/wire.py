@@ -4,7 +4,8 @@
 Every message between a client and the coordinator is one *envelope*
 followed by zero or more length-prefixed *frames*:
 
-    envelope:   u8  type      HELLO/WELCOME/UP/DOWN/SKIP/BYE
+    envelope:   u8  type      HELLO/WELCOME/UP/DOWN/SKIP/BYE, and the serve
+                              leg's SUB/PULL/SYNC/DIFF
                 u32 sender    client id (coordinator = 0xFFFFFFFF)
                 u32 seq       per-sender sequence number (HELLO: the proposed
                               slot; WELCOME: the assigned worker slot)
@@ -58,8 +59,7 @@ from repro_torch.core.sparsify import (SparseLeaf, quantize_parts,
                                        quantize_segments)
 from repro_torch.device import from_host, resolve_device
 
-# message types (the serve leg's SUB/PULL/SYNC/DIFF keep their codes, so
-# the names decode; the port's coordinator does not serve them yet)
+# message types; SUB/PULL/SYNC/DIFF are the serve leg's (replicas)
 HELLO, WELCOME, UP, DOWN, SKIP, BYE = range(6)
 SUB, PULL, SYNC, DIFF = 6, 7, 8, 9
 TYPE_NAMES = {HELLO: "HELLO", WELCOME: "WELCOME", UP: "UP", DOWN: "DOWN",
@@ -207,7 +207,7 @@ def shard_frame_bytes_static(shard_spec, seg, mode: str = "none"):
     are a later slice of the port."""
     raise NotImplementedError(
         "sharded wire frames come with the sharded coordinators, a later "
-        "slice of the port (ROADMAP queue 1 item 13)")
+        "slice of the port (ROADMAP queue 1 item 3)")
 
 
 def encode_sharded_message(msg_type: int, sender: int, seq: int, msg, *,
@@ -217,7 +217,7 @@ def encode_sharded_message(msg_type: int, sender: int, seq: int, msg, *,
     coordinators are a later slice of the port."""
     raise NotImplementedError(
         "sharded wire frames come with the sharded coordinators, a later "
-        "slice of the port (ROADMAP queue 1 item 13)")
+        "slice of the port (ROADMAP queue 1 item 3)")
 
 
 # ---------------------------------------------------------------------------

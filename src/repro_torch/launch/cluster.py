@@ -68,6 +68,21 @@ def reap_children(timeout: float = 5.0):
     _CHILDREN.clear()
 
 
+def wait_children(procs, timeout: float) -> list[int]:
+    """Wait for each child (killing one that outlives ``timeout``), stop
+    tracking it, and return the nonzero exit codes."""
+    for p in procs:
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        finally:
+            if p in _CHILDREN:
+                _CHILDREN.remove(p)
+    return [p.returncode for p in procs if p.returncode != 0]
+
+
 def install_reaper():
     """Reap children on normal exit AND on SIGTERM/SIGINT, re-exiting with
     the conventional 128 + signum code."""
@@ -205,17 +220,8 @@ def run_coordinator(args, *, spawn_clients: bool):
         dt = time.perf_counter() - t0
     finally:
         # on any serve() failure, still reap the children + free the port
-        for p in procs:
-            try:
-                p.wait(timeout=args.timeout)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
-            finally:
-                if p in _CHILDREN:
-                    _CHILDREN.remove(p)
+        failed = wait_children(procs, args.timeout)
         transport.close()
-    failed = [p.returncode for p in procs if p.returncode != 0]
 
     n = max(1, len(hist.losses))
     log.info(f"[coordinator] {len(hist.losses)} events in {dt:.3f} s | "

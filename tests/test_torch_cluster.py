@@ -291,14 +291,12 @@ def test_later_slices_raise_not_implemented():
     params, pool = _problem()
     _, (tp, tbatch) = _both(params, pool)
     strat = tmake("dgs", density=0.25)
-    for kw in (dict(n_shards=2), dict(mesh_shards=2), dict(n_replicas=1),
-               dict(ckpt_dir="ckpt")):
+    for kw in (dict(n_shards=2), dict(mesh_shards=2)):
         with pytest.raises(NotImplementedError, match="later slice"):
             run_inprocess(strat, _torch_grad_fn, tp, tbatch,
                           schedule=[0, 1], **kw)
     hub = transport.InProcHub()
-    for kw in (dict(shard_spec=object()), dict(mesh_shards=2),
-               dict(min_subscribers=1), dict(ckpt_dir="ckpt")):
+    for kw in (dict(shard_spec=object()), dict(mesh_shards=2)):
         with pytest.raises(NotImplementedError, match="later slice"):
             Coordinator(transport=None, params0=tp, n_slots=1, **kw)
     with pytest.raises(NotImplementedError, match="later slice"):
