@@ -95,6 +95,24 @@ exits nonzero and prints no result line):
   code 0; F3 runs the fleet launcher at phase B's widths (4 client and 2
   replica processes, 8 rounds) and holds both replicas' arenas and the
   restored chain equal, the chain ending at version 32.
+* g -- the sharded parameter servers at full width, S = 4 (the arena's
+  leaf-aligned bounds leave shard 2 empty).  G1 is phase D1's run through
+  ``run_inprocess(n_shards=4)`` (four coordinator threads, every client
+  fanning its UP out as four frames): losses, worker ids, staleness and
+  final params bit-equal to D1, the bytes the per-shard static frames
+  (four envelopes an event), every shard's ``events`` 96 and
+  ``arena_elems`` its size.  G2 runs it through ``run_inprocess(
+  mesh_shards=4)`` (one coordinator, the four arenas stacked on the card,
+  every batch through the route exchange): bit-equal to D1 bytes included,
+  ``route_overflow`` 0.  G3 runs the TCP launcher's coordinator side at
+  phase B's widths (4 client processes, 8 rounds) as a 1-shard lockstep
+  run, as ``--shards 4`` (clients ``--pin-slot``) and as
+  ``--mesh-shards 4``, each sharded run bit-equal to the lockstep one (the
+  mesh run in bytes too).  Each prints events/s beside D1's, launches per
+  event by kernel, the host span totals and peak memory.  The kernel
+  phase holds the flat scatter-add at the route's buffer shape and the
+  multi-row one at the mesh's S-lane and B*S-lane shapes, ``-1`` slots
+  and +-0 planted.
 
 The last two lines are the kernel table and the result, each one JSON object.
 """
@@ -303,6 +321,7 @@ def kernel_phase(torch, timer, rate, results):
     # (4a, 4b) and the multi-row scatter-add (kernel 2)
     samomentum_kernels(torch, timer, rate, results, compare, errs)
     scatter_rows_kernel(torch, timer, rate, results, compare, errs)
+    shard_kernels(torch, timer, rate, results, compare)
 
     # the row-wise calls of the block top-k at the batched worker step's
     # shapes: 16 rows of the 4,718,592-element leaf, k = 4,719, r = 1024
@@ -819,6 +838,141 @@ def scatter_rows_kernel(torch, timer, rate, results, compare, errs):
         name=sa.ROWS_INFO.name, route="cuda", source=sa.ROWS_INFO.source,
         replaces=sa.ROWS_INFO.replaces, max_abs_err=errs["scatter_add_rows"],
         bound_by="bytes", **t))
+
+
+G_SHARDS = 4        # phase G's shards: 4 of phase B's arena, one empty
+G_BATCH = 16        # the coordinator's largest batch (C's max_batch)
+
+
+def shard_kernels(torch, timer, rate, results, compare):
+    """Rows 1 and 2 at the mesh server's shapes (phase G2), bit for bit
+    against their plain versions, and timed: the flat scatter-add as the
+    route exchange places a batch of 16 phase B messages (B * S = 64 chunks
+    of kp = 2,629 into a zeroed (64 * (S * kp + 1),) buffer, the padding
+    and the overflow to each chunk's dump slot); the multi-row one with S
+    lanes on the stacked (S, width) M (the receive of one event: its
+    route's -1 slots and +-0 values) and with B * S lanes on v viewed as
+    (100 * S, width) (the commit of a batch).  The library yardsticks take
+    the same operands, the -1 slots filtered out beforehand for
+    ``index_put_``."""
+    from repro_torch.core import distributed
+    from repro_torch.core import server as ps
+    from repro_torch.core.paramspace import ShardSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import scatter_apply as sa
+
+    space = full_width_space(torch)
+    spec = ShardSpec.for_space(space, G_SHARDS)
+    S, B, W = G_SHARDS, G_BATCH, 100
+    width = ps.mesh_width(spec)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    k = sum(space.ks(0.001))
+    idx = torch.stack([torch.randperm(space.total, generator=gen,
+                                      device="cuda")[:k]
+                       for _ in range(B)]).to(torch.int32)
+    vals = torch.randn(B, k, generator=gen, device="cuda")
+    vals[:, ::9] = -0.0
+    vals[:, 4::13] = 0.0
+    log(f"  shard bounds {spec.bounds}, sizes {spec.sizes}, mesh width "
+        f"{width}")
+
+    # row 1: the route's placement, as shard_exchange_batch cuts the batch
+    kp = ShardSpec.even_stride(k, S)
+    idx3 = torch.nn.functional.pad(idx, (0, S * kp - k), value=-1).view(
+        B * S, kp)
+    val3 = torch.nn.functional.pad(vals, (0, S * kp - k)).view(B * S, kp)
+    slots, placed, _, _ = ops.route_slots(idx3, val3, bounds=spec.bounds,
+                                          n_shards=S, cap=kp)
+    n_buf = B * S * (S * kp + 1)
+    zero = torch.zeros(n_buf, device="cuda")
+    compare(f"scatter_add/route buffer ({n_buf}, {slots.numel()} updates)",
+            (sa.scatter_add_(zero.clone(), slots, placed),),
+            (sa.scatter_add_plain(zero.clone(), slots, placed),))
+    b1, b2, b3 = zero.clone(), zero.clone(), zero.clone()
+    touched = int(torch.unique(slots).numel())
+    r1 = dict(
+        route_ms=timer(lambda: sa.scatter_add_(b1, slots, placed)),
+        route_plain_ms=timer(lambda: sa.scatter_add_plain(b2, slots, placed)),
+        route_library_ms=timer(lambda: b3.index_add_(0, slots, placed)),
+        # every update's index and value read, each touched word read and
+        # written
+        route_bound_ms=(8 * slots.numel() + 8 * touched) / rate * 1e3,
+        route_shape=[n_buf, slots.numel()])
+    del b1, b2, b3, zero
+    log(f"  scatter_add at the route's shape ({n_buf} words, "
+        f"{slots.numel()} updates, {touched} words touched): kernel "
+        f"{r1['route_ms']:.4f} ms, plain {r1['route_plain_ms']:.4f} ms, "
+        f"index_add_ {r1['route_library_ms']:.4f} ms, bound "
+        f"{r1['route_bound_ms']:.5f} ms")
+    next(r for r in results if r["name"] == sa.INFO.name).update(r1)
+
+    # row 2: the mesh receive (S lanes on M) and commit (B * S lanes on v)
+    ri, rv, ovf = distributed.shard_exchange_batch(spec, idx, vals)
+    if int(ovf) != 0:
+        raise AssertionError(f"the route overflowed: {int(ovf)}")
+    slots_n = ri.shape[-1]
+    M = torch.randn(S, width, generator=gen, device="cuda")
+    ri0, neg0 = ri[0].contiguous(), (-rv[0]).contiguous()
+    live = ri0 >= 0
+    M[live.nonzero()[:, 0][::5], ri0[live][::5].long()] = -0.0
+    v = torch.randn(W * S, width, generator=gen, device="cuda")
+    ids = np.random.default_rng(6).permutation(W)[:B]
+    rows = (ids[:, None] * S + np.arange(S)).reshape(-1)
+    ri2 = ri.reshape(B * S, slots_n)
+    rv2 = rv.reshape(B * S, slots_n)
+    compare(f"scatter_add_rows/mesh receive, {S} lanes on ({S}, {width})",
+            (sa.scatter_add_rows_(M.clone(), None, ri0, neg0),),
+            (sa.scatter_add_rows_plain(M.clone(), None, ri0, neg0),))
+    # the whole (W * S, width) result bit for bit, then the lanes' rows
+    # through compare (its error pass makes float64 copies: rows only)
+    rows_t = torch.from_numpy(rows).cuda()
+    a = sa.scatter_add_rows_(v.clone(), rows, ri2, rv2)
+    b = sa.scatter_add_rows_plain(v.clone(), rows, ri2, rv2)
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError("scatter_add_rows/mesh commit: the (W * S, "
+                             "width) results differ")
+    compare(f"scatter_add_rows/mesh commit, {B * S} lanes on ({W * S}, "
+            f"{width})", (a[rows_t],), (b[rows_t],))
+    del a, b
+
+    def lib_operands(rows_t, idx2, vals2):
+        """(row, column) pairs and values of the real slots alone."""
+        ok = idx2 >= 0
+        r = rows_t[:, None].expand_as(idx2)[ok]
+        return (r, idx2[ok].long()), vals2[ok]
+
+    ident = torch.arange(S, device="cuda")
+    m_lib, m_vals = lib_operands(ident, ri0, neg0)
+    v_lib, v_vals = lib_operands(rows_t, ri2, rv2)
+    live0, live2 = int((ri0 >= 0).sum()), int((ri2 >= 0).sum())
+    r2 = dict(
+        mesh_s_ms=timer(lambda: sa.scatter_add_rows_(M, None, ri0, neg0)),
+        mesh_s_plain_ms=timer(lambda: sa.scatter_add_rows_plain(
+            M, None, ri0, neg0)),
+        mesh_s_library_ms=timer(lambda: M.index_put_(m_lib, m_vals,
+                                                     accumulate=True)),
+        # every slot's index and value read, each live target read and
+        # written
+        mesh_s_bound_ms=(8 * ri0.numel() + 8 * live0) / rate * 1e3,
+        mesh_bs_ms=timer(lambda: sa.scatter_add_rows_(v, rows, ri2, rv2)),
+        mesh_bs_plain_ms=timer(lambda: sa.scatter_add_rows_plain(
+            v, rows, ri2, rv2)),
+        mesh_bs_library_ms=timer(lambda: v.index_put_(v_lib, v_vals,
+                                                      accumulate=True)),
+        mesh_bs_bound_ms=(8 * ri2.numel() + 8 * live2) / rate * 1e3,
+        mesh_shapes=[[S, width, S, slots_n], [W * S, width, B * S, slots_n]])
+    log(f"  scatter_add_rows mesh receive ({S} lanes x {slots_n} slots, "
+        f"{live0} live): kernel {r2['mesh_s_ms']:.4f} ms, plain "
+        f"{r2['mesh_s_plain_ms']:.4f} ms, index_put_ "
+        f"{r2['mesh_s_library_ms']:.4f} ms, bound "
+        f"{r2['mesh_s_bound_ms']:.5f} ms")
+    log(f"  scatter_add_rows mesh commit ({B * S} lanes x {slots_n} slots, "
+        f"{live2} live): kernel {r2['mesh_bs_ms']:.4f} ms, plain "
+        f"{r2['mesh_bs_plain_ms']:.4f} ms, index_put_ "
+        f"{r2['mesh_bs_library_ms']:.4f} ms, bound "
+        f"{r2['mesh_bs_bound_ms']:.5f} ms")
+    next(r for r in results if r["name"] == sa.ROWS_INFO.name).update(r2)
+    del M, v
 
 
 def scatter_cases(torch, gen, n, idx, vals):
@@ -1810,13 +1964,15 @@ def _cluster_run(torch, label, tr, params0, sched, batch_fn, trace_dir,
     return final, hist, launches, cap / dt
 
 
-def _same_run(torch, label, final, hist, want_final, want):
+def _same_run(torch, label, final, hist, want_final, want,
+              check_bytes=True):
     """Bit-equality of two runs: losses, worker ids, staleness, final
-    params, up and down bytes."""
+    params, and (``check_bytes``) up and down bytes."""
     for field in ("losses", "worker_ids", "staleness"):
         if not np.array_equal(getattr(hist, field), getattr(want, field)):
             raise AssertionError(f"{label}: {field} differ")
-    if (hist.up_bytes, hist.down_bytes) != (want.up_bytes, want.down_bytes):
+    if check_bytes and (hist.up_bytes, hist.down_bytes) != (
+            want.up_bytes, want.down_bytes):
         raise AssertionError(f"{label}: bytes {hist.up_bytes, hist.down_bytes}"
                              f" != {want.up_bytes, want.down_bytes}")
     for key, t in final.items():
@@ -2140,6 +2296,145 @@ def phase_f(torch, results, ref):
         "chain's last version 32")
 
 
+# ---------------------------------------------------------------------------
+# phase G: the sharded and mesh parameter servers at full width
+# ---------------------------------------------------------------------------
+
+def _shard_counters(label, hist, spec, n_events):
+    """Every shard saw every event and holds its share of the arena."""
+    cnt = hist.metrics["counters"]
+    for s, size in enumerate(spec.sizes):
+        got = (cnt[f"shard/{s}/events"], cnt[f"shard/{s}/arena_elems"])
+        if got != (n_events, size):
+            raise AssertionError(f"{label}: shard {s} counters {got}, "
+                                 f"expected {(n_events, size)}")
+    log(f"  {label}: every shard's events {n_events}, arena_elems "
+        f"{list(spec.sizes)}")
+
+
+def phase_g(torch, results, ref):
+    """The sharded parameter servers at full width, S = 4: G1 the S-thread
+    runtime and G2 the mesh server, both held to phase D1; G3 the TCP
+    launcher's sharded and mesh runs held to its 1-shard lockstep run."""
+    from repro_torch.cluster import wire
+    from repro_torch.core import server as ps
+    from repro_torch.core.paramspace import ShardSpec
+
+    if "d1_events_s" not in ref:
+        raise AssertionError("phase D left no D1 run to hold phase G to")
+    space, params0, sched, batch_fn, tr = _full_width(torch)
+    cap, d1 = FULL_CAP, ref["d1_events_s"]
+    spec = ShardSpec.for_space(space, G_SHARDS)
+    log(f"  shards: bounds {spec.bounds}, sizes {spec.sizes}, mesh width "
+        f"{ps.mesh_width(spec)}")
+
+    # G1: S coordinator threads, each UP fanned out as S frames
+    final, hist, launches, eps = _cluster_run(
+        torch, "G1", tr, params0, sched, batch_fn,
+        ROOT / "build" / "phase_g1_trace", n_shards=G_SHARDS)
+    log(f"  G1: {eps:.2f} events/s against D1's {d1:.2f} in this run")
+    _same_run(torch, "G1", final, hist, ref["final"], ref["hist"],
+              check_bytes=False)
+    seg = space.ks(0.001)
+    want = tuple(cap * sum(wire.shard_frame_bytes_static(spec, seg, mode))
+                 for mode in ("int8", "none"))
+    if (hist.up_bytes, hist.down_bytes) != want:
+        raise AssertionError(f"G1: bytes {hist.up_bytes, hist.down_bytes} "
+                             f"!= the per-shard static frames {want}")
+    _shard_counters("G1", hist, spec, cap)
+    framed = sum(1 for size in spec.sizes if size)
+    if launches["segment_quantize"] != 2 * framed * cap:
+        raise AssertionError(f"G1: the segmented quantize launched "
+                             f"{launches['segment_quantize']}, expected "
+                             f"{2 * framed * cap} (an UP and a DOWN frame "
+                             f"per shard that is not empty, per event)")
+    log(f"  G1 bit-equal to D1: losses, worker ids, staleness, final params; "
+        f"bytes {want} = {cap} x the per-shard static frames (D1: "
+        f"{ref['hist'].up_bytes, ref['hist'].down_bytes})")
+    del final, hist
+
+    # G2: one mesh coordinator, the S arenas stacked on the card
+    final, hist, launches, eps = _cluster_run(
+        torch, "G2", tr, params0, sched, batch_fn,
+        ROOT / "build" / "phase_g2_trace", mesh_shards=G_SHARDS)
+    log(f"  G2: {eps:.2f} events/s against D1's {d1:.2f} in this run")
+    _same_run(torch, "G2", final, hist, ref["final"], ref["hist"])
+    overflow = hist.metrics["counters"]["route_overflow"]
+    if overflow != 0:
+        raise AssertionError(f"G2: route_overflow {overflow}")
+    _shard_counters("G2", hist, spec, cap)
+    if launches["segment_quantize"] != 2 * cap:
+        raise AssertionError(f"G2: the segmented quantize launched "
+                             f"{launches['segment_quantize']}, expected "
+                             f"{2 * cap}, as D1")
+    log("  G2 bit-equal to D1: losses, worker ids, staleness, final params, "
+        "up and down bytes; route_overflow 0")
+    del final, hist
+    torch.cuda.empty_cache()
+    phase_g3(torch)
+
+
+def phase_g3(torch):
+    """The TCP launcher's coordinator side (``launch.cluster.serve_cluster``
+    here, on the card) at phase B's widths with 4 client processes: a
+    1-shard lockstep run, ``--shards 4`` and ``--mesh-shards 4``, each
+    sharded run bit-equal to the lockstep one (the mesh run's bytes
+    too)."""
+    import os
+
+    from repro_torch import kernels
+    from repro_torch.launch import cluster as launcher
+    from repro_torch.telemetry import Recorder
+
+    args = launcher.parse_args(D4_FLAGS)
+    params0, _, _, _ = launcher.problem(args)
+    saved = dict(os.environ)
+    os.environ.update(_child_env())      # the client processes' PYTHONPATH
+    runs = {}
+    try:
+        for label, tag, kw in (
+                ("G3 1-shard lockstep", "lockstep", dict(lockstep=True)),
+                ("G3 --shards 4", "shards", dict(n_shards=G_SHARDS)),
+                ("G3 --mesh-shards 4", "mesh", dict(mesh_shards=G_SHARDS))):
+            trace_dir = ROOT / "build" / f"phase_g3_{tag}_trace"
+            rec = Recorder(trace_dir)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            final, hist, dt = launcher.serve_cluster(
+                args, params0, spawn_clients=True, recorder=rec, **kw)
+            torch.cuda.synchronize()
+            launches = {info.name: info.launches
+                        for info in kernels.KERNELS}
+            rec.close()
+            n = len(hist.losses)
+            log(f"  {label}: {n} events in {dt:.3f} s, {n / dt:.2f} events/s "
+                f"(client processes' start-up included); up "
+                f"{hist.up_bytes} B, down {hist.down_bytes} B")
+            log(f"  {label}: the coordinators' launches per event "
+                f"{ {k: v / n for k, v in launches.items()} }")
+            log(f"  {label}: peak device memory (coordinator process) "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            _log_spans(label, *_trace_spans(trace_dir), n)
+            runs[label] = (final, hist)
+            del final
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    want_final, want = runs.pop("G3 1-shard lockstep")
+    if len(want.losses) != args.clients * args.rounds \
+            or not np.all(np.isfinite(want.losses)):
+        raise AssertionError(f"G3: the lockstep run served "
+                             f"{len(want.losses)} events")
+    for label, (final, hist) in runs.items():
+        _same_run(torch, label, final, hist, want_final, want,
+                  check_bytes="mesh" in label)
+    log("  G3: --shards 4 bit-equal to the 1-shard lockstep run (losses, "
+        "worker ids, staleness, final params), --mesh-shards 4 too, bytes "
+        "included")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2179,7 +2474,8 @@ def main() -> int:
                       ("e", lambda: phase_e(torch, results, ref)),
                       ("c", lambda: phase_c(torch, results, ref)),
                       ("d", lambda: phase_d(torch, results, ref)),
-                      ("f", lambda: phase_f(torch, results, ref))):
+                      ("f", lambda: phase_f(torch, results, ref)),
+                      ("g", lambda: phase_g(torch, results, ref))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()
         try:

@@ -35,8 +35,17 @@ final model (``cluster/subscribe.py``); their bytes stay out of
 live arena ``theta_0 + M`` (``checkpoint/delta.py``).  Both compute on the
 coordinator's device.
 
-The sharded and mesh coordinators are a later slice of the port and raise
-``NotImplementedError``.
+Sharded parameter servers, two runtimes:
+
+* ``shard_spec``/``shard_id`` -- this coordinator is one of S shard
+  coordinators, each an ordinary coordinator over the contiguous arena
+  range ``shard_spec.bounds[shard_id:shard_id+2]``: its server state,
+  stages, seg tables and wire frames are over THAT sub-arena (a leaf-aligned
+  shard is itself a complete, smaller parameter arena, possibly empty).
+* ``mesh_shards = S`` -- ONE coordinator hosts all S shard arenas stacked
+  (``server.MeshServerState``) and serves them through the mesh stages,
+  which route every message through ``distributed.shard_exchange_batch``;
+  its wire protocol is the single server's, so up/down bytes equal it.
 """
 from __future__ import annotations
 
@@ -57,8 +66,6 @@ from repro_torch.telemetry import metrics as metrics_lib
 from . import subscribe, wire
 from .client import AUTO_SLOT
 from .transport import RecvTimeout
-
-_LATER = "a later slice of the port (ROADMAP queue 1 item 3)"
 
 
 def _stack(leaves):
@@ -89,8 +96,12 @@ class Coordinator:
     # bit-equal to the serial ones, so this is purely a speed knob.
     max_batch: int | None = None
     recorder: Any = None               # telemetry.Recorder (None = no-op)
-    # the reference's sharded and mesh options: a later slice of the port
-    shard_spec: Any = None
+    # the S-thread sharded server: this coordinator owns the arena range
+    # shard_spec.bounds[shard_id:shard_id+2] (a leaf-aligned ShardSpec)
+    shard_spec: Any = None             # paramspace.ShardSpec | None
+    shard_id: int = 0
+    # the mesh server: ONE coordinator hosts all S shard arenas, stacked;
+    # exclusive with shard_spec
     mesh_shards: int = 0
     # serve leg: inference replicas SUBscribe and PULL coalesced
     # re-sparsified model diffs while training runs.  ``push_density``
@@ -108,18 +119,31 @@ class Coordinator:
     ckpt_every: int = 0
 
     def __post_init__(self):
-        for name, off in (("shard_spec", None), ("mesh_shards", 0)):
-            if getattr(self, name) != off:
-                raise NotImplementedError(f"Coordinator({name}=...) is "
-                                          f"{_LATER}")
         if self.recorder is None:
             self.recorder = telemetry.NULL
         self._device = tree_leaves(self.params0)[0].device
-        self.sstate = ps.init(self.params0, self.n_slots)
-        self._batched_server = async_sim.make_batched_server_step(
-            self.secondary_density, self.secondary_spec)
-        self._commit_rows = async_sim.make_batched_commit(
-            self.secondary_density is None)
+        if self.shard_spec is not None:
+            self._params0_local = self.shard_spec.shard_tree(self.params0,
+                                                             self.shard_id)
+        else:
+            self._params0_local = self.params0
+        if self.mesh_shards:
+            if self.shard_spec is not None:
+                raise ValueError("mesh_shards and shard_spec are two "
+                                 "different sharding runtimes: pass one")
+            self.sstate = ps.init_mesh_shards(self.params0, self.n_slots,
+                                              self.mesh_shards)
+            self._batched_server = async_sim.make_mesh_batched_server_step(
+                self.secondary_density, self.secondary_spec)
+            self._commit_rows = async_sim.make_mesh_batched_commit(
+                self.secondary_density is None)
+        else:
+            self.sstate = ps.init(self._params0_local, self.n_slots,
+                                  self._device)
+            self._batched_server = async_sim.make_batched_server_step(
+                self.secondary_density, self.secondary_spec)
+            self._commit_rows = async_sim.make_batched_commit(
+                self.secondary_density is None)
         self._down_mode = self.secondary_spec.quantize
         # arena frame segmentation of the sparse downward message (None =
         # dense downward, framed DENSE/DENSE_COO)
@@ -138,9 +162,16 @@ class Coordinator:
         self.up_bytes = 0
         self.down_bytes = 0
         # flight-recorder accounting: message-kind and per-client counters
-        # and per-event frame sizes, all host-side ints
-        self.counters: dict[str, float] = {
-            "shard/0/arena_elems": self.sstate.space.total}
+        # and per-event frame sizes, all host-side ints.  The shard-balance
+        # rows: how much of the arena this coordinator holds (a mesh
+        # coordinator holds every shard)
+        self.counters: dict[str, float] = {}
+        if self.mesh_shards:
+            for s, sz in enumerate(self.sstate.spec.sizes):
+                self.counters[f"shard/{s}/arena_elems"] = sz
+        else:
+            self.counters[f"shard/{self.shard_id}/arena_elems"] = \
+                self.sstate.space.total
         self._up_sizes: list[int] = []
         self._down_sizes: list[int] = []
         self.batch_sizes: list[int] = []   # events per server pass
@@ -150,14 +181,15 @@ class Coordinator:
             self.sstate.space, push_density=self.push_density,
             push_spec=self.push_spec, device=self._device)
         self._training_over = False
-        self._theta0_arena = self.sstate.space.pack(self.params0)
+        self._theta0_arena = self.sstate.space.pack(
+            self._params0_local).to(self._device)
         self._ckpt = None
         self._ckpt_last = 0
         if self.ckpt_dir is not None:
             from repro_torch.checkpoint import DeltaCheckpointWriter
             self._ckpt = DeltaCheckpointWriter(
                 self.ckpt_dir, self._theta0_arena, version=0,
-                meta={"n_slots": self.n_slots, "shard_id": 0})
+                meta={"n_slots": self.n_slots, "shard_id": self.shard_id})
 
     def _count(self, name: str, n: float = 1):
         self.counters[name] = self.counters.get(name, 0) + n
@@ -263,8 +295,15 @@ class Coordinator:
             self._up_sizes.append(len(payload))
             self._count(f"client/{src}/events")
             self._count(f"client/{src}/up_bytes", len(payload))
-            self._count("shard/0/events")
-            self._count("shard/0/up_bytes", len(payload))
+            # the shard-balance rows; a mesh coordinator serves every
+            # shard's arena with each event, and sends ONE global frame, so
+            # it has no per-shard byte rows
+            if self.mesh_shards:
+                for s in range(self.mesh_shards):
+                    self._count(f"shard/{s}/events")
+            else:
+                self._count(f"shard/{self.shard_id}/events")
+                self._count(f"shard/{self.shard_id}/up_bytes", len(payload))
             e = len(self._losses)
             self._losses.append(float(np.float32(msg.aux)))
             self._served_slots.append(slot)
@@ -301,7 +340,9 @@ class Coordinator:
                 self.down_bytes += len(reply)
                 self._down_sizes.append(len(reply))
                 self._count(f"client/{src}/down_bytes", len(reply))
-                self._count("shard/0/down_bytes", len(reply))
+                if not self.mesh_shards:
+                    self._count(f"shard/{self.shard_id}/down_bytes",
+                                len(reply))
                 self._last_seq[src] = msg.seq
                 self._reply_cache[src] = reply
                 self.transport.send(src, reply)
@@ -324,11 +365,18 @@ class Coordinator:
         self._count("ckpt_deltas")
         self._count("ckpt_bytes", entry["nbytes"])
 
+    def _M_flat(self) -> torch.Tensor:
+        """The global ``(total,)`` M arena: a mesh state's shard rows
+        concatenate back to it bit for bit."""
+        if self.mesh_shards:
+            return ps.mesh_arena(self.sstate)
+        return self.sstate.M
+
     def _live_arena(self) -> torch.Tensor:
         """The served model's arena, ``theta_0 + M``, on the device: the
         same f32 add as ``server.global_model``, so the checkpoint chain
         restores the live model bit for bit."""
-        return self._theta0_arena + self.sstate.M
+        return self._theta0_arena + self._M_flat()
 
     # -- serve leg ---------------------------------------------------------
 
@@ -366,7 +414,7 @@ class Coordinator:
             self._push(src, sid)
         else:  # SYNC: the dense full-M handshake, then the replica leaves
             with self.recorder.span("coord/sync", sub=sid):
-                payload = self.book.sync_payload(src, self.sstate.M,
+                payload = self.book.sync_payload(src, self._M_flat(),
                                                  self.version)
                 self.transport.send(src, payload)
             self._count(f"sub/{sid}/pushes")
@@ -379,7 +427,7 @@ class Coordinator:
         version = self.version
         lag = version - self.book.subs[src].version
         with self.recorder.span("coord/push", sub=sid, lag=lag):
-            payload = self.book.diff_payload(src, self.sstate.M, version,
+            payload = self.book.diff_payload(src, self._M_flat(), version,
                                              self._quiesced())
             self.transport.send(src, payload)
         self._count(f"sub/{sid}/pushes")
@@ -523,7 +571,13 @@ class Coordinator:
             if self._ckpt_last < self.version:
                 self._checkpoint()
             self._ckpt.close()
-        final = ps.global_model(self.params0, self.sstate)
+        # a shard coordinator returns its shard's sub-tree; the runner and
+        # the launcher join the shards' trees back into the full one
+        final = ps.global_model(self._params0_local, self.sstate)
+        if self.mesh_shards:
+            # ONE read to the host, after the run: the entries the route's
+            # capacity dropped (0 with the default cap)
+            self.counters["route_overflow"] = int(self.sstate.overflow)
         staleness = np.asarray(self._staleness, np.int64)
         metrics = {
             "n_events": len(self._losses),
@@ -548,9 +602,14 @@ class Coordinator:
         rec = self.recorder
         if rec.enabled:
             for name, n in self.counters.items():
-                rec.count(name, n)
-            async_sim._record_run_summary(
-                rec, "cluster", hist, None, None,
-                np.asarray(self._up_sizes, np.int64),
-                np.asarray(self._down_sizes, np.int64))
+                # shard coordinators share one recorder and see the same
+                # events: only shard 0 flushes the run-level and per-client
+                # counters, each shard its own shard/{i}/* rows
+                if self.shard_id == 0 or name.startswith("shard/"):
+                    rec.count(name, n)
+            if self.shard_id == 0:
+                async_sim._record_run_summary(
+                    rec, "cluster", hist, None, None,
+                    np.asarray(self._up_sizes, np.int64),
+                    np.asarray(self._down_sizes, np.int64))
         return final, hist

@@ -17,10 +17,18 @@ same hub subscribe, pull re-sparsified model diffs between decode
 boundaries and SYNC to the bit-exact final model.  ``ckpt_dir`` makes the
 coordinator append delta checkpoints of the live arena.
 
-The coordinator, every client and every replica compute on the device of
-``params0``; all their threads share that device's current stream.  The
-sharded and mesh coordinators (``n_shards``, ``mesh_shards``) are a later
-slice of the port and raise ``NotImplementedError``.
+``n_shards > 1`` range-partitions the parameter arena across S coordinator
+shards: each shard runs its OWN copy of the schedule over its own endpoint
+and thread, clients fan every up-frame out by index range and merge the
+per-shard downward diffs; losses and params reproduce the single-shard run
+bit for bit (disjoint-range scatter-adds commute), and the bytes are S
+envelopes per event.  ``mesh_shards = S`` runs the same partition as ONE
+coordinator hosting all S shard arenas (the mesh server): clients see one
+ordinary endpoint, and losses, params AND bytes reproduce the single
+server.  The two are exclusive.
+
+The coordinator(s), every client and every replica compute on the device
+of ``params0``; all their threads share that device's current stream.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import numpy as np
 
 from repro_torch.core import engine as engine_lib
 from repro_torch.core.engine import CompressionSpec
+from repro_torch.core.paramspace import (ParamSpace, ShardSpec, tree_flatten,
+                                         tree_leaves, tree_unflatten)
 
 from . import wire
 from .client import ClusterClient
@@ -37,9 +47,26 @@ from .coordinator import Coordinator
 from .replica import InferenceReplica
 from .scenarios import ClientPlan
 from .transport import (FaultInjector, InProcHub, ScheduleDriven,
-                        VirtualClock)
+                        ShardEndpointView, VirtualClock)
 
-_LATER = "a later slice of the port (ROADMAP queue 1 item 3)"
+
+def join_shards(params0, results):
+    """Stitch S shard coordinators' ``(final, History)`` results into one:
+    shard 0's History carries the event log (every shard served the
+    identical stream), bytes sum across shards, the ``shard/*`` counters
+    merge, and the shards' sub-trees join back into the full parameter
+    tree (shard order == leaf order)."""
+    final, hist = results[0]
+    leaves = [leaf for f, _ in results for leaf in tree_leaves(f)]
+    final = tree_unflatten(tree_flatten(params0)[1], leaves)
+    counters = dict(hist.metrics["counters"])
+    for _, h in results[1:]:
+        counters.update({k: v for k, v in h.metrics["counters"].items()
+                         if k.startswith("shard/")})
+    return final, hist._replace(
+        up_bytes=sum(h.up_bytes for _, h in results),
+        down_bytes=sum(h.down_bytes for _, h in results),
+        metrics={**hist.metrics, "counters": counters})
 
 
 def run_inprocess(
@@ -83,11 +110,32 @@ def run_inprocess(
     """
     if (schedule is None) == (plans is None):
         raise ValueError("pass exactly one of schedule= or plans=")
-    for name, value, off in (("n_shards", n_shards, 1),
-                             ("mesh_shards", mesh_shards, 0)):
-        if value != off:
-            raise NotImplementedError(f"run_inprocess({name}=...) is "
-                                      f"{_LATER}")
+    if mesh_shards and n_shards > 1:
+        raise ValueError(
+            "n_shards and mesh_shards are two different sharding runtimes "
+            "(S coordinator threads vs one mesh server): pass exactly one "
+            "of them")
+    if n_replicas and n_shards > 1:
+        raise NotImplementedError(
+            "the serve leg subscribes to ONE coordinator arena; sharded "
+            "serving needs per-shard subscriptions, a later slice of the "
+            "port")
+    if n_replicas and mesh_shards:
+        raise NotImplementedError(
+            "mesh-sharded serving is a later slice of the port, as in the "
+            "reference: run replicas against an unsharded coordinator")
+    if n_shards > 1:
+        if plans is not None:
+            raise NotImplementedError(
+                "sharded runs are schedule-driven (parity mode); the "
+                "VirtualClock scenario scheduler books per-client costs "
+                "event by event, which S independent shard clocks cannot "
+                "reproduce consistently")
+        if inject_faults:
+            raise NotImplementedError(
+                "fault injection wraps a client's single endpoint; the "
+                "sharded client multiplexes one endpoint across shard "
+                "views: inject faults on single-shard runs")
 
     hub = InProcHub()
     if schedule is not None:
@@ -112,6 +160,8 @@ def run_inprocess(
         virtual_costs = {p.client_id: p.fault_policy(realtime=False)
                          for p in plans}
 
+    shard_spec = (ShardSpec.for_space(ParamSpace.from_tree(params0),
+                                      n_shards) if n_shards > 1 else None)
     coord = Coordinator(
         transport=hub.endpoint(wire.COORDINATOR_ID),
         params0=params0,
@@ -122,12 +172,29 @@ def run_inprocess(
         virtual_costs=virtual_costs,
         recv_timeout=timeout,
         recorder=recorder,
+        shard_spec=shard_spec,
+        mesh_shards=mesh_shards,
         push_density=push_density,
         push_spec=push_spec,
         min_subscribers=n_replicas,
         ckpt_dir=ckpt_dir,
         ckpt_every=ckpt_every,
     )
+    # shards 1..S-1: the same schedule, their own cursor and endpoint;
+    # clients fan each UP out to all of them, so every shard sees the
+    # identical event stream and the ScheduleDriven copies stay in lockstep
+    shard_coords = [Coordinator(
+        transport=hub.endpoint(wire.COORDINATOR_ID - s),
+        params0=params0,
+        n_slots=n_workers,
+        secondary_density=secondary_density,
+        secondary_spec=secondary_spec,
+        scheduler=ScheduleDriven(schedule),
+        recv_timeout=timeout,
+        recorder=recorder,
+        shard_spec=shard_spec,
+        shard_id=s,
+    ) for s in range(1, n_shards)]
 
     clients, threads, errors, injectors = [], [], [], {}
     for p in plans:
@@ -138,7 +205,10 @@ def run_inprocess(
                 droppable=lambda payload: payload[:1] == bytes([wire.UP]))
             injectors[p.client_id] = endpoint
         c = ClusterClient(
-            transport=endpoint,
+            transport=(endpoint if n_shards == 1 else
+                       [ShardEndpointView(endpoint, wire.COORDINATOR_ID - s)
+                        for s in range(n_shards)]),
+            shard_spec=shard_spec,
             strategy=strategy,
             grad_fn=grad_fn,
             params0=params0,
@@ -183,19 +253,38 @@ def run_inprocess(
         threads.append(t)
         t.start()
 
+    shard_results: list = [None] * n_shards
+    coord_errors: list = []
+
+    def _serve_shard(s, c):
+        try:
+            shard_results[s] = c.serve(max_events=max_events)
+        except Exception as exc:
+            coord_errors.append(exc)
+
+    shard_threads = [threading.Thread(target=_serve_shard, args=(s, c),
+                                      daemon=True)
+                     for s, c in enumerate(shard_coords, start=1)]
+    for t in shard_threads:
+        t.start()
     try:
-        final, hist = coord.serve(max_events=max_events)
+        shard_results[0] = coord.serve(max_events=max_events)
     except Exception:
         if errors:   # a dead client explains the coordinator timeout better
             raise errors[0]
+        if coord_errors:
+            raise coord_errors[0]
         raise
-    for t in threads:
+    for t in threads + shard_threads:
         t.join(timeout=timeout)
     if errors:
         raise errors[0]
-    if any(t.is_alive() for t in threads):
-        raise TimeoutError(f"a client or replica thread outlived the "
-                           f"{timeout} s join")
+    if coord_errors:
+        raise coord_errors[0]
+    if any(t.is_alive() for t in threads + shard_threads):
+        raise TimeoutError(f"a client, shard or replica thread outlived "
+                           f"the {timeout} s join")
+    final, hist = join_shards(params0, shard_results)
     # fold the clients' fault accounting into the coordinator's metrics:
     # injected drops (from each FaultInjector) against observed retransmits
     per_client = {c.plan.client_id: {

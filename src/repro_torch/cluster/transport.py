@@ -171,13 +171,29 @@ class InProcEndpoint:
 
 
 class ShardEndpointView:
-    """One client endpoint seen through a single coordinator shard: the
-    sharded coordinators are a later slice of the port."""
+    """One client endpoint seen through a single coordinator SHARD.
+
+    The S-thread sharded parameter server runs ``S`` coordinator shards on
+    distinct addresses; a client keeps ONE inbox but speaks to every shard.
+    This view pins sends addressed to the logical coordinator onto shard
+    ``shard_addr`` and receives selectively from it (the shared inbox
+    stashes other shards' replies), so the client's per-shard exchange
+    reuses the unsharded protocol verbatim.
+    """
 
     def __init__(self, endpoint, shard_addr: int):
-        raise NotImplementedError(
-            "sharded coordinators are a later slice of the port (ROADMAP "
-            "queue 1 item 3)")
+        self.endpoint = endpoint
+        self.shard_addr = shard_addr
+
+    def send(self, dst: int, payload: bytes) -> None:
+        self.endpoint.send(self.shard_addr, payload)
+
+    def recv(self, src: int | None = None, *,
+             timeout: float | None = None) -> tuple[int, bytes]:
+        return self.endpoint.recv(self.shard_addr, timeout=timeout)
+
+    def close(self) -> None:
+        pass   # the shared endpoint outlives its shard views
 
 
 # ---------------------------------------------------------------------------

@@ -203,21 +203,36 @@ def frame_bytes(msgs, *, mode: str = "none", seg=None,
 
 
 def shard_frame_bytes_static(shard_spec, seg, mode: str = "none"):
-    """Per-shard frame bytes of a sharded message: the sharded coordinators
-    are a later slice of the port."""
-    raise NotImplementedError(
-        "sharded wire frames come with the sharded coordinators, a later "
-        "slice of the port (ROADMAP queue 1 item 3)")
+    """Per-shard static wire bytes of one sharded sparse arena message.
+
+    Shard ``s`` ships its own ARENA frame over its ``sizes[s]``-element
+    sub-arena: its slice of the seg table, its tensors' scales, and indices
+    rebased shard-local, so possibly NARROWER (``index_dtype`` derives from
+    the shard's size).  The sum is the sharded run's exact per-event byte
+    cost: each shard pays its own envelope and header.
+    """
+    return tuple(
+        frame_bytes_static(shard_spec.shard_seg(seg, s), size, mode)
+        for s, size in enumerate(shard_spec.sizes))
 
 
 def encode_sharded_message(msg_type: int, sender: int, seq: int, msg, *,
                            shard_spec, mode: str = "none", seg=None,
                            aux: float = 0.0):
-    """Route one arena message as S shard-local frames: the sharded
-    coordinators are a later slice of the port."""
-    raise NotImplementedError(
-        "sharded wire frames come with the sharded coordinators, a later "
-        "slice of the port (ROADMAP queue 1 item 3)")
+    """Route one arena message as ``S`` shard-local frames.
+
+    The message splits by index range (``ShardSpec.split_by_shard``) and
+    each piece encodes as its own complete message (one launch of the
+    segmented quantize and one copy to the host on the card; an empty
+    shard's frame is a header only, with none), so coordinator shard ``s``
+    decodes ONLY its range, with the unsharded frame's per-tensor scales.
+    Returns ``[(payload, shipped_pieces), ...]`` in shard order;
+    ``ShardSpec.merge`` of the shipped pieces is bit-equal to the
+    single-frame ``encode_message`` shipped leaf.
+    """
+    return [encode_message(msg_type, sender, seq, [piece], mode=mode,
+                           seg=sub_seg, aux=aux)
+            for piece, sub_seg in shard_spec.split_by_shard(msg, seg)]
 
 
 # ---------------------------------------------------------------------------

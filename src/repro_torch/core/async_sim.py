@@ -287,15 +287,19 @@ def make_batched_server_step(secondary_density, spec: CompressionSpec):
             Gs.append(G)
             if dense_down:
                 M_rows.append(sstate.M.clone())
-        if dense_down:
-            return sstate, torch.stack(Gs), torch.stack(M_rows)
-        return sstate, SparseLeaf(
-            values=torch.stack([G.values for G in Gs]),
-            indices=torch.stack([G.indices for G in Gs]),
-            size=Gs[0].size), None
+        return (sstate, *_stack_down(Gs, M_rows))
 
     return server_batch
 
+
+def _stack_down(Gs, M_rows):
+    """A batch's downward messages and (dense down) its M prefixes,
+    stacked: ``(G, M_rows)``, ``M_rows`` None for a sparse batch."""
+    if M_rows:
+        return torch.stack(Gs), torch.stack(M_rows)
+    return SparseLeaf(values=torch.stack([G.values for G in Gs]),
+                      indices=torch.stack([G.indices for G in Gs]),
+                      size=Gs[0].size), None
 
 
 def make_batched_commit(dense_down: bool):
@@ -310,6 +314,94 @@ def make_batched_commit(dense_down: bool):
     else:
         def commit(sstate, ids, G):
             return ps.send_commit_rows(sstate, ids, G)
+    return commit
+
+
+# ---------------------------------------------------------------------------
+# The mesh server's batched stages: the same call signatures and outputs as
+# the flat ones above, on a ``server.MeshServerState``.  A batch's messages
+# reach their shards through the route exchange
+# (``distributed.shard_exchange_batch``); the shard scatters are kernel row
+# 2 (``scatter_add_rows``) with one lane per shard row, which drops the
+# ``-1`` of an empty slot, and the reads of ``v`` are per-event views, so no
+# ``(B, S, width)`` copy of it is made.
+# ---------------------------------------------------------------------------
+
+def mesh_batched_server_step_fn(secondary_density, spec: CompressionSpec):
+    """The mesh twin of :func:`make_batched_server_step`: ALL S shard
+    servers in one stage.  A sparse upward batch is routed once; each
+    event then applies one S-lane scatter into the stacked ``(S, width)``
+    M, in place, and selects on the re-concatenated GLOBAL diff through
+    the same ``ParamSpace.select``, so the downward message and its wire
+    bytes are the flat server's.  Returns ``(sstate, G, M_rows)``, with
+    ``M_rows`` the ``(B, S, width)`` mesh prefixes of a dense downward
+    batch, else None."""
+    from repro_torch.kernels import ops
+
+    from . import distributed
+
+    dense_down = secondary_density is None
+    spec_raw = dataclasses.replace(spec, quantize="none")
+
+    def server_batch(sstate, msgs, ids):
+        sspec, M = sstate.spec, sstate.M
+        sparse_up = isinstance(msgs, SparseLeaf)
+        if sparse_up:
+            ri, rv, ovf = distributed.shard_exchange_batch(
+                sspec, msgs.indices, msgs.values)      # (B, S, slots)
+            neg = -rv
+        else:
+            ovf = 0
+        Gs, M_rows = [], []
+        for i, k in enumerate(ids):
+            if sparse_up:
+                ops.scatter_add_rows(M, None, ri[i], neg[i])
+            else:
+                M.sub_(ps.mesh_split(sspec, msgs[i], M.shape[1]))
+            diff = ps.mesh_concat(sspec, M - sstate.v[int(k)])
+            if dense_down:
+                Gs.append(diff)
+                M_rows.append(M.clone())
+            else:
+                Gs.append(sstate.space.select(
+                    diff, sstate.space.ks(secondary_density), spec_raw))
+        sstate = sstate._replace(t=sstate.t + len(ids),
+                                 overflow=sstate.overflow + ovf)
+        return (sstate, *_stack_down(Gs, M_rows))
+
+    return server_batch
+
+
+make_mesh_batched_server_step = mesh_batched_server_step_fn
+
+
+def make_mesh_batched_commit(dense_down: bool):
+    """The mesh twin of :func:`make_batched_commit`, in place.  A sparse
+    commit routes the SHIPPED batch through the same exchange as the
+    receive and lands it in ``v`` with ONE multi-row scatter of ``B * S``
+    lanes on ``v`` viewed as ``(n_workers * S, width)``, lane ``(b, s)`` on
+    row ``ids[b] * S + s``; a dense commit snaps each ``v`` row to its
+    event's ``(S, width)`` mesh prefix ``M_rows``."""
+    from repro_torch.kernels import ops
+
+    from . import distributed
+
+    if dense_down:
+        def commit(sstate, ids, G, M_rows):
+            rows = from_host(np.asarray(ids, np.int64), sstate.v.device)
+            sstate.v.index_copy_(0, rows, M_rows)
+            return sstate, (G != 0.0).sum(dim=1)
+    else:
+        def commit(sstate, ids, G):
+            W, S, width = sstate.v.shape
+            ri, rv, ovf = distributed.shard_exchange_batch(
+                sstate.spec, G.indices, G.values)     # (B, S, slots)
+            rows = (np.asarray(ids, np.int64)[:, None] * S
+                    + np.arange(S)).reshape(-1)
+            ops.scatter_add_rows(sstate.v.view(W * S, width), rows,
+                                 ri.reshape(-1, ri.shape[-1]),
+                                 rv.reshape(-1, rv.shape[-1]))
+            return sstate._replace(overflow=sstate.overflow + ovf)
     return commit
 
 

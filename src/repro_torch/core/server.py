@@ -21,6 +21,13 @@ A worker id is a host int, or (the scan runner, whose CUDA graph replays
 one event for every worker) a one-element int64 tensor on the server's
 device: :func:`send_select` and :func:`send_commit` then index ``v`` on
 the device and read nothing back.
+
+The sharded servers: a shard of the S-thread runtime is a plain
+:class:`ServerState` over the sub-arena a leaf-aligned
+:class:`~.paramspace.ShardSpec` gives it (:func:`init_shards`); the mesh
+server keeps all S shard arenas stacked in ONE :class:`MeshServerState`,
+``M: (S, width)`` and ``v: (n_workers, S, width)``, on the device of
+``params0`` (:func:`init_mesh_shards`).
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from repro_torch.device import from_host
 
 from . import engine as engine_lib
 from .engine import CompressionSpec
-from .paramspace import ParamSpace, tree_leaves
+from .paramspace import ParamSpace, ShardSpec, tree_leaves
 from .sparsify import SparseLeaf
 
 
@@ -45,9 +52,13 @@ class ServerState(NamedTuple):
     space: ParamSpace   # arena descriptor
 
 
-def init(params, n_workers: int) -> ServerState:
+def init(params, n_workers: int, device=None) -> ServerState:
+    """A zero server over ``params``' arena, on ``device`` (None = the
+    device of ``params``; an empty shard's tree has none, so its caller
+    names one)."""
     space = ParamSpace.from_tree(params)
-    device = tree_leaves(params)[0].device
+    if device is None:
+        device = tree_leaves(params)[0].device
     return ServerState(
         M=torch.zeros(space.total, dtype=torch.float32, device=device),
         v=torch.zeros((n_workers, space.total), dtype=torch.float32,
@@ -146,16 +157,18 @@ def send(state: ServerState, worker_id: int, *,
     return send_commit(state, worker_id, G), G
 
 
-def add_worker(state: ServerState) -> tuple[ServerState, int]:
-    """Grow v by one zero row (elastic join); returns the new slot id."""
+def add_worker(state):
+    """Grow v by one zero row (elastic join); returns ``(state, slot id)``.
+    A mesh state's ``v`` grows by one ``(S, width)`` row."""
     new_id = int(state.v.shape[0])
     new_v = torch.cat([state.v, torch.zeros_like(state.v[:1])])
     return state._replace(v=new_v), new_id
 
 
-def reset_worker(state: ServerState, worker_id: int) -> ServerState:
-    """Zero a departed worker's v row, in place, so the slot can serve a
-    new client (which starts from theta_0)."""
+def reset_worker(state, worker_id: int):
+    """Zero a departed worker's v row (a mesh state's ``(S, width)`` row),
+    in place, so the slot can serve a new client (which starts from
+    theta_0)."""
     state.v[worker_id].zero_()
     return state
 
@@ -189,10 +202,14 @@ def apply_to_params(params, G):
     return space.unpack(apply_update(space.pack(params), G))
 
 
-def global_model(params0, state: ServerState):
-    """theta_t = theta_0 + M_t (Eq. 2) -- used by tests and evaluation."""
+def global_model(params0, state):
+    """theta_t = theta_0 + M_t (Eq. 2) -- used by tests and evaluation.
+    Takes the flat :class:`ServerState` or the stacked
+    :class:`MeshServerState` (whose padded M concatenates back to the same
+    global arena bit for bit)."""
     space = state.space
-    return space.unpack(space.pack(params0) + state.M)
+    M = mesh_arena(state) if isinstance(state, MeshServerState) else state.M
+    return space.unpack(space.pack(params0).to(M.device) + M)
 
 
 def message_nnz(G) -> int:
@@ -200,3 +217,120 @@ def message_nnz(G) -> int:
     if isinstance(G, SparseLeaf):
         return int(G.values.shape[0])
     return int(torch.count_nonzero(G))
+
+
+# ---------------------------------------------------------------------------
+# Sharded parameter server.  A shard is a plain ServerState over the
+# sub-arena of the tensors a leaf-aligned ShardSpec assigns to it, so every
+# per-shard stage is the flat server's own; shard index ranges are disjoint,
+# so the shards run independently and reproduce the single server bit for
+# bit (scatter-adds over disjoint ranges commute).
+# ---------------------------------------------------------------------------
+
+def _leaf_aligned(params, n_shards: int, shard_spec: ShardSpec | None,
+                  what: str) -> ShardSpec:
+    if shard_spec is None:
+        shard_spec = ShardSpec.for_space(ParamSpace.from_tree(params),
+                                         n_shards)
+    if shard_spec.leaf_splits is None:
+        raise ValueError(f"the {what} server needs a leaf-aligned "
+                         f"ShardSpec (ShardSpec.for_space)")
+    return shard_spec
+
+
+def shard_params(params, shard_spec: ShardSpec) -> list:
+    """Per-shard sub-trees of a parameter tree (leaf-aligned spec): each
+    flattens to the leaves its shard owns, in arena order."""
+    return [shard_spec.shard_tree(params, s)
+            for s in range(shard_spec.n_shards)]
+
+
+def init_shards(params, n_workers: int, n_shards: int,
+                shard_spec: ShardSpec | None = None,
+                ) -> tuple[ShardSpec, tuple[ServerState, ...]]:
+    """Range-partition the arena into ``n_shards`` independent servers:
+    ``(shard_spec, states)``, ``states[s]`` a :class:`ServerState` over
+    shard ``s``'s index range, on the device of ``params``."""
+    shard_spec = _leaf_aligned(params, n_shards, shard_spec, "sharded")
+    device = tree_leaves(params)[0].device
+    states = tuple(init(part, n_workers, device)
+                   for part in shard_params(params, shard_spec))
+    return shard_spec, states
+
+
+def global_model_shards(params0, states):
+    """theta_t from per-shard states: the shard M slices concatenate (shard
+    order == leaf order) back into the global arena, bit-equal to
+    :func:`global_model` of the single server."""
+    space = ParamSpace.from_tree(params0)
+    M = torch.cat([st.M for st in states if st.space.total])
+    return space.unpack(space.pack(params0) + M)
+
+
+# ---------------------------------------------------------------------------
+# Mesh server.  ALL shard arenas live in one stacked (S, width) /
+# (n_workers, S, width) pair, so one stage runs every shard server at once;
+# global-index messages reach their owner shard through the route exchange
+# (``distributed.shard_exchange_batch``).  Rows are padded to a common width:
+# padding columns hold zeros, are never routed to (local indices are below
+# sizes[s]) and are sliced away by ``mesh_concat``, so ragged and empty
+# shards stay legal and the arithmetic is bit-equal to the flat server.
+# ---------------------------------------------------------------------------
+
+class MeshServerState(NamedTuple):
+    M: torch.Tensor         # (S, width) f32, row s = shard s's arena, padded
+    v: torch.Tensor         # (n_workers, S, width) f32
+    t: int                  # update timestamp
+    overflow: torch.Tensor  # int64 scalar on the device: route-capacity
+                            # drops (0 with the default cap)
+    space: ParamSpace       # the GLOBAL arena descriptor
+    spec: ShardSpec         # the range partition
+
+
+def mesh_width(spec: ShardSpec) -> int:
+    """Common padded row width: ``even_stride`` unless a leaf-aligned
+    shard is bigger (``for_space`` keeps tensors whole)."""
+    return max([ShardSpec.even_stride(spec.total, spec.n_shards),
+                *spec.sizes])
+
+
+def init_mesh_shards(params, n_workers: int, n_shards: int,
+                     shard_spec: ShardSpec | None = None) -> MeshServerState:
+    """The stacked mesh twin of :func:`init_shards`: one state for all
+    shards, on the device of ``params``."""
+    space = ParamSpace.from_tree(params)
+    shard_spec = _leaf_aligned(params, n_shards, shard_spec, "mesh-sharded")
+    if shard_spec.total != space.total:
+        raise ValueError("shard_spec does not cover the parameter arena")
+    device = tree_leaves(params)[0].device
+    w, S = mesh_width(shard_spec), shard_spec.n_shards
+    return MeshServerState(
+        M=torch.zeros((S, w), dtype=torch.float32, device=device),
+        v=torch.zeros((n_workers, S, w), dtype=torch.float32, device=device),
+        t=0, overflow=torch.zeros((), dtype=torch.int64, device=device),
+        space=space, spec=shard_spec)
+
+
+def mesh_split(spec: ShardSpec, x: torch.Tensor,
+               width: int | None = None) -> torch.Tensor:
+    """Cut one global ``(total,)`` arena vector into the padded ``(S,
+    width)`` stack (padding columns zero)."""
+    width = mesh_width(spec) if width is None else width
+    out = x.new_zeros((spec.n_shards, width))
+    for s, (a, b) in enumerate(zip(spec.bounds[:-1], spec.bounds[1:])):
+        out[s, :b - a] = x[a:b]
+    return out
+
+
+def mesh_concat(spec: ShardSpec, xs: torch.Tensor) -> torch.Tensor:
+    """Undo :func:`mesh_split`: each row cut at its true shard size and
+    the rows concatenated (shard order == leaf order) to ``(total,)``."""
+    parts = [xs[s, :sz] for s, sz in enumerate(spec.sizes) if sz]
+    if not parts:
+        return xs.new_zeros((0,))
+    return torch.cat(parts)
+
+
+def mesh_arena(state: MeshServerState) -> torch.Tensor:
+    """The global M arena of a mesh state (checkpoints, serving, eval)."""
+    return mesh_concat(state.spec, state.M)

@@ -28,6 +28,8 @@ def from_host(array, device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(array))
     if torch.device(device).type == "cpu":
         return t
+    if t.numel() == 0:     # an empty shard's frame: nothing to copy
+        return torch.empty(t.shape, dtype=t.dtype, device=device)
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError("from_host under CUDA graph capture: the graph "
                            "would replay the capture's host values")

@@ -121,3 +121,87 @@ def scatter_add_rows(dense2d, rows, idx2d, vals2d):
     device; returns ``dense2d``."""
     return scatter_add_rows_(dense2d, rows, idx2d.contiguous(),
                              vals2d.to(dense2d.dtype).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# shard routing: the placement half of the mesh server's route exchange
+# ---------------------------------------------------------------------------
+
+def route_by_shard(indices, values, *, bounds, n_shards: int, cap: int):
+    """Bucket one global-index sparse message into per-shard slots:
+    :func:`route_by_shard_batch` of one chunk.  Returns ``(local_idx, vals,
+    overflow)`` shaped ``(S, cap)``, ``(S, cap)`` and a scalar."""
+    ri, rv, ovf = route_by_shard_batch(indices[None], values[None],
+                                       bounds=bounds, n_shards=n_shards,
+                                       cap=cap)
+    return ri[0], rv[0], ovf
+
+
+def route_slots(indices, values, *, bounds, n_shards: int, cap: int):
+    """The slot math of :func:`route_by_shard_batch`, in torch library ops:
+    ``(slots, placed, local_idx, overflow)``, ``slots`` the ``(N * k,)``
+    int32 positions of the entries in the flat ``(N * (S*cap + 1),)``
+    buffer, ``placed`` their f32 values (0 for a dropped entry, which goes
+    to its chunk's dump slot), ``local_idx`` the ``(N, S, cap)`` int32
+    shard-local indices and ``overflow`` the int64 count of real entries
+    over ``cap``.
+
+    Ownership is ``searchsorted(bounds, i, right) - 1`` (an empty shard's
+    duplicate bound resolves to the shard that is not empty), padding
+    (``-1``) goes to the virtual shard S and is dropped, and a stable
+    argsort keeps each shard's entries in message order; an entry's slot in
+    its shard is its rank there, found by a batched ``searchsorted`` of each
+    sorted row on itself."""
+    S, cap = int(n_shards), int(cap)
+    n, k = indices.shape
+    device = indices.device
+    bnd = torch.as_tensor(bounds, dtype=torch.int64, device=device)
+    idx = indices.to(torch.int64)
+    owner = torch.where(idx < 0, S,
+                        torch.searchsorted(bnd, idx, right=True) - 1)
+    order = torch.argsort(owner, dim=1, stable=True)
+    o_s = torch.gather(owner, 1, order)
+    i_s = torch.gather(idx, 1, order)
+    v_s = torch.gather(values, 1, order).to(torch.float32)
+    rank = (torch.arange(k, device=device)[None, :]
+            - torch.searchsorted(o_s, o_s))
+    real = o_s < S
+    ok = (rank < cap) & real
+    row_len = S * cap + 1
+    slot = torch.where(ok, o_s * cap + rank, S * cap)
+    slots = (slot + torch.arange(n, device=device)[:, None] * row_len
+             ).reshape(-1)
+    ri = torch.full((n * row_len,), -1, dtype=torch.int32, device=device)
+    ri[slots] = torch.where(ok, i_s - bnd[o_s.clamp(0, S - 1)], -1).to(
+        torch.int32).reshape(-1)
+    ri = ri.view(n, row_len)[:, :-1].reshape(n, S, cap)
+    return (slots.to(torch.int32), torch.where(ok, v_s, 0.0).reshape(-1),
+            ri, (real & (rank >= cap)).sum())
+
+
+def route_by_shard_batch(indices, values, *, bounds, n_shards: int,
+                         cap: int):
+    """Bucket ``(N, k)`` chunks of global-index sparse messages into
+    per-shard slots (:func:`route_slots`), the values placed by ONE flat
+    scatter-add (kernel 1 on a card) into a zeroed ``(N * (S*cap + 1),)``
+    buffer: every chunk's slots are offset by ``chunk * (S*cap + 1)``, one
+    dump slot per chunk.  The values are ADDED into zeros, so a routed
+    ``-0.0`` comes out ``+0.0``, as in the reference, whose placement is
+    its scatter-add too.
+
+    ``indices`` are int32 global arena indices (``-1`` marks padding),
+    ``bounds`` the ``(S+1,)`` ascending ``ShardSpec.bounds``.  Returns
+    ``(local_idx, vals, overflow)``: ``(N, S, cap)`` shard-LOCAL int32
+    indices (``-1`` = empty slot), ``(N, S, cap)`` f32 values (0 in empty
+    slots) and an int64 scalar on the device, the real entries dropped
+    because their shard already held ``cap``.
+    """
+    S, cap = int(n_shards), int(cap)
+    n = indices.shape[0]
+    slots, placed, ri, overflow = route_slots(
+        indices, values, bounds=bounds, n_shards=S, cap=cap)
+    rv = torch.zeros(n * (S * cap + 1), dtype=torch.float32,
+                     device=indices.device)
+    scatter_add(rv, slots, placed)
+    rv = rv.view(n, S * cap + 1)[:, :-1].reshape(n, S, cap)
+    return ri, rv, overflow

@@ -288,23 +288,25 @@ def test_recorder_sees_every_stage(tmp_path):
 
 
 def test_later_slices_raise_not_implemented():
+    """What the sharded runtimes still leave to later slices raises: the
+    route exchange's multi-device leg, and serving replicas from either
+    sharded runtime.  (The sharded coordinators themselves are held to the
+    reference in tests/test_torch_shard_cluster.py.)"""
+    from repro_torch.core import distributed
+    from repro_torch.core.paramspace import ShardSpec
+
     params, pool = _problem()
     _, (tp, tbatch) = _both(params, pool)
     strat = tmake("dgs", density=0.25)
     for kw in (dict(n_shards=2), dict(mesh_shards=2)):
         with pytest.raises(NotImplementedError, match="later slice"):
             run_inprocess(strat, _torch_grad_fn, tp, tbatch,
-                          schedule=[0, 1], **kw)
-    hub = transport.InProcHub()
-    for kw in (dict(shard_spec=object()), dict(mesh_shards=2)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            Coordinator(transport=None, params0=tp, n_slots=1, **kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        transport.ShardEndpointView(hub.endpoint(0), 1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ClusterClient(transport=[None, None], strategy=strat,
-                      grad_fn=_torch_grad_fn, params0=tp, batch_fn=tbatch,
-                      plan=scenarios.ClientPlan(client_id=0))
+                          schedule=[0, 1], n_replicas=1, **kw)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        distributed.shard_exchange_batch(
+            ShardSpec(bounds=(0, 2, 4)),
+            torch.zeros((1, 2), dtype=torch.int32),
+            torch.zeros((1, 2)), use_mesh=True)
 
 
 # ------------------------------------------------------------ TCP

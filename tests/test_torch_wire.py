@@ -254,10 +254,25 @@ def test_empty_arena_frame_is_header_only():
 
 
 def test_sharded_frames_wait_for_their_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        twire.encode_sharded_message(twire.UP, 0, 0, None, shard_spec=None)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        twire.shard_frame_bytes_static(None, (1,))
+    """The sharded frames have come (tests/test_torch_shard.py holds them
+    to the reference): an int8 message over two shards, one of them with
+    narrower indices, matches the reference byte for byte and its static
+    sizes."""
+    from repro.core.paramspace import ShardSpec as JShard
+    from repro_torch.core.paramspace import ShardSpec as TShard
+
+    seg, size = (4, 9, 20), 70000
+    tleaf, jleaf = _leaves(sum(seg), size, seg, "shard")
+    bounds, splits = (0, 60, size), (0, 2, 3)
+    got = twire.encode_sharded_message(
+        twire.UP, 0, 0, tleaf, shard_spec=TShard(bounds, splits),
+        mode="int8", seg=seg)
+    want = jwire.encode_sharded_message(
+        jwire.UP, 0, 0, jleaf, shard_spec=JShard(bounds, splits),
+        mode="int8", seg=seg)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    assert [len(p) for p, _ in got] == list(twire.shard_frame_bytes_static(
+        TShard(bounds, splits), seg, "int8"))
 
 
 # ------------------------------------------------------------ build.py
