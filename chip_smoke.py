@@ -112,7 +112,38 @@ exits nonzero and prints no result line):
   event by kernel, the host span totals and peak memory.  The kernel
   phase holds the flat scatter-add at the route's buffer shape and the
   multi-row one at the mesh's S-lane and B*S-lane shapes, ``-1`` slots
-  and +-0 planted.
+  and +-0 planted.  For H it holds rows 2, 3, 4, 4a and 4b at H1's
+  largest leaf as the exchange cuts it (the embedding's (65,024, 4,096)
+  rows, k_row 205, r = 205, the repair and the union scatter 65,024 lanes
+  in launches of 512, shardedps's receive and downward scatter), and row
+  3 at r = 410 on the MLP leaves' view.
+
+* h -- the data-parallel training path (``launch/steps.build_train_step``
+  over ``core/distributed.exchange``).  H1 trains chatglm3-6b at its
+  published widths (d_model 4,096, 32 heads, 2 KV heads, d_ff 13,696,
+  vocab 65,024, partial rotary, qkv bias, bf16 compute over float32
+  parameters), its depth cut from 28 layers to 2 (940,602,368
+  parameters), on W = 4 lanes of the card (a ``LaneMesh``), batch 16 x seq
+  128, 5 steps each of allgather, shardedps and dense with the blockwise
+  engine: losses and parameters finite, rows 1, 2, 3, 4 and 4a launched
+  by allgather, shardedps's overflow read out; then one step with a
+  bucket for every entry and a dense downward pass, where shardedps must
+  give the allgather update and velocity and M == v (atol 1e-5).  Prints
+  each step's gradients / exchange / update split by CUDA events, tokens/s,
+  peak memory, launches per step and the exchange's static wire bytes per
+  worker and step.  H2 holds the reduced chatglm3 (float32 compute, 5
+  allgather steps) on the card against the CPU: with the exact engine end
+  to end, losses rtol 1e-4, parameters atol 1e-5 but at counted support
+  swaps, each of which must lie within 1e-5 (relative) of its row's
+  selection boundary; with the blockwise engine, the card's exchange fed
+  the CPU's gradients must give the CPU's parameters and velocities bit
+  for bit.  H3 runs
+  two processes on the card as a ``ProcessMesh`` over gloo (staged
+  operands), 3 steps of H1's model at 1 layer: both ranks' parameters
+  bit-equal to each other's and to a ``LaneMesh(2)`` run, and the route of
+  16 phase B messages over the ranks (``use_mesh=True``) bit-equal to the
+  one-card leg.  H4 runs ``python -m repro_torch.launch.train --steps 5``
+  and needs exit code 0.
 
 The last two lines are the kernel table and the result, each one JSON object.
 """
@@ -322,6 +353,7 @@ def kernel_phase(torch, timer, rate, results):
     samomentum_kernels(torch, timer, rate, results, compare, errs)
     scatter_rows_kernel(torch, timer, rate, results, compare, errs)
     shard_kernels(torch, timer, rate, results, compare)
+    h_kernels(torch, timer, rate, results, compare)
 
     # the row-wise calls of the block top-k at the batched worker step's
     # shapes: 16 rows of the 4,718,592-element leaf, k = 4,719, r = 1024
@@ -838,6 +870,145 @@ def scatter_rows_kernel(torch, timer, rate, results, compare, errs):
         name=sa.ROWS_INFO.name, route="cuda", source=sa.ROWS_INFO.source,
         replaces=sa.ROWS_INFO.replaces, max_abs_err=errs["scatter_add_rows"],
         bound_by="bytes", **t))
+
+
+def h_kernels(torch, timer, rate, results, compare):
+    """Rows 2, 3, 4, 4a and 4b at phase H1's shapes, bit for bit against
+    their plain versions (every NaN as one where the kernel computes).
+    H1's largest leaf as the exchange cuts it (chatglm3-6b's embedding:
+    (65,024, 4,096) rows, k_row 205) through one worker's blockwise step:
+    the accumulate (4a), the block top-r (3: r = 205 over the 520,192
+    blocks of the rows padded to whole groups of 8 blocks, as the
+    selection launches it, adversarial blocks planted in its first rows),
+    the fused pass at each row's threshold (4), the repair's
+    scatter-add (2: 65,024 lanes, 127 launches of 512) and its fma (4b).
+    Then row 2 at the exchange's other launches on that leaf: allgather's
+    union (W * k_row entries a row, a worker's indices repeated so that
+    duplicates add in update order), shardedps's receive into the W lanes'
+    M shards (W * 65,024 lanes of shard_rest, W * cap slots, a third of
+    them -1, +-0 values) and its downward scatter (W * k2 a row); and row 3
+    at r = 410 on the MLP leaves' (13,696, 8,192) view.  Timed at the
+    embedding: rows 3, 4, 4a, 4b and the repair."""
+    from repro_torch.core.distributed import leaf_cut
+    from repro_torch.core.engine import BlockwiseEngine
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.kernels import block_topk as bt
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import samomentum_kernel as sk
+    from repro_torch.kernels import scatter_apply as sa
+    from repro_torch.launch.sharding import shard_axis_hints
+    from repro_torch.models.model import abstract_params
+
+    cfg = _h_cfg(H_LAYERS)
+    ab = abstract_params(cfg)
+    cuts = {}
+    for p, ax in zip(tree_leaves(ab), shard_axis_hints(cfg, ab, 1)):
+        for mode in ("allgather", "shardedps"):
+            cuts.setdefault(mode, []).append(
+                (p.numel(), leaf_cut(p.shape, ax, _h_exchange(mode), H_W)))
+    c = max(cuts["allgather"], key=lambda x: x[0])[1]
+    cs = max(cuts["shardedps"], key=lambda x: x[0])[1]
+    S, rest, k_row, W = c.S, c.rest, c.k_row, H_W
+    eng = BlockwiseEngine()
+    r = eng._plan(rest, k_row)
+    m, lr = H_MOMENTUM, H_LR
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def check(name, got, want):
+        compare(name, got, want, nan_as_one=True)
+
+    tag = f"H1 leaf ({S}, {rest})"
+    u, g = randn(S, rest) * 0.01, randn(S, rest)
+    uacc = sk.velocity_accumulate(u, g, momentum=m, lr=lr)
+    check(f"samomentum_accumulate/{tag}", (uacc,),
+          (sk.velocity_accumulate_plain(u, g, momentum=m, lr=lr),))
+    plant_blocks(torch, gen, uacc.view(-1, bt.BLOCK))
+    # the launch the selection makes: each row zero-padded to whole groups
+    # of GROUP blocks
+    blocks = torch.nn.functional.pad(
+        uacc, (0, (-rest) % (bt.BLOCK * bt.GROUP))).view(-1, bt.BLOCK)
+    check(f"block_topk/{tag}, {blocks.shape[0]} blocks, r={r}",
+          bt.block_topk_2d(blocks, r=r), bt.block_topk_plain(blocks, r))
+    vals, idx = eng.select_rows(uacc, k_row)
+    thr = vals.abs().amin(dim=1)
+    sent, u_new = ops.samomentum_fused_rows(uacc, uacc, thr, momentum=m,
+                                            lr=1.0 - m)
+    check(f"samomentum_fused/{tag}, k_row={k_row}", (sent, u_new),
+          sk.samomentum_plain(uacc, uacc, thr[:, None], momentum=m,
+                              lr=1.0 - m))
+    extra = sa.scatter_add_rows_(sent.clone(), None, idx, -vals)
+    check(f"scatter_add_rows/{tag}, the repair ({S} lanes of {k_row})",
+          (extra,), (sa.scatter_add_rows_plain(sent.clone(), None, idx,
+                                               -vals),))
+    check(f"fma/{tag}, the repair epilogue",
+          (sk.fused_multiply_add(extra, 1.0 / m - 1.0, u_new),),
+          (sk.fused_multiply_add_plain(extra, 1.0 / m - 1.0, u_new),))
+    t = dict(
+        ms=timer(lambda: bt.block_topk_2d(blocks, r=r), reps=5),
+        bound_ms=(4 * blocks.numel() + 8 * blocks.shape[0] * r) / rate * 1e3)
+    next(x for x in results if x["name"] == bt.INFO.name).update(
+        {f"h1_{key}": val for key, val in t.items()})
+    times = {
+        sk.INFO.name: (lambda: ops.samomentum_fused_rows(
+            uacc, uacc, thr, momentum=m, lr=1.0 - m), 12 * uacc.numel()),
+        sk.ACC_INFO.name: (lambda: sk.velocity_accumulate(
+            u, g, momentum=m, lr=lr), 12 * uacc.numel()),
+        sk.FMA_INFO.name: (lambda: sk.fused_multiply_add(
+            extra, 1.0 / m - 1.0, u_new), 12 * uacc.numel()),
+        sa.ROWS_INFO.name: (lambda: sa.scatter_add_rows_(
+            extra, None, idx, vals), 16 * idx.numel())}
+    for name, (fn, nbytes) in times.items():
+        row = next(x for x in results if x["name"] == name)
+        row.update(h1_ms=timer(fn, reps=5), h1_bound_ms=nbytes / rate * 1e3)
+        log(f"  {name} at the {tag}: {row['h1_ms']:.4f} ms, bound "
+            f"{row['h1_bound_ms']:.4f} ms")
+    log(f"  block_topk at the {tag}, r={r}: {t['ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms")
+    del u, g, uacc, blocks, sent, u_new, extra, vals
+
+    # row 2 at the exchange's other launches on the leaf
+    gi = torch.cat([idx, idx.roll(1, 0), idx.flip(0), idx], dim=1)
+    gv = randn(*gi.shape)
+    gv[:, ::13] = -0.0
+    dense = torch.zeros(S, rest, device="cuda")
+    check(f"scatter_add_rows/{tag}, the allgather union ({W} x {k_row} a "
+          f"row)", (sa.scatter_add_rows_(dense.clone(), None, gi, gv),),
+          (sa.scatter_add_rows_plain(dense.clone(), None, gi, gv),))
+    del gi, gv, dense, idx
+    sr, cap, k2 = cs.shard_rest, cs.cap, cs.k2
+    M = randn(W * S, sr)
+    ri = torch.randint(0, sr, (W * S, W * cap), generator=gen,
+                       device="cuda", dtype=torch.int32)
+    ri[:, ::3] = -1
+    rv = randn(W * S, W * cap)
+    rv[:, 1::7] = -0.0
+    M[:, ::11] = -0.0
+    check(f"scatter_add_rows/{tag}, the shardedps receive ({W * S} lanes "
+          f"of {sr}, {W * cap} slots)",
+          (sa.scatter_add_rows_(M.clone(), None, ri, rv),),
+          (sa.scatter_add_rows_plain(M.clone(), None, ri, rv),))
+    del M, ri, rv
+    di = torch.randint(0, W * sr, (S, W * k2), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    dv = randn(S, W * k2)
+    dense = torch.zeros(S, W * sr, device="cuda")
+    check(f"scatter_add_rows/{tag}, the shardedps downward ({W} x {k2} a "
+          f"row)", (sa.scatter_add_rows_(dense.clone(), None, di, dv),),
+          (sa.scatter_add_rows_plain(dense.clone(), None, di, dv),))
+    del di, dv, dense
+    # row 3 at the MLP leaves' view
+    c2 = max((x for _, x in cuts["allgather"] if x.S < S),
+             key=lambda x: x.S * x.rest)
+    r2 = eng._plan(c2.rest, c2.k_row)
+    x = randn(c2.S * c2.rest // bt.BLOCK, bt.BLOCK)
+    plant_blocks(torch, gen, x)
+    check(f"block_topk/H1 leaf ({c2.S}, {c2.rest}), r={r2}",
+          bt.block_topk_2d(x, r=r2), bt.block_topk_plain(x, r2))
+    del x
+    torch.cuda.empty_cache()
 
 
 G_SHARDS = 4        # phase G's shards: 4 of phase B's arena, one empty
@@ -2435,6 +2606,550 @@ def phase_g3(torch):
         "included")
 
 
+# ---------------------------------------------------------------------------
+# phase H: the data-parallel training path, the mesh exchanges
+# ---------------------------------------------------------------------------
+
+H_W = 4                     # workers: lanes of the card
+H_BATCH, H_SEQ, H_STEPS = 16, 128, 5
+H_LR, H_MOMENTUM, H_DENSITY = 0.05, 0.9, 0.05
+H_LAYERS = 2                # of chatglm3-6b's 28; H3 at 1
+# the kernel rows the allgather-blockwise exchange must launch: rows 1, 2,
+# 3, 4 and 4a
+H_ROWS = ("scatter_add", "scatter_add_rows", "block_topk",
+          "samomentum_fused", "samomentum_accumulate")
+
+
+def _h_cfg(n_layers: int):
+    """chatglm3-6b at its published widths, ``n_layers`` deep."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("chatglm3-6b"), n_layers=n_layers)
+
+
+def _h_exchange(mode: str, **kw):
+    from repro_torch.core.distributed import ExchangeConfig
+
+    return ExchangeConfig(mode=mode, density=H_DENSITY, momentum=H_MOMENTUM,
+                          engine="blockwise", **kw)
+
+
+def _wire_bytes(step, params) -> int:
+    """The bytes one worker receives per step on a wire, from the static
+    k's of the exchange's own cut (``distributed.leaf_cut``): allgather
+    W * k * 8 (a float32 value and an int32 index an entry, k_row * S for a
+    leaf of S rows), shardedps S * (W * cap + W * k2) * 8, dense 4 * P."""
+    from repro_torch.core.distributed import leaf_cut
+    from repro_torch.core.paramspace import tree_leaves
+
+    ex, W, total = step.ex_cfg, step.mesh.size, 0
+    for p, ax in zip(tree_leaves(params), step.hints):
+        if ex.mode == "dense":
+            total += 4 * p.numel()
+            continue
+        c = leaf_cut(p.shape, ax, ex, W)
+        total += (W * c.S * c.k_row * 8 if ex.mode == "allgather"
+                  else c.S * (W * c.cap + W * c.k2) * 8)
+    return total
+
+
+def _h_run(torch, label, cfg, mesh, ex_cfg, stream, steps, card):
+    """``steps`` train steps from the seed-0 parameters, each split into
+    gradients, exchange and update by CUDA events.  Returns (params,
+    state, losses, launches, step)."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import init_params
+
+    step = build_train_step(cfg, mesh, ex_cfg, lr=H_LR, remat=False)
+    params = init_params(cfg, seed=0, device=mesh.device)
+    state = step.init_state(params)
+    batches = [stream.batch(i) for i in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, split, walls = [], [], []
+    for i in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        grads, lane_losses = step.grads(params, batches[i])
+        ev[1].record()
+        updates, state = step.exchange(state, grads)
+        ev[2].record()
+        del grads
+        step.apply(params, updates)
+        ev[3].record()
+        del updates
+        loss = float(mesh.mean(lane_losses))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+        losses.append(loss)
+    launches = {info.name: info.launches for info in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = stream.batch_size * stream.seq_len
+    steady = statistics.median(walls[1:]) if steps > 1 else walls[0]
+    log(f"  {label} [{card}]: losses {[round(x, 5) for x in losses]}")
+    for i, ((g, x, u), w) in enumerate(zip(split, walls)):
+        log(f"  {label} step {i}: gradients {g:.2f} ms, exchange {x:.2f} ms, "
+            f"update {u:.2f} ms (CUDA events); wall {w * 1e3:.2f} ms")
+    log(f"  {label}: {tokens / steady:.1f} tokens/s (median step of 1-"
+        f"{steps - 1}, {steady * 1e3:.2f} ms), {steps * tokens / sum(walls):.1f}"
+        f" tokens/s all in; peak device memory {peak / 2**30:.2f} GiB "
+        f"[{card}]")
+    log(f"  {label}: launches per step "
+        f"{ {k: v / steps for k, v in launches.items()} }")
+    log(f"  {label}: wire bytes per worker and step "
+        f"{_wire_bytes(step, params)} (static k's)")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    from repro_torch.core.paramspace import tree_leaves
+    for p in tree_leaves(params):
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{label}: non-finite parameter")
+    if isinstance(state.overflow, torch.Tensor):
+        log(f"  {label}: overflow per lane {state.overflow.tolist()} over "
+            f"{steps} steps (bucket_factor {step.ex_cfg.bucket_factor})")
+    _h_profile(torch, label, step, params, state, stream.batch(steps))
+    return params, state, losses, launches, step
+
+
+def _h_profile(torch, label, step, params, state, batch):
+    """One more step under the profiler (after the launches were read):
+    the device's busy time and share of the step, and its costliest
+    device rows (kernels, copies, fills)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(a.self_device_time_total, a.count, a.key)
+            for a in prof.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CUDA
+            and a.self_device_time_total > 0]
+    busy_us = sum(t for t, _, _ in rows)
+    if busy_us == 0:
+        log(f"  {label} profiler: no device time recorded (busy share not "
+            f"measured)")
+        return
+    log(f"  {label} profiler, one step: device busy {busy_us / 1e3:.2f} ms "
+        f"of {wall * 1e3:.2f} ms wall ({busy_us / 1e6 / wall:.3f} busy "
+        f"share), {sum(c for _, c, _ in rows)} device kernels and copies")
+    for t, c, key in sorted(rows, reverse=True)[:8]:
+        log(f"    {t / 1e3:8.2f} ms  x{c:<5d} {key[:80]}")
+
+
+def phase_h(torch, results, card):
+    """The data-parallel training path: H1 chatglm3-6b at full width (2 of
+    its 28 layers) on 4 lanes of the card in all three modes, and the
+    shardedps identity; H2 the card against the CPU; H3 one worker per
+    process (two on the card, gloo) against the lanes, and the route over
+    ranks; H4 the launcher."""
+    phase_h1(torch, results, card)
+    torch.cuda.empty_cache()
+    phase_h2(torch)
+    torch.cuda.empty_cache()
+    phase_h3(torch)
+    torch.cuda.empty_cache()
+    _run_launcher("H4", "repro_torch.launch.train", ["--steps", "5"],
+                  _child_env())
+
+
+def phase_h1(torch, results, card):
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.models.model import abstract_params
+
+    cfg = _h_cfg(H_LAYERS)
+    mesh = LaneMesh(H_W, "cuda")
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
+                         batch_size=H_BATCH, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(abstract_params(cfg)))
+    log(f"  H1: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.n_layers} layers: {n_params} parameters; "
+        f"W = {H_W} lanes, batch {H_BATCH} x seq {H_SEQ}")
+    for mode in ("allgather", "shardedps", "dense"):
+        label = f"H1 {mode}"
+        params, state, _, launches, _ = _h_run(
+            torch, label, cfg, mesh, _h_exchange(mode), stream, H_STEPS,
+            card)
+        for row in results:
+            row[f"launches_h_{mode}"] = launches[row["name"]]
+        if mode == "allgather":
+            idle = [k for k in H_ROWS if launches[k] == 0]
+            if idle:
+                raise AssertionError(f"{label}: rows {idle} never launched: "
+                                     f"{launches}")
+        del params, state
+        torch.cuda.empty_cache()
+    h1_identity(torch, cfg, mesh, stream)
+
+
+def h1_identity(torch, cfg, mesh, stream):
+    """One step at full width: with a bucket for every entry and a dense
+    downward pass, shardedps gives the allgather update and velocity and
+    M == v on every shard (atol 1e-5).  The allgather results wait on the
+    host while shardedps runs."""
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import init_params
+
+    params = init_params(cfg, seed=0, device="cuda")
+    ag = build_train_step(cfg, mesh, _h_exchange("allgather"), lr=H_LR,
+                          remat=False)
+    grads, _ = ag.grads(params, stream.batch(0))
+    st = ag.init_state(params)
+    upd, st = ag.exchange(st, grads)
+    want_u = [x.cpu() for x in tree_leaves(upd)]
+    want_v = [x.cpu() for x in tree_leaves(st.velocity)]
+    del upd, st
+    torch.cuda.empty_cache()
+    sp = build_train_step(cfg, mesh, _h_exchange(
+        "shardedps", bucket_factor=float(H_W), secondary_density=1.0),
+        lr=H_LR, remat=False)
+    st = sp.init_state(params)
+    upd, st = sp.exchange(st, grads)
+    del grads
+    worst = [0.0, 0.0, 0.0]
+    for i, (u, v) in enumerate(zip(tree_leaves(upd), tree_leaves(st.velocity))):
+        worst[0] = max(worst[0], float((u - want_u[i].cuda()).abs().max()))
+        worst[1] = max(worst[1], float((v - want_v[i].cuda()).abs().max()))
+    for m, v in zip(tree_leaves(st.m_shard), tree_leaves(st.v_shard)):
+        worst[2] = max(worst[2], float((m - v).abs().max()))
+    log(f"  H1 identity: shardedps (bucket_factor {H_W}, secondary 1.0) vs "
+        f"allgather, max |diff|: update {worst[0]:.3g}, velocity "
+        f"{worst[1]:.3g}, M - v {worst[2]:.3g}; overflow "
+        f"{st.overflow.tolist()}")
+    if max(worst) > 1e-5 or int(st.overflow.sum()) != 0:
+        raise AssertionError(f"H1 identity fails: {worst}")
+
+
+H_TIE = 1e-5     # how near a support swap lies to its row's boundary
+
+
+def _tie_gaps(torch, step, velocity, grads):
+    """Per leaf, each coordinate's distance from its row's selection
+    boundary on its closest lane, relative to the row's k-th magnitude:
+    with ``a`` the coordinate's ``|m * u + lr * g|`` and ``t_k >= t_k1``
+    the row's k_row-th and (k_row + 1)-th such magnitudes, 0 where ``t_k1
+    <= a <= t_k`` and otherwise how far ``a`` lies outside, over ``t_k``
+    (inf where the row selects every coordinate).  A coordinate that two
+    runs select differently although their accumulations differ by
+    rounding alone lies within that rounding of the boundary."""
+    from repro_torch.core.distributed import leaf_cut
+    from repro_torch.core.engine import velocity_accumulate
+    from repro_torch.core.paramspace import tree_leaves
+
+    out = []
+    for u, g, ax in zip(tree_leaves(velocity), tree_leaves(grads),
+                        step.hints):
+        shape = tuple(u.shape[1:])
+        c = leaf_cut(shape, ax, step.ex_cfg, step.mesh.size)
+        moved = shape if c.ax is None else \
+            (shape[c.ax],) + shape[:c.ax] + shape[c.ax + 1:]
+        gap = torch.full((c.S, c.rest), float("inf"), device=u.device)
+        for lane in range(u.shape[0] if c.k_row < c.rest else 0):
+            a = velocity_accumulate(u[lane], g[lane],
+                                    momentum=step.ex_cfg.momentum,
+                                    lr=step.lr).abs()
+            a = a.reshape(c.S, c.rest) if c.ax is None else \
+                a.movedim(c.ax, 0).reshape(c.S, c.rest)
+            top = a.topk(c.k_row + 1, dim=1).values
+            tk, tk1 = top[:, c.k_row - 1:c.k_row], top[:, c.k_row:]
+            gap = torch.minimum(gap, torch.maximum(tk - a, a - tk1).clamp(
+                min=0) / torch.where(tk > 0, tk, 1.0))
+        gap = gap.reshape(moved)
+        out.append((gap if c.ax is None else gap.movedim(0, c.ax))
+                   .cpu().numpy())
+    return out
+
+
+def _h2_setup(torch):
+    """H2's problem: the reduced chatglm3 with float32 compute, its seed-0
+    parameters and H_STEPS batches as numpy."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.paramspace import tree_flatten
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models.model import init_params
+
+    cfg = dataclasses.replace(get_arch("chatglm3-6b").reduced(),
+                              compute_dtype="float32")
+    leaves, paths = tree_flatten(init_params(cfg, seed=0, device="cpu"))
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
+                         batch_size=H_BATCH, seed=0, device="cpu")
+    batches = [stream.batch(i)["tokens"].numpy() for i in range(H_STEPS)]
+    return cfg, paths, [x.numpy() for x in leaves], batches
+
+
+def _h2_params(torch, paths, leaves_np, dev):
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.paramspace import tree_unflatten
+
+    return params_from_numpy(tree_unflatten(paths, list(leaves_np)), dev)
+
+
+def phase_h2(torch):
+    """The reduced chatglm3 with float32 compute on 4 lanes, the card
+    against the CPU from the same numpy weights and batches.
+
+    H2a, the exact engine end to end: 5 allgather steps on each device,
+    losses to rtol 1e-4, parameters to atol 1e-5 but at support swaps.  A
+    coordinate outside the atol must be one: a step of one run moved it and
+    the same step of the other did not, and at that step it lay within
+    ``H_TIE`` (relative) of its row's selection boundary on the CPU's side
+    (the card's accumulation differs by rounding alone), at most one
+    coordinate in 10,000.
+
+    H2b, the blockwise exchange (rows 1-4, 4a, 4b) against the CPU's plain
+    versions: 5 allgather steps on the CPU, and on the card the exchange
+    and update alone, fed the CPU's gradients each step.  Parameters and
+    velocities must be equal bit for bit."""
+    from repro_torch.core.distributed import ExchangeConfig
+    from repro_torch.core.paramspace import tree_flatten, tree_unflatten
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.launch.steps import build_train_step
+
+    cfg, paths, leaves_np, batches = _h2_setup(torch)
+
+    def flat(tree):
+        return [x.cpu().numpy().copy() for x in tree_flatten(tree)[0]]
+
+    ex_cfg = ExchangeConfig(mode="allgather", density=H_DENSITY,
+                            momentum=H_MOMENTUM, engine="exact")
+    out, tie = {}, None
+    for dev in ("cuda", "cpu"):
+        step = build_train_step(cfg, LaneMesh(H_W, dev), ex_cfg, lr=H_LR,
+                                remat=False)
+        params = _h2_params(torch, paths, leaves_np, dev)
+        state = step.init_state(params)
+        losses, runs, gaps = [], [flat(params)], []
+        t0 = time.perf_counter()
+        for b in batches:
+            batch = {"tokens": torch.from_numpy(b).to(dev)}
+            if dev == "cpu":    # the gradients the step computes
+                gaps.append(_tie_gaps(torch, step, state.velocity,
+                                      step.grads(params, batch)[0]))
+            params, state, loss = step(params, state, batch)
+            losses.append(float(loss))
+            runs.append(flat(params))
+        log(f"  H2a {dev}: losses {[round(x, 6) for x in losses]} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        out[dev] = (losses, runs)
+    (lg, rg), (lc, rc) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    excused = total = swaps = 0
+    worst_in = worst_tie = 0.0
+    for j, path in enumerate(paths):
+        swapped = np.zeros(rg[0][j].shape, bool)
+        tie = np.full(rg[0][j].shape, np.inf)
+        for i in range(H_STEPS):
+            new = (((rg[i][j] != rg[i + 1][j]) ^ (rc[i][j] != rc[i + 1][j]))
+                   & ~swapped)
+            tie[new] = gaps[i][j][new]
+            swapped |= new
+        diff = np.abs(rg[-1][j] - rc[-1][j])
+        bad = diff > 1e-5
+        if not swapped[bad].all() or not (tie[bad] <= H_TIE).all():
+            raise AssertionError(
+                f"H2a: {'/'.join(path)}: {int(bad.sum())} parameters "
+                f"outside atol 1e-5 (max {float(diff.max())}), of which "
+                f"{int((~swapped[bad]).sum())} moved by both runs; their "
+                f"distances from the boundary {tie[bad].tolist()[:8]}")
+        excused += int(bad.sum())
+        swaps += int(swapped.sum())
+        total += diff.size
+        worst_in = max(worst_in, float(diff[~bad].max(initial=0.0)))
+        worst_tie = max(worst_tie, float(tie[bad].max(initial=0.0)))
+    log(f"  H2a: card and CPU agree: losses rtol 1e-4; parameters max |diff| "
+        f"{worst_in:.3g} but at {excused} support swaps of {total} "
+        f"parameters (each within {worst_tie:.3g} of its row's boundary; "
+        f"{swaps} coordinates moved by one run only, the rest within the "
+        f"atol)")
+    if excused > total // 10_000:
+        raise AssertionError(f"H2a: {excused} support swaps")
+
+    # H2b: the blockwise exchange on the card fed the CPU's gradients
+    ex_cfg = ExchangeConfig(mode="allgather", density=H_DENSITY,
+                            momentum=H_MOMENTUM, engine="blockwise")
+    steps = {dev: build_train_step(cfg, LaneMesh(H_W, dev), ex_cfg,
+                                   lr=H_LR, remat=False)
+             for dev in ("cuda", "cpu")}
+    params = {dev: _h2_params(torch, paths, leaves_np, dev)
+              for dev in steps}
+    state = {dev: steps[dev].init_state(params[dev]) for dev in steps}
+    for b in batches:
+        grads, _ = steps["cpu"].grads(params["cpu"],
+                                      {"tokens": torch.from_numpy(b)})
+        g_leaves, g_paths = tree_flatten(grads)
+        for dev, step in steps.items():
+            g = tree_unflatten(g_paths, [x.to(dev) for x in g_leaves])
+            updates, state[dev] = step.exchange(state[dev], g)
+            step.apply(params[dev], updates)
+    for label, a, c in (
+            ("parameters", flat(params["cuda"]), flat(params["cpu"])),
+            ("velocities", flat(state["cuda"].velocity),
+             flat(state["cpu"].velocity))):
+        bad = [("/".join(p), int((x.view(np.int32) != y.view(np.int32))
+                                 .sum()))
+               for p, x, y in zip(paths, a, c)
+               if not np.array_equal(x.view(np.int32), y.view(np.int32))]
+        if bad:
+            raise AssertionError(f"H2b: {label} differ: {bad}")
+    log(f"  H2b: the blockwise exchange on the card fed the CPU's gradients: "
+        f"parameters and velocities bit-equal to the CPU's after {H_STEPS} "
+        f"steps")
+
+
+def _digests(torch, tensors) -> list:
+    """SHA-256 of each tensor's bytes (bit equality without a copy of the
+    other side's tensors)."""
+    import hashlib
+
+    return [hashlib.sha256(t.detach().contiguous().view(-1)
+                           .view(torch.uint8).cpu().numpy()).hexdigest()
+            for t in tensors]
+
+
+def _h3_route_problem():
+    """16 messages of phase B's size (k = 10,514 global indices into its
+    10,512,650-element arena, -0 planted) and the arena's 2-shard spec."""
+    import torch
+
+    from repro_torch.core.paramspace import ShardSpec
+
+    space = full_width_space(torch)
+    rng = np.random.default_rng(23)
+    k = sum(space.ks(0.001))
+    idx = np.stack([rng.permutation(space.total)[:k] for _ in range(G_BATCH)]
+                   ).astype(np.int32)
+    vals = rng.normal(size=(G_BATCH, k)).astype(np.float32)
+    vals[:, ::9] = -0.0
+    return (ShardSpec.for_space(space, 2), torch.from_numpy(idx).cuda(),
+            torch.from_numpy(vals).cuda())
+
+
+def _h3_train(torch, mesh, steps):
+    """H3's problem on ``mesh``: chatglm3-6b at full width, 1 layer,
+    allgather-blockwise.  Returns (losses, parameter digests)."""
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import init_params
+
+    cfg = _h_cfg(1)
+    step = build_train_step(cfg, mesh, _h_exchange("allgather"), lr=H_LR,
+                            remat=False)
+    params = init_params(cfg, seed=0, device="cuda")
+    state = step.init_state(params)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
+                         batch_size=4 * mesh.size, seed=0, device="cuda")
+    losses = []
+    for i in range(steps):
+        params, state, loss = step(params, state, stream.batch(i))
+        losses.append(float(loss))
+    return losses, _digests(torch, tree_leaves(params))
+
+
+def h3_rank(rank: int, world: int, init_method: str, out: str) -> None:
+    """One rank of H3 (run by ``phase_h3`` in a process of its own): the
+    training problem and the route over a ProcessMesh; writes JSON."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import distributed
+    from repro_torch.launch.mesh import init_process_mesh
+
+    mesh = init_process_mesh(rank, world, init_method, "cuda")
+    t0 = time.perf_counter()
+    losses, digests = _h3_train(torch, mesh, 3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    spec, idx, vals = _h3_route_problem()
+    ri, rv, ovf = distributed.shard_exchange_batch(spec, idx, vals,
+                                                   use_mesh=True, mesh=mesh)
+    Path(out).write_text(json.dumps(dict(
+        losses=losses, digests=digests, seconds=dt, peak=peak,
+        staged=mesh.staged, route=_digests(torch, [ri, rv]),
+        overflow=int(ovf))))
+    torch.distributed.destroy_process_group()
+
+
+def phase_h3(torch):
+    """Two processes on the one card, a ProcessMesh over gloo with staged
+    operands, 3 allgather steps of chatglm3-6b at full width, 1 layer: each
+    rank's parameters bit-equal to the other's and to an in-process
+    LaneMesh(2) run; then the route of 16 phase B messages at S = 2 over
+    the ranks (``use_mesh=True``) bit-equal to the one-card leg."""
+    import tempfile
+
+    from repro_torch.core import distributed
+    from repro_torch.launch.mesh import LaneMesh
+
+    world = 2
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+             " chip_smoke.h3_rank(int(sys.argv[2]), int(sys.argv[3]), "
+             "sys.argv[4], sys.argv[5])", str(ROOT), str(r), str(world),
+             f"file://{tmp}/rendezvous", f"{tmp}/rank{r}.json"],
+            cwd=ROOT, env=_child_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=400)[0])
+        finally:
+            for proc in procs:
+                proc.kill()
+        for r, (proc, text) in enumerate(zip(procs, outs)):
+            if proc.returncode != 0:
+                for line in text.strip().splitlines()[-15:]:
+                    log(f"  H3 rank {r} | {line}")
+                raise AssertionError(f"H3: rank {r} exited {proc.returncode}")
+        ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+                 for r in range(world)]
+    log(f"  H3: {world} ranks in {time.perf_counter() - t0:.1f} s (process "
+        f"start-up included), staged {[r['staged'] for r in ranks]}; train "
+        f"{[round(r['seconds'], 2) for r in ranks]} s; peak "
+        f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB a rank")
+    torch.cuda.reset_peak_memory_stats()
+    losses, digests = _h3_train(torch, LaneMesh(world, "cuda"), 3)
+    log(f"  H3 lanes: losses {losses}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for r, got in enumerate(ranks):
+        if got["digests"] != digests or got["losses"] != losses:
+            raise AssertionError(f"H3: rank {r} differs from the lanes: "
+                                 f"losses {got['losses']} vs {losses}")
+    log("  H3: both ranks' parameters bit-equal to each other's and to the "
+        "LaneMesh(2) run (SHA-256 of every leaf), losses equal")
+    spec, idx, vals = _h3_route_problem()
+    ri, rv, ovf = distributed.shard_exchange_batch(spec, idx, vals)
+    want = _digests(torch, [ri, rv])
+    for r, got in enumerate(ranks):
+        if got["route"] != want or got["overflow"] != int(ovf):
+            raise AssertionError(f"H3: rank {r}'s route differs from the "
+                                 f"one-card leg")
+    log(f"  H3: the route over {world} ranks (use_mesh=True, 16 messages of "
+        f"k = {idx.shape[1]}) bit-equal to the one-card leg on both ranks")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2475,7 +3190,9 @@ def main() -> int:
                       ("c", lambda: phase_c(torch, results, ref)),
                       ("d", lambda: phase_d(torch, results, ref)),
                       ("f", lambda: phase_f(torch, results, ref)),
-                      ("g", lambda: phase_g(torch, results, ref))):
+                      ("g", lambda: phase_g(torch, results, ref)),
+                      ("h", lambda: phase_h(torch, results,
+                                            smi.stdout.strip()))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()
         try:

@@ -1,30 +1,451 @@
-"""The mesh server's route exchange (PyTorch port of
-``repro.core.distributed.shard_exchange_batch``; the dense, allgather and
-shardedps exchanges of that module are not ported yet).
+"""DGS as a data-parallel gradient-exchange strategy over a mesh of workers
+(PyTorch port of ``repro.core.distributed``).
 
-On the TPU the reference cuts every message into S source chunks, one per
-device of a ``shards`` mesh axis, routes each chunk to per-destination
-buckets and swaps the buckets with one all-to-all.  The port keeps all S
-shard arenas on one card, so it routes every chunk there and applies the
-same ``(source, destination)`` permutation, the reference's own leg for
-one device (pinned bit-equal to its collective in the reference's tests).
+The data-parallel axis is the worker fleet; in ``shardedps`` the parameter
+server is *sharded across that axis* (each worker owns 1/W of every row of
+a leaf).  Three exchange modes:
+
+* ``dense``     -- baseline: the workers' mean gradient (the classic
+                   all-reduce) and heavy-ball momentum.
+* ``allgather`` -- paper-faithful: each worker top-k's its SAMomentum
+                   velocity and all-gathers (values, indices); every worker
+                   scatter-adds the union.
+* ``shardedps`` -- dual-way: entries are bucketed by owner shard and
+                   exchanged with one all-to-all; the owners aggregate into
+                   their M shard and return the secondary-compressed
+                   difference shard ``M - v`` through an all-gather.
+                   Dropped overflow and the unsent remainder stay in
+                   ``M - v``, as paper Eq. (6).
+
+The exchange is written once against a mesh (``launch/mesh.py``): every
+per-worker tensor carries a leading lane dim ``L`` -- ``W`` lanes of one
+process (:class:`~repro_torch.launch.mesh.LaneMesh`) or one lane per
+process (:class:`~repro_torch.launch.mesh.ProcessMesh`) -- and the
+reference's collectives are the mesh's ``gather``, ``all_to_all``,
+``index`` and ``mean``.  The gathered union is the same on every worker,
+so it is scattered into the dense update ONCE per leaf, with kernel rows 1
+and 2 (``kernels.ops.scatter_add``/``scatter_add_rows``), which add
+duplicates in update order -- worker 0's entry, then worker 1's -- as the
+reference's ``.at[].add``; an atomic scatter would let lanes, ranks and
+runs drift by ulps.  Both meshes give the same bits.
+
+The exchange writes the new velocity, M and v into the state's own
+tensors (the reference donates them) and returns that state with the
+update to subtract from the parameters.
+
+:func:`shard_exchange_batch` is the mesh server's route exchange: on one
+card every shard's chunk is routed there and the buckets permuted; over a
+``ProcessMesh`` of S ranks each rank routes its own source chunk and the
+buckets cross with one ``all_to_all_single``.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, NamedTuple
+
 import torch
 
-from .paramspace import ShardSpec
+from repro_torch.arith import rcp
 
+from . import engine as engine_lib
+from .engine import CompressionSpec
+from .paramspace import ShardSpec, tree_flatten, tree_leaves, tree_unflatten
+from .sparsify import density_to_k
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeConfig:
+    mode: str = "dense"            # dense | allgather | shardedps
+    density: float = 0.01          # upward top-k density (1 - R%)
+    momentum: float = 0.9          # SAMomentum m
+    secondary_density: float | None = None  # shardedps downward density;
+                                            # default density/W at call site
+    bucket_factor: float = 2.0     # all_to_all bucket overprovisioning
+    engine: str = "auto"           # compression engine (core/engine.py):
+                                   # exact | sampled | blockwise | auto
+    quantize: str = "none"         # wire quantization of message values
+    sampled_threshold_above: int = 1 << 20  # auto engine: sampled thr for
+                                            # leaves/rows at least this big
+    wire_dtype: str = "float32"    # collective payload dtype (bf16 halves
+                                   # value bytes)
+
+    def spec(self) -> CompressionSpec:
+        """The compression-engine spec every selection in this exchange
+        uses."""
+        return CompressionSpec(
+            engine=self.engine,
+            quantize=self.quantize,
+            sampled_threshold_above=self.sampled_threshold_above,
+        )
+
+
+class ExchangeState(NamedTuple):
+    """Persistent per-worker exchange state, every leaf ``(L, ...)``."""
+
+    velocity: Any        # SAMomentum velocity tree, (L, *shape)
+    m_shard: Any         # sharded-PS: accumulated update, own shard only
+    v_shard: Any         # sharded-PS: what has been broadcast already
+    overflow: Any = ()   # sharded-PS: (L,) int32, entries dropped at the
+                         # W*cap bucket slot; () when the mode has no
+                         # buckets -- a read-only tap
+
+
+def init_state(params, cfg: ExchangeConfig, n_workers: int, *,
+               lanes: int = 1, shard_axes=None) -> ExchangeState:
+    """Zero state for ``lanes`` of ``n_workers`` workers, on the
+    parameters' device."""
+    leaves, paths = tree_flatten(params)
+    if shard_axes is None:
+        shard_axes = [None] * len(leaves)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((lanes,) + shape, dtype=dtype,
+                           device=leaves[0].device)
+
+    vel = [zeros(*p.shape) for p in leaves]
+    if cfg.mode == "shardedps":
+        m = [zeros(shardedps_state_size(tuple(p.shape), ax, n_workers))
+             for p, ax in zip(leaves, shard_axes)]
+        v = [torch.zeros_like(x) for x in m]
+        ovf = zeros(dtype=torch.int32)
+    else:
+        m = [zeros(0) for _ in leaves]
+        v = [zeros(0) for _ in leaves]
+        ovf = ()
+    return ExchangeState(velocity=tree_unflatten(paths, vel),
+                         m_shard=tree_unflatten(paths, m),
+                         v_shard=tree_unflatten(paths, v), overflow=ovf)
+
+
+def _wire(dtype: str) -> torch.dtype:
+    return getattr(torch, dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense (all-reduce) baseline
+# ---------------------------------------------------------------------------
+
+def dense_momentum_exchange(state, grads, *, cfg, lr, mesh):
+    """Classic DP baseline: the workers' mean gradient, heavy-ball
+    momentum.  The update is the new velocity, the same on every lane."""
+    u_leaves, paths = tree_flatten(state.velocity)
+    upd = []
+    for u, g in zip(u_leaves, tree_leaves(grads)):
+        g_mean = mesh.mean(g.to(torch.float32))
+        for lane in range(u.shape[0]):
+            u[lane] = engine_lib.velocity_accumulate(
+                u[lane], g_mean, momentum=cfg.momentum, lr=lr)
+        upd.append(u[0].clone())
+    return tree_unflatten(paths, upd), state
+
+
+# ---------------------------------------------------------------------------
+# allgather sparse exchange (paper-faithful)
+#
+# A leaf with a shard hint selects along its unsharded dims, per slice of
+# the hinted one: the reference keeps every step of the selection local to
+# a model shard that way.  Per-slice thresholds are a structured variant of
+# the paper's per-tensor threshold.
+# ---------------------------------------------------------------------------
+
+def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec):
+    """SAMomentum + top-k + sparse all-gather for one leaf, ``u`` and ``g``
+    ``(L, *shape)``, cut as ``cut`` (:func:`leaf_cut`).  Each lane runs the
+    reference's per-device steps on its worker's tensor (so the transients
+    are one worker's); the lanes' messages are stacked for the collective.
+    Writes the new velocity into ``u``; returns the update to subtract
+    (``shape``)."""
+    from repro_torch.kernels import ops
+
+    L, shape = u.shape[0], tuple(u.shape[1:])
+    W = mesh.size
+    if cut.flat:
+        vals, idx = [], []
+        for lane in range(L):
+            msg, u_new = engine_lib.samomentum_step(
+                u[lane], g[lane].to(torch.float32), momentum=cfg.momentum,
+                lr=lr, k=cut.k_row, spec=spec)
+            u[lane] = u_new
+            vals.append(msg.values)
+            idx.append(msg.indices)
+        gvals = mesh.gather(torch.stack(vals))                 # (W, k)
+        gidx = mesh.gather(torch.stack(idx))
+        dense = torch.zeros(cut.rest, dtype=torch.float32, device=u.device)
+        ops.scatter_add(dense, gidx.reshape(-1), gvals.reshape(-1))
+        return (dense * rcp(W)).view(shape)
+    S, rest, ax, k_row = cut.S, cut.rest, cut.ax, cut.k_row
+    wdt = _wire(cfg.wire_dtype)
+    vals, idx = [], []
+    for lane in range(L):
+        # the kernels read rows of unit stride: a moved dim is copied
+        um = u[lane].movedim(ax, 0)
+        v_l, i_l, u_new = engine_lib.samomentum_step_rows(
+            um.reshape(S, rest).contiguous(),
+            g[lane].movedim(ax, 0).reshape(S, rest).to(torch.float32)
+            .contiguous(),
+            momentum=cfg.momentum, lr=lr, k=k_row, spec=spec)
+        um.copy_(u_new.view(um.shape))
+        del u_new
+        vals.append(v_l.to(wdt))
+        idx.append(i_l)
+    gvals = mesh.gather(torch.stack(vals))                   # (W, S, k_row)
+    gidx = mesh.gather(torch.stack(idx))
+    gv = gvals.transpose(0, 1).reshape(S, W * k_row).to(torch.float32)
+    gi = gidx.transpose(0, 1).reshape(S, W * k_row)
+    dense = torch.zeros((S, rest), dtype=torch.float32, device=u.device)
+    ops.scatter_add_rows(dense, None, gi, gv)
+    moved = (shape[ax],) + shape[:ax] + shape[ax + 1:]
+    return (dense * rcp(W)).view(moved).movedim(0, ax)
+
+
+def allgather_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None):
+    """Per-leaf: SAMomentum -> top-k -> all-gather sparse -> scatter.
+
+    Returns (updates, state): ``updates`` is the mean lr-scaled update to
+    subtract from the (replicated) parameters.  ``shard_axes`` is an
+    optional per-leaf list of hinted dim indices (see above).
+    """
+    spec = cfg.spec()
+    u_leaves, paths = tree_flatten(state.velocity)
+    if shard_axes is None:
+        shard_axes = [None] * len(u_leaves)
+    upd = []
+    for u, g, ax in zip(u_leaves, tree_leaves(grads), shard_axes):
+        cut = leaf_cut(u.shape[1:], ax, cfg, mesh.size)
+        upd.append(_leaf_allgather_hinted(
+            u, g, cut=cut, cfg=cfg, lr=lr, mesh=mesh, spec=spec))
+    return tree_unflatten(paths, upd), state
+
+
+# ---------------------------------------------------------------------------
+# sharded-PS all_to_all exchange (dual-way DGS)
+# ---------------------------------------------------------------------------
+
+def rows_view(shape, shard_axis):
+    """(S, rest, ax) row view used by the hinted exchanges and their state
+    shapes.  shard_axis None -> single row (per-tensor selection)."""
+    size = 1
+    for d in shape:
+        size *= int(d)
+    if shard_axis is None or len(shape) <= 1:
+        return 1, size, None
+    dims = [int(d) for d in shape]
+    lead = dims.pop(shard_axis)
+    rows, rest = lead, size // lead
+    while dims and rest > (1 << 22) and len(dims) > 1:
+        rows *= dims.pop(0)
+        rest = 1
+        for d in dims:
+            rest *= d
+    return rows, rest, shard_axis
+
+
+def shardedps_state_size(shape, shard_axis, n_workers: int) -> int:
+    """Per-worker M/v shard length for one leaf (row-major layout)."""
+    S, rest, _ = rows_view(shape, shard_axis)
+    return S * ShardSpec.even_stride(rest, n_workers)
+
+
+class LeafCut(NamedTuple):
+    """How a sparse exchange cuts one leaf: ``flat`` (allgather's flat
+    branch, one selection over the whole leaf) or ``S`` rows of ``rest``
+    with the dim ``ax`` moved first (None: the leaf reshaped to one row),
+    ``k_row`` entries selected per row, and in shardedps the owner-bucket
+    ``cap``, the owner's ``shard_rest`` columns and the downward ``k2``
+    per row (0 in allgather)."""
+
+    flat: bool
+    S: int
+    rest: int
+    ax: int | None
+    k_row: int
+    cap: int = 0
+    shard_rest: int = 0
+    k2: int = 0
+
+
+def leaf_cut(shape, shard_axis, cfg: ExchangeConfig,
+             n_workers: int) -> LeafCut:
+    """The cut of one leaf of ``shape`` in ``cfg.mode`` (allgather or
+    shardedps) over ``n_workers`` workers; the leaf's k is
+    ``density_to_k`` of the whole (stacked) leaf."""
+    shape = tuple(int(d) for d in shape)
+    size = 1
+    for d in shape:
+        size *= d
+    k = density_to_k(size, cfg.density)
+    W = n_workers
+    if cfg.mode == "allgather":
+        if (shard_axis is None or len(shape) == 1) and size < (1 << 24):
+            return LeafCut(True, 1, size, None, k)
+        # the hinted dim first (dim 0 without a hint), then fold further
+        # leading dims until each row is small enough for a cheap per-row
+        # top-k; a large 1-D leaf is one entry a row
+        ax = shard_axis if shard_axis is not None else 0
+        S, rest = (size, 1) if len(shape) == 1 else rows_view(shape, ax)[:2]
+        return LeafCut(False, S, rest, ax, max(1, min(rest, -(-k // S))))
+    if cfg.mode != "shardedps":
+        raise ValueError(f"mode {cfg.mode!r} cuts no leaf")
+    S, rest, ax = rows_view(shape, shard_axis)
+    shard_rest = ShardSpec.even_stride(rest, W)
+    k_row = max(1, min(rest, -(-k // S)))
+    cap = max(1, int(round(k_row / W * cfg.bucket_factor)))
+    k2 = max(1, min(shard_rest,
+                    int(round(k_row / W)) if cfg.secondary_density is None
+                    else density_to_k(shard_rest, cfg.secondary_density)))
+    return LeafCut(False, S, rest, ax, k_row, cap, shard_rest, k2)
+
+
+def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec):
+    """Row-wise sharded-PS dual-way exchange for one leaf.
+
+    View: (S, rest) rows per worker.  Worker w owns columns
+    [w*shard_rest, (w+1)*shard_rest) of every row (``ShardSpec.even``'s
+    partition, the cluster's rule).
+
+    Upward:  per-row top-k entries are bucketed by owner and exchanged with
+             ONE all-to-all.
+    Server:  each owner scatter-adds into its M shard and tracks v (what it
+             has broadcast); the difference M - v accumulates every unsent
+             remainder and bucket overflow, as paper Eq. (6).
+    Down:    top-k2 of the difference shard, all-gathered.
+
+    ``cut`` is the leaf's :func:`leaf_cut`.  Each lane runs its worker's
+    steps on its own tensors; the lanes' sends
+    are stacked for the collectives.  Writes the new velocity, M and v into
+    ``u``, ``m_sh``, ``v_sh``; returns (update, overflow): the ``(L,)``
+    int32 count of selected entries dropped at the ``W*cap`` slot this step
+    (their mass stays in the velocity)."""
+    from repro_torch.kernels import ops
+
+    W, L = mesh.size, u.shape[0]
+    shape = tuple(u.shape[1:])
+    S, rest, ax, k_row = cut.S, cut.rest, cut.ax, cut.k_row
+    shard_rest, cap, k2 = cut.shard_rest, cut.cap, cut.k2
+    wdt = _wire(cfg.wire_dtype)
+    dev = u.device
+    rows_of = ((lambda x: x.reshape(1, rest)) if ax is None
+               else (lambda x: x.movedim(ax, 0)))
+    send_v, send_i, ovf = [], [], []
+    for lane in range(L):
+        um = rows_of(u[lane])
+        uacc = engine_lib.velocity_accumulate(
+            um.reshape(S, rest).contiguous(),
+            rows_of(g[lane]).reshape(S, rest).to(torch.float32).contiguous(),
+            momentum=cfg.momentum, lr=lr)
+        vals, idx = engine_lib.select_rows(uacc, k_row, spec)
+        # ---- bucket by owner, per row ----
+        idx = idx.to(torch.int64)
+        order = torch.argsort(idx // shard_rest, dim=1, stable=True)
+        idx_s = torch.gather(idx, 1, order)
+        vals_s = torch.gather(vals, 1, order)
+        owner_s = idx_s // shard_rest
+        pos = (torch.arange(k_row, device=dev)[None]
+               - torch.searchsorted(owner_s, owner_s))
+        ok = pos < cap
+        slot = torch.where(ok, owner_s * cap + pos, W * cap)
+        buf_v = torch.zeros((S, W * cap + 1), dtype=torch.float32,
+                            device=dev).scatter_(
+            1, slot, torch.where(ok, vals_s, 0.0))
+        buf_i = torch.full((S, W * cap + 1), -1, dtype=torch.int32,
+                           device=dev).scatter_(
+            1, slot, torch.where(ok, idx_s % shard_rest, -1).to(torch.int32))
+        # (S, W, cap) -> (W, S, cap): the all-to-all's send, by owner
+        send_v.append(buf_v[:, :-1].reshape(S, W, cap).transpose(0, 1)
+                      .to(wdt))
+        send_i.append(buf_i[:, :-1].reshape(S, W, cap).transpose(0, 1))
+        # SAMomentum rescale: only the shipped coordinates keep u (bucket
+        # overflow is NOT shipped -- its mass must stay in the velocity)
+        shipped = torch.zeros((S, rest + 1), dtype=torch.bool,
+                              device=dev).scatter_(
+            1, torch.where(ok, idx_s, rest), True)[:, :-1]
+        um.copy_(engine_lib.samomentum_rescale(uacc, shipped, cfg.momentum)
+                 .view(um.shape))
+        ovf.append((~ok).sum().to(torch.int32))
+        del uacc, shipped
+    # ---- all-to-all: row i of a lane's receive is what worker i sent ----
+    recv_v = mesh.all_to_all(torch.stack(send_v)).to(torch.float32)
+    recv_i = mesh.all_to_all(torch.stack(send_i))            # (L, W, S, cap)
+    del send_v, send_i
+    # ---- server shard update: M -= the received, in worker order (an
+    # empty slot's -1 is dropped) ----
+    m2d = m_sh.view(L * S, shard_rest)
+    ops.scatter_add_rows(
+        m2d, None, recv_i.transpose(1, 2).reshape(L * S, W * cap),
+        -recv_v.transpose(1, 2).reshape(L * S, W * cap))
+    del recv_v, recv_i
+    # ---- downward: secondary-compressed difference shard ----
+    me = mesh.index().to(torch.int32) * shard_rest            # (L,)
+    dvals, didx = [], []
+    for lane in range(L):
+        m_l = m_sh[lane].view(S, shard_rest)
+        v_l = v_sh[lane].view(S, shard_rest)
+        d_v, d_i = engine_lib.select_rows(m_l - v_l, k2, spec)
+        ops.scatter_add_rows(v_l, None, d_i, d_v)
+        dvals.append(d_v.to(wdt))
+        didx.append(d_i + me[lane])
+    gvals = mesh.gather(torch.stack(dvals)).to(torch.float32)  # (W, S, k2)
+    gidx = mesh.gather(torch.stack(didx))
+    dense = torch.zeros((S, W * shard_rest), dtype=torch.float32,
+                        device=dev)
+    ops.scatter_add_rows(dense, None,
+                         gidx.transpose(0, 1).reshape(S, W * k2),
+                         gvals.transpose(0, 1).reshape(S, W * k2))
+    upd = dense[:, :rest].neg_().mul_(rcp(W))
+    if ax is None:
+        return upd.reshape(shape), torch.stack(ovf)
+    moved = (shape[ax],) + shape[:ax] + shape[ax + 1:]
+    return upd.reshape(moved).movedim(0, ax), torch.stack(ovf)
+
+
+def shardedps_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None):
+    """Dual-way sparse exchange against a parameter server sharded over the
+    workers: per-leaf dispatch to the row-wise implementation above."""
+    spec = cfg.spec()
+    u_leaves, paths = tree_flatten(state.velocity)
+    m_leaves = tree_leaves(state.m_shard)
+    v_leaves = tree_leaves(state.v_shard)
+    if shard_axes is None:
+        shard_axes = [None] * len(u_leaves)
+    upd = []
+    step_ovf = 0
+    for u, m_sh, v_sh, g, ax in zip(u_leaves, m_leaves, v_leaves,
+                                    tree_leaves(grads), shard_axes):
+        up, ovf = _leaf_shardedps_hinted(
+            u, g, m_sh, v_sh, cut=leaf_cut(u.shape[1:], ax, cfg, mesh.size),
+            cfg=cfg, lr=lr, mesh=mesh, spec=spec)
+        upd.append(up)
+        step_ovf = step_ovf + ovf
+    overflow = state.overflow
+    if isinstance(overflow, torch.Tensor):
+        overflow += step_ovf
+    else:   # a state built without buckets: start at zero
+        overflow = step_ovf
+    return tree_unflatten(paths, upd), state._replace(overflow=overflow)
+
+
+# ---------------------------------------------------------------------------
+# mesh-shard route exchange: the mesh server's stage
+# ---------------------------------------------------------------------------
 
 def shard_exchange_batch(spec: ShardSpec, indices, values, *,
-                         cap: int | None = None, use_mesh: bool | None = None):
+                         cap: int | None = None,
+                         use_mesh: bool | None = None, mesh=None):
     """Route a batch of global-index sparse messages to shard-local slots.
 
     ``indices``/``values``: ``(B, k)``, int32 global arena indices (``-1``
     = padding).  Each message is cut into ``S`` even source chunks of
-    ``kp = ShardSpec.even_stride(k, S)``, every chunk is bucketed by
-    ``kernels.ops.route_by_shard_batch`` (one scatter-add for all ``B * S``
-    chunks), and the buckets are permuted ``(src, dst) -> (dst, src)``.
+    ``kp = ShardSpec.even_stride(k, S)``, each chunk is bucketed by
+    ``kernels.ops.route_by_shard_batch`` (row 1 places the values), and
+    the ``(source, destination)`` buckets are swapped.  On one card
+    (``use_mesh`` false, the default without a ``mesh``) every chunk is
+    routed there and the buckets permuted ``(src, dst) -> (dst, src)``,
+    the reference's own one-device leg.  With ``use_mesh`` (the default
+    when ``mesh`` is given) ``mesh`` is the
+    :class:`~repro_torch.launch.mesh.ProcessMesh` of the S shards' ranks:
+    rank r routes source chunk r and the buckets cross with one
+    ``all_to_all_single``; every rank then gathers the others' slices, so
+    it returns the same global arrays as the one-card leg.
 
     ``cap`` bounds the entries per (source chunk, destination shard) pair
     and defaults to ``kp``: a chunk holds only ``kp`` entries, so the
@@ -32,28 +453,58 @@ def shard_exchange_batch(spec: ShardSpec, indices, values, *,
 
     Returns ``(local_idx, vals, overflow)``: ``(B, S, S*cap)`` shard-local
     indices (``-1`` = empty slot) and values, and the int64 count of
-    entries dropped by ``cap`` (a scalar on the device).  ``use_mesh=True``
-    (one process per shard, over ``torch.distributed``) raises.
+    entries dropped by ``cap`` (a scalar on the device).
     """
     from repro_torch.kernels import ops
 
-    if use_mesh:
-        raise NotImplementedError(
-            "the multi-device leg of shard_exchange_batch (one process per "
-            "shard, over torch.distributed.all_to_all_single) comes with "
-            "the dense, allgather and shardedps exchanges (ROADMAP queue 1 "
-            "item 4); every shard arena of the port's mesh server lives on "
-            "one card")
     S = spec.n_shards
     B, k = indices.shape
     kp = ShardSpec.even_stride(k, S)
     cap = int(cap) if cap is not None else kp
     pad = S * kp - k
     idx3 = torch.nn.functional.pad(indices.to(torch.int32), (0, pad),
-                                   value=-1).reshape(B * S, kp)
-    val3 = torch.nn.functional.pad(values, (0, pad)).reshape(B * S, kp)
-    ri, rv, ovf = ops.route_by_shard_batch(idx3, val3, bounds=spec.bounds,
-                                           n_shards=S, cap=cap)
+                                   value=-1).reshape(B, S, kp)
+    val3 = torch.nn.functional.pad(values, (0, pad)).reshape(B, S, kp)
+    if use_mesh is None:
+        use_mesh = mesh is not None
+    if use_mesh:
+        if getattr(mesh, "rank", None) is None or mesh.size != S:
+            raise ValueError(f"use_mesh=True needs mesh=, the ProcessMesh "
+                             f"of the {S} shards' ranks")
+        # this rank's source chunk of every message -> (B, S_dst, cap)
+        ri_c, rv_c, ovf = ops.route_by_shard_batch(
+            idx3[:, mesh.rank].contiguous(), val3[:, mesh.rank].contiguous(),
+            bounds=spec.bounds, n_shards=S, cap=cap)
+        recv_i = mesh.all_to_all(ri_c.transpose(0, 1)[None])[0]  # (S_src,B,cap)
+        recv_v = mesh.all_to_all(rv_c.transpose(0, 1)[None])[0]
+        ri = recv_i.transpose(0, 1).reshape(1, B, S * cap)
+        rv = recv_v.transpose(0, 1).reshape(1, B, S * cap)
+        return (mesh.gather(ri).transpose(0, 1).contiguous(),
+                mesh.gather(rv).transpose(0, 1).contiguous(),
+                mesh.gather(ovf.reshape(1)).sum())
+    ri, rv, ovf = ops.route_by_shard_batch(
+        idx3.reshape(B * S, kp), val3.reshape(B * S, kp), bounds=spec.bounds,
+        n_shards=S, cap=cap)
     ri = ri.view(B, S, S, cap).transpose(1, 2).reshape(B, S, S * cap)
     rv = rv.view(B, S, S, cap).transpose(1, 2).reshape(B, S, S * cap)
     return ri, rv, ovf
+
+
+# ---------------------------------------------------------------------------
+# unified entry point
+# ---------------------------------------------------------------------------
+
+def exchange(state, grads, *, cfg: ExchangeConfig, lr, mesh,
+             shard_axes=None):
+    """One exchange step of every worker of ``mesh``: ``grads`` and the
+    state's leaves carry the mesh's lane dim.  Returns (updates, state)."""
+    if cfg.mode == "dense":
+        return dense_momentum_exchange(state, grads, cfg=cfg, lr=lr,
+                                       mesh=mesh)
+    if cfg.mode == "allgather":
+        return allgather_exchange(state, grads, cfg=cfg, lr=lr, mesh=mesh,
+                                  shard_axes=shard_axes)
+    if cfg.mode == "shardedps":
+        return shardedps_exchange(state, grads, cfg=cfg, lr=lr, mesh=mesh,
+                                  shard_axes=shard_axes)
+    raise ValueError(f"unknown exchange mode {cfg.mode!r}")

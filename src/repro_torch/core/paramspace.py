@@ -24,19 +24,22 @@ from .engine import CompressionSpec
 from .sparsify import SparseLeaf, density_to_k, quantize_rows
 
 
+def _walk(node, path, leaves: list, paths: list) -> None:
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _walk(node[key], path + (key,), leaves, paths)
+    else:
+        leaves.append(node)
+        paths.append(path)
+
+
 def tree_flatten(tree) -> tuple[list, tuple]:
-    """(leaves, paths) of a nested dict, keys sorted at every level."""
+    """(leaves, paths) of a nested dict, keys sorted at every level.  (A
+    recursive closure here would be a reference cycle holding the leaves
+    until the garbage collector runs: gigabytes of device memory at full
+    width.)"""
     leaves, paths = [], []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                walk(node[key], path + (key,))
-        else:
-            leaves.append(node)
-            paths.append(path)
-
-    walk(tree, ())
+    _walk(tree, (), leaves, paths)
     return leaves, tuple(paths)
 
 

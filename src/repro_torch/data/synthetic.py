@@ -1,11 +1,14 @@
-"""Deterministic synthetic data (PyTorch port of ``ClassificationTask`` from
-``repro.data.synthetic``): gaussian-blobs classification, the CIFAR
+"""Deterministic synthetic data (PyTorch port of ``TokenStream`` and
+``ClassificationTask`` from ``repro.data.synthetic``): markov-chain token
+sequences for LM training, and gaussian-blobs classification, the CIFAR
 stand-in of the paper's convergence experiments.
 
-Batches come from ``torch.Generator``s seeded from ``(seed, step, worker)``
-on the CPU and are then moved to ``device`` (None = the card), so the card
-and the CPU see the same batches.  They are not the reference's ``jax.random`` bits: tests that
-compare the two packages feed both the same numpy batches.
+Random draws come from ``torch.Generator``s seeded from ``(seed, step,
+worker)`` on the CPU and are then moved to ``device`` (None = the card),
+so the card and the CPU see the same batches.  They are not the
+reference's ``jax.random`` bits: tests that compare the two packages feed
+both the same numpy batches.  ``TokenStream``'s transition table is the
+reference's own numpy draw, bit for bit.
 """
 from __future__ import annotations
 
@@ -22,6 +25,48 @@ def seeded_generator(*words: int) -> torch.Generator:
     """A CPU ``torch.Generator`` seeded from a tuple of integers."""
     seed = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(seed) >> 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    """Markov-chain token sequences: a fixed random transition table (each
+    token has ``branching`` successors) gives the stream learnable
+    structure.  ``batch(step)`` is stateless."""
+
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+    branching: int = 8   # out-degree of the markov chain
+    device: Any = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def transition(self) -> np.ndarray:
+        """The ``(vocab, branching)`` successor table, the reference's
+        ``np.random.default_rng(seed)`` draw."""
+        rng = np.random.default_rng(self.seed)
+        nxt = rng.integers(0, self.vocab_size,
+                           (self.vocab_size, self.branching))
+        return nxt.astype(np.int32)
+
+    def batch(self, step: int, *, batch_size: int | None = None):
+        """``{"tokens": (B, seq_len) int32}`` on the device: ``tok0`` and
+        the branch choices from ``seeded_generator(seed, step)``, the walk
+        through the table on the device."""
+        B = batch_size or self.batch_size
+        gen = seeded_generator(self.seed, step)
+        tok = torch.randint(0, self.vocab_size, (B,), generator=gen)
+        branches = torch.randint(0, self.branching, (B, self.seq_len - 1),
+                                 generator=gen)
+        nxt = torch.from_numpy(self.transition()).to(self.device)
+        tok, branches = tok.to(self.device), branches.to(self.device)
+        cols = [tok.to(torch.int32)]
+        for t in range(self.seq_len - 1):
+            tok = nxt[tok, branches[:, t]].to(torch.int64)
+            cols.append(tok.to(torch.int32))
+        return {"tokens": torch.stack(cols, dim=1)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -276,8 +276,9 @@ def main(argv=None):
         return run_replica(args)
     if args.role == "decode":
         raise NotImplementedError(
-            "--role decode runs the model zoo's prefill and decode, which "
-            "the port does not have yet (ROADMAP queue 1 item 4)")
+            "--role decode runs the model's prefill and decode_step over "
+            "KV caches, which the port does not have yet (ROADMAP queue 1 "
+            "item 4)")
     cluster_launch.install_reaper()
     return run_fleet(args)
 

@@ -1,0 +1,115 @@
+"""Sharding rules: the per-leaf partition of the parameters over the
+``"model"`` mesh axis (PyTorch port of ``repro.launch.sharding``).
+
+The port runs the ``"model"`` axis at size 1 (tensor parallelism is not
+ported); the rules still decide the exchange's per-leaf hints.  Rules are
+name+shape based so one function serves all 10 architectures:
+
+* attn/MLP in-projections  (d, H*hd|ff)  -> (None, "model")
+* out/down projections     (ff|H*hd, d)  -> ("model", None)
+* MoE expert tensors       (E, d, f)     -> ("model", None, None)  (EP)
+* embeddings               (V, d)        -> ("model", None)
+* vectors/norms            (d,)          -> replicated
+* stacked unit params get a leading None.
+
+``shard_axis_hints`` returns, per parameter leaf, the index of the dim
+sharded over "model" (or None).  The DGS exchange selects along the
+*unsharded* dims only, per slice of the hinted one.  At ``model_size`` 1
+every weight, bias and embedding gets a hint; only the norm scales do not.
+"""
+from __future__ import annotations
+
+from repro_torch.core.paramspace import tree_flatten, tree_unflatten
+from repro_torch.models.config import ModelConfig
+
+# names of projection params whose LAST dim shards over model
+_COL_SHARDED = {"wq", "wk", "wv", "up", "gate", "wq_b", "wkv_b", "in_proj"}
+# names whose FIRST dim shards over model
+_ROW_SHARDED = {"wo", "down", "out_proj"}
+
+
+def _leaf_rule(path_keys: tuple[str, ...], shape: tuple[int, ...],
+               model_size: int, n_kv_heads: int = 0) -> tuple:
+    """The spec of one (possibly unit-stacked) parameter leaf: a tuple of
+    axis names (``"model"`` or None), one per dim."""
+    names = [k for k in path_keys]
+    stacked = names and names[0] == "units"
+
+    def wrap(spec_dims):
+        if stacked:
+            return tuple([None] + spec_dims)
+        return tuple(spec_dims)
+
+    core = shape[1:] if stacked else shape
+    nd = len(core)
+    owner = None
+    for n in reversed(names):
+        if n in ("w", "b", "scale", "bias", "table", "conv_w", "conv_b",
+                 "A_log", "dt_bias", "D"):
+            continue
+        owner = n
+        break
+    last = names[-1]
+
+    def ok(dim_idx):
+        return core[dim_idx] % model_size == 0 and core[dim_idx] >= model_size
+
+    # MoE expert tensors: (E, d, f) / (E, f, d): expert parallelism on dim 0
+    if "moe" in names and last in ("up", "gate", "down") and nd == 3:
+        if ok(0):
+            return wrap(["model", None, None])
+        return wrap([None] * nd)
+    if last == "table" and nd == 2:          # embedding (V, d)
+        if ok(0):
+            return wrap(["model", None])     # vocab-parallel
+        if ok(1):
+            return wrap([None, "model"])
+        return wrap([None, None])
+    if last in ("w", "b") and owner in ("wk", "wv"):
+        # K/V projections: shard only when whole KV heads land on each model
+        # shard.  If n_kv_heads < model_size the shards would cut through
+        # head_dim, and RoPE's strided slices on the fractured dim crash
+        # XLA's SPMD gather partitioner (observed on every kv<16 arch).
+        if n_kv_heads % model_size == 0 and ok(nd - 1):
+            return wrap([None] * (nd - 1) + ["model"])
+        return wrap([None] * nd)
+    if last == "w" and owner in _COL_SHARDED and nd == 2:
+        return wrap([None, "model"] if ok(1) else [None, None])
+    if last == "b" and owner in _COL_SHARDED and nd == 1:
+        return wrap(["model"] if ok(0) else [None])
+    if last == "w" and owner in _ROW_SHARDED and nd == 2:
+        return wrap(["model", None] if ok(0) else [None, None])
+    if last == "w" and owner == "lm_head" and nd == 2:  # (d, V)
+        return wrap([None, "model"] if ok(1) else [None, None])
+    if last == "conv_w" and nd == 2:         # (K, conv_dim)
+        return wrap([None, "model"] if ok(1) else [None, None])
+    if last in ("conv_b",) and nd == 1:
+        return wrap(["model"] if ok(0) else [None])
+    if last in ("A_log", "dt_bias", "D") and nd == 1:
+        return wrap(["model"] if ok(0) else [None])
+    if owner == "router":
+        return wrap([None] * nd)
+    # norms / small vectors / anything else: replicated
+    return wrap([None] * nd)
+
+
+def param_specs(cfg: ModelConfig, params_shape, model_size: int):
+    """Tree of specs matching ``params_shape`` (any leaves with a
+    ``.shape``: tensors, meta tensors)."""
+    leaves, paths = tree_flatten(params_shape)
+    specs = [_leaf_rule(path, tuple(leaf.shape), model_size,
+                        n_kv_heads=cfg.n_kv_heads)
+             for path, leaf in zip(paths, leaves)]
+    return tree_unflatten(paths, specs)
+
+
+def shard_axis_hints(cfg: ModelConfig, params_shape, model_size: int):
+    """Per-leaf index of the model-sharded dim (None if replicated), in
+    the tree's leaf order."""
+    leaves, paths = tree_flatten(params_shape)
+    hints = []
+    for path, leaf in zip(paths, leaves):
+        spec = _leaf_rule(path, tuple(leaf.shape), model_size,
+                          n_kv_heads=cfg.n_kv_heads)
+        hints.append(spec.index("model") if "model" in spec else None)
+    return hints

@@ -1,0 +1,125 @@
+"""Training launcher (PyTorch port of ``repro.launch.train``): the reduced
+variant of an architecture trained data-parallel with DGS as the gradient
+exchange, printing losses.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --devices 4 --steps 3 --batch 4 --seq 32
+
+``--devices N`` is the number of workers, N lanes of one process on
+``--device`` (None = the card).  Under ``torchrun`` (``WORLD_SIZE`` set) it
+runs one worker per process instead, over ``torch.distributed``:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --device cpu --steps 3 --batch 4 --seq 32
+
+With a card for every rank of a host the ranks talk over NCCL
+(``mesh.init_process_mesh``); that leg has not yet run on several cards.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="chatglm3-6b")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--mode", default="allgather",
+                    choices=["dense", "allgather", "shardedps"])
+    ap.add_argument("--density", type=float, default=0.05)
+    ap.add_argument("--momentum", type=float, default=0.9)
+    ap.add_argument("--engine", default="auto",
+                    choices=["auto", "exact", "sampled", "blockwise"],
+                    help="top-k compression engine (core/engine.py)")
+    ap.add_argument("--quantize", default="none",
+                    choices=["none", "bf16", "int8", "tern"],
+                    help="wire quantization of sparse message values")
+    ap.add_argument("--sampled-above", type=int, default=1 << 20,
+                    help="auto engine: sampled threshold for leaves/rows "
+                         "with at least this many elements")
+    ap.add_argument("--smoke", action="store_true", default=True,
+                    help="accepted for the reference's command line; the "
+                         "launcher always trains the reduced variant")
+    ap.add_argument("--devices", type=int, default=8,
+                    help="workers, as lanes of this process (ignored under "
+                         "torchrun: one worker per process)")
+    ap.add_argument("--device", default=None,
+                    help="cpu or cuda (default: the card)")
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--log-level", default=None,
+                    help="silence/route launcher output: debug | info | "
+                         "warning | error (default: REPRO_LOG env or info)")
+    ap.add_argument("--log-file", default=None,
+                    help="mirror launcher output (timestamped) to a file")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from repro_torch import telemetry
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.core.distributed import ExchangeConfig
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import init_params
+
+    log = telemetry.get_logger("train")
+    if args.log_level:
+        telemetry.set_level(args.log_level)
+    if args.log_file:
+        telemetry.set_log_file(args.log_file)
+
+    cfg = get_arch(args.arch).reduced()
+    if cfg.frontend_tokens:
+        raise NotImplementedError(
+            f"{cfg.name} trains with frontend embeddings, which the port "
+            f"does not have yet (ROADMAP queue 1 item 4)")
+    device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ:
+        mesh = mesh_lib.init_process_mesh(
+            int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), "env://",
+            device)
+        device = mesh.device
+        if mesh.rank != 0:
+            telemetry.set_level("warning")
+    else:
+        mesh = mesh_lib.LaneMesh(args.devices, device)
+    W = mesh.size
+    log.info(f"[train] arch={cfg.name} mesh={ {'data': W, 'model': 1} } "
+             f"mode={args.mode} density={args.density} engine={args.engine} "
+             f"quantize={args.quantize}")
+
+    ex_cfg = ExchangeConfig(mode=args.mode, density=args.density,
+                            momentum=args.momentum, engine=args.engine,
+                            quantize=args.quantize,
+                            sampled_threshold_above=args.sampled_above)
+    step = build_train_step(cfg, mesh, ex_cfg, lr=args.lr, remat=False)
+    params = init_params(cfg, seed=0, device=device)
+    ex_state = step.init_state(params)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                         batch_size=args.batch, seed=0, device=device)
+    try:
+        for i in range(args.steps):
+            params, ex_state, loss = step(params, ex_state, stream.batch(i))
+            if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
+                log.info(f"  step {i:4d} loss={float(loss):.4f}")
+        if args.checkpoint and getattr(mesh, "rank", 0) == 0:
+            save_checkpoint(args.checkpoint, params, step=args.steps)
+            log.info(f"[train] saved {args.checkpoint}")
+    finally:
+        if "WORLD_SIZE" in os.environ:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    log.info("[train] done")
+
+
+if __name__ == "__main__":
+    main()

@@ -288,10 +288,12 @@ def test_recorder_sees_every_stage(tmp_path):
 
 
 def test_later_slices_raise_not_implemented():
-    """What the sharded runtimes still leave to later slices raises: the
-    route exchange's multi-device leg, and serving replicas from either
-    sharded runtime.  (The sharded coordinators themselves are held to the
-    reference in tests/test_torch_shard_cluster.py.)"""
+    """What the sharded runtimes still leave to later slices raises:
+    serving replicas from either sharded runtime; and the route exchange's
+    per-rank leg refuses to run without the ranks' ProcessMesh.  (The
+    sharded coordinators themselves are held to the reference in
+    tests/test_torch_shard_cluster.py, the per-rank leg in
+    tests/test_torch_distributed.py.)"""
     from repro_torch.core import distributed
     from repro_torch.core.paramspace import ShardSpec
 
@@ -302,7 +304,7 @@ def test_later_slices_raise_not_implemented():
         with pytest.raises(NotImplementedError, match="later slice"):
             run_inprocess(strat, _torch_grad_fn, tp, tbatch,
                           schedule=[0, 1], n_replicas=1, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="ProcessMesh"):
         distributed.shard_exchange_batch(
             ShardSpec(bounds=(0, 2, 4)),
             torch.zeros((1, 2), dtype=torch.int32),

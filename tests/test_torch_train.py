@@ -1,0 +1,286 @@
+"""The port's data-parallel training path on the CPU: ``build_train_step``
+on a ``LaneMesh`` against the JAX reference's on a (4, 1) host mesh, the
+reference's own DP identities and loss rule on the port, and the launcher
+(lanes, and one process per worker under torchrun).
+
+The reference runs in a subprocess (its host devices must be set before
+JAX is imported) from the same numpy parameters and tokens, and leaves its
+losses and final parameters in an ``.npz``.
+"""
+import dataclasses
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.baselines import msgd_step
+from repro_torch.core.distributed import ExchangeConfig, leaf_cut
+from repro_torch.core.engine import velocity_accumulate
+from repro_torch.core.paramspace import (tree_flatten, tree_leaves,
+                                         tree_unflatten)
+from repro_torch.data.synthetic import TokenStream
+from repro_torch.launch.mesh import LaneMesh
+from repro_torch.launch.steps import build_train_step
+from repro_torch.models.model import init_params, loss_fn
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+B, S, STEPS, LR = 8, 32, 3, 0.05
+
+_JAX_SCRIPT = textwrap.dedent("""
+    import dataclasses, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    sys.path.insert(0, sys.argv[1])
+    import jax, jax.numpy as jnp, numpy as np
+    from repro.configs import get_arch
+    from repro.configs.shapes import InputShape, input_specs
+    from repro.core.distributed import ExchangeConfig
+    from repro.launch import mesh as mesh_lib
+    from repro.launch.steps import build_train_step, init_exchange_state
+    from repro.models import init_params
+
+    out, B, S, steps, lr = sys.argv[2], 8, 32, 3, 0.05
+    cfg = dataclasses.replace(get_arch("chatglm3-6b").reduced(),
+                              compute_dtype="float32")
+    mesh = mesh_lib.make_mesh((4, 1), ("data", "model"))
+    ex_cfg = ExchangeConfig(mode="allgather", density=0.05, momentum=0.9,
+                            engine="exact")
+    bundle = build_train_step(
+        cfg, mesh, ex_cfg, lr=lr, remat=False,
+        batch_specs_abstract=input_specs(cfg, InputShape("t", S, B, "train")))
+    params = init_params(jax.random.PRNGKey(0), cfg)
+    res = {f"p0/{'/'.join(p.key for p in path)}": np.asarray(x)
+           for path, x in jax.tree_util.tree_flatten_with_path(params)[0]}
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, cfg.vocab_size, (steps, B, S)).astype(np.int32)
+    res["tokens"] = tokens
+    state = init_exchange_state(params, ex_cfg, 4)
+    losses = []
+    with mesh:
+        step = bundle.jit()
+        for i in range(steps):
+            params, state, loss = step(params, state,
+                                       {"tokens": jnp.asarray(tokens[i])})
+            losses.append(float(loss))
+            for path, x in jax.tree_util.tree_flatten_with_path(params)[0]:
+                res[f"p{i + 1}/{'/'.join(p.key for p in path)}"] = \
+                    np.asarray(x)
+    res["losses"] = np.asarray(losses)
+    np.savez(out, **res)
+""")
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_train") / "ref.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _JAX_SCRIPT,
+                           str(ROOT / "src"), str(out)],
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return dict(np.load(out))
+
+
+def _tree(ref, prefix):
+    """The reference's parameters under ``prefix`` as the port's tree."""
+    flat = {k[len(prefix):]: v for k, v in ref.items()
+            if k.startswith(prefix)}
+    paths = tuple(tuple(k.split("/")) for k in flat)
+    return params_from_numpy(tree_unflatten(paths, list(flat.values())),
+                             "cpu")
+
+
+TIE = 1e-5     # how near a support swap lies to its row's boundary
+
+
+def _tie_gaps(step, velocity, grads):
+    """Per leaf, each coordinate's distance from its row's selection
+    boundary on its closest lane, relative to the row's k-th magnitude:
+    with ``a`` the coordinate's ``|m * u + lr * g|`` and ``t_k >= t_k1``
+    the row's k_row-th and (k_row + 1)-th such magnitudes, 0 where ``t_k1
+    <= a <= t_k`` and otherwise how far ``a`` lies outside, over ``t_k``
+    (inf where the row selects every coordinate).  A coordinate that two
+    runs select differently although their accumulations differ by
+    rounding alone lies within that rounding of the boundary."""
+    out = []
+    for u, g, ax in zip(tree_leaves(velocity), tree_leaves(grads),
+                        step.hints):
+        shape = tuple(u.shape[1:])
+        c = leaf_cut(shape, ax, step.ex_cfg, step.mesh.size)
+        moved = shape if c.ax is None else \
+            (shape[c.ax],) + shape[:c.ax] + shape[c.ax + 1:]
+        gap = torch.full((c.S, c.rest), float("inf"))
+        for lane in range(u.shape[0] if c.k_row < c.rest else 0):
+            a = velocity_accumulate(u[lane], g[lane],
+                                    momentum=step.ex_cfg.momentum,
+                                    lr=step.lr).abs()
+            a = a.reshape(c.S, c.rest) if c.ax is None else \
+                a.movedim(c.ax, 0).reshape(c.S, c.rest)
+            top = a.topk(c.k_row + 1, dim=1).values
+            tk, tk1 = top[:, c.k_row - 1:c.k_row], top[:, c.k_row:]
+            gap = torch.minimum(gap, torch.maximum(tk - a, a - tk1).clamp(
+                min=0) / torch.where(tk > 0, tk, 1.0))
+        gap = gap.reshape(moved)
+        out.append(gap if c.ax is None else gap.movedim(0, c.ax))
+    return out
+
+
+def test_train_steps_match_reference(ref):
+    """Three allgather steps (exact engine, float32 compute) on four lanes
+    against the reference's on four host devices: losses to rtol 1e-4,
+    parameters to atol 1e-4.
+
+    The two frameworks' float32 gradients differ in their last bits, and a
+    top-k whose k-th and (k+1)-th magnitudes lie that close picks the other
+    one: a *support swap*, which moves that coordinate by a whole update.
+    A coordinate outside the atol must be one: a step of one run moved it
+    and the same step of the other did not, and at that step it lay within
+    ``TIE`` (relative) of its row's selection boundary on the port's side,
+    where the reference's accumulation differs by rounding alone (measured
+    on this problem: 9.3e-7, about 8 float32 ulps; the boundary's k-th and
+    (k+1)-th magnitudes lie about 7e-3 apart on the median row).  At most
+    one coordinate in 10,000 may be excused so."""
+    cfg = dataclasses.replace(get_arch("chatglm3-6b").reduced(),
+                              compute_dtype="float32")
+    ex_cfg = ExchangeConfig(mode="allgather", density=0.05, momentum=0.9,
+                            engine="exact")
+    step = build_train_step(cfg, LaneMesh(4, "cpu"), ex_cfg, lr=LR,
+                            remat=False)
+    params = _tree(ref, "p0/")
+    state = step.init_state(params)
+    want = [tree_flatten(_tree(ref, f"p{i}/"))[0] for i in range(STEPS + 1)]
+    leaves, paths = tree_flatten(params)
+    assert tree_flatten(_tree(ref, "p0/"))[1] == paths
+    swapped = [torch.zeros(x.shape, dtype=torch.bool) for x in leaves]
+    tie = [torch.full(x.shape, float("inf")) for x in leaves]
+    losses = []
+    for i in range(STEPS):
+        batch = {"tokens": torch.from_numpy(ref["tokens"][i])}
+        before = [x.clone() for x in tree_flatten(params)[0]]
+        velocity = tree_unflatten(paths, [
+            x.clone() for x in tree_flatten(state.velocity)[0]])
+        # the gradients the step computes (the same bits)
+        gaps = _tie_gaps(step, velocity, step.grads(params, batch)[0])
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+        for j, x in enumerate(tree_flatten(params)[0]):
+            new = (((before[j] != x) ^ (want[i][j] != want[i + 1][j]))
+                   & ~swapped[j])
+            tie[j][new] = gaps[j][new]
+            swapped[j] |= new
+    np.testing.assert_allclose(losses, ref["losses"], rtol=1e-4)
+    excused = total = 0
+    for j, (path, x) in enumerate(zip(paths, tree_flatten(params)[0])):
+        out = (x - want[-1][j]).abs() > 1e-4
+        assert bool(swapped[j][out].all()), (path, "moved by both runs")
+        assert bool((tie[j][out] <= TIE).all()), (
+            path, "not at its row's boundary", tie[j][out])
+        excused += int(out.sum())
+        total += x.numel()
+    print(f"support swaps outside the atol: {excused} of {total} parameters")
+    assert excused <= total // 10_000, (excused, total)
+
+
+def test_dense_mode_equals_single_worker_msgd():
+    """The classic DP equivalence, as the reference's: dense exchange on
+    four lanes == momentum SGD on the whole batch."""
+    cfg = dataclasses.replace(get_arch("musicgen-large").reduced(),
+                              frontend_tokens=0)
+    ex_cfg = ExchangeConfig(mode="dense", momentum=0.7)
+    step = build_train_step(cfg, LaneMesh(4, "cpu"), ex_cfg, lr=0.1,
+                            remat=False)
+    params = init_params(cfg, seed=0, device="cpu")
+    ref_params = tree_unflatten(tree_flatten(params)[1],
+                                [x.clone() for x in tree_flatten(params)[0]])
+    ref_vel = tree_unflatten(tree_flatten(params)[1],
+                             [torch.zeros_like(x)
+                              for x in tree_flatten(params)[0]])
+    state = step.init_state(params)
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32))}
+        params, state, _ = step(params, state, batch)
+        leaves, paths = tree_flatten(ref_params)
+        live = [x.detach().requires_grad_() for x in leaves]
+        loss = loss_fn(tree_unflatten(paths, live), batch, cfg)[0]
+        grads = tree_unflatten(paths, torch.autograd.grad(loss, live))
+        ref_params, ref_vel = msgd_step(ref_params, ref_vel, grads, lr=0.1,
+                                        momentum=0.7)
+    for a, b in zip(tree_flatten(params)[0], tree_flatten(ref_params)[0]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-3)
+
+
+def test_loss_decreases_over_allgather_steps():
+    """The reference's rule: the reduced chatglm3 trains with the sparse
+    exchange and the mean of the last five losses is 0.3 below the first
+    five's."""
+    cfg = get_arch("chatglm3-6b").reduced()
+    ex_cfg = ExchangeConfig(mode="allgather", density=0.1, momentum=0.9)
+    step = build_train_step(cfg, LaneMesh(4, "cpu"), ex_cfg, lr=0.2,
+                            remat=False)
+    params = init_params(cfg, seed=0, device="cpu")
+    state = step.init_state(params)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=64, batch_size=8,
+                         seed=0, device="cpu")
+    losses = []
+    for i in range(30):
+        params, state, loss = step(params, state, stream.batch(i))
+        losses.append(float(loss))
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.3, losses
+
+
+def test_remat_gives_the_same_gradients():
+    cfg = dataclasses.replace(get_arch("chatglm3-6b").reduced(),
+                              compute_dtype="float32")
+    params = init_params(cfg, seed=2, device="cpu")
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (8, 32)).astype(np.int32))}
+    grads = {}
+    for remat in (False, True):
+        step = build_train_step(cfg, LaneMesh(2, "cpu"),
+                                ExchangeConfig(mode="dense"), remat=remat)
+        grads[remat] = tree_flatten(step.grads(params, batch)[0])[0]
+    for a, b in zip(grads[False], grads[True]):
+        assert torch.equal(a, b)
+
+
+def _launch(cmd, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    env.update(env_extra or {})
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return re.findall(r"step +\d+ loss=[0-9.]+", proc.stdout + proc.stderr)
+
+
+FLAGS = ["--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "32"]
+
+
+def test_launcher_runs_on_lanes():
+    lines = _launch([sys.executable, "-m", "repro_torch.launch.train",
+                     "--devices", "4"] + FLAGS)
+    assert len(lines) == 3, lines
+
+
+@pytest.mark.parametrize("mode", ["shardedps"])
+def test_launcher_under_torchrun_equals_lanes(mode):
+    """Two processes (gloo) print the losses of two lanes of one (every
+    mode's exchange over ranks is held to the lanes in
+    tests/test_torch_distributed.py)."""
+    lanes = _launch([sys.executable, "-m", "repro_torch.launch.train",
+                     "--devices", "2", "--mode", mode] + FLAGS)
+    ranks = _launch([sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc-per-node", "2",
+                     "-m", "repro_torch.launch.train", "--mode", mode]
+                    + FLAGS)
+    assert len(lanes) == 3 and ranks == lanes, (ranks, lanes)
