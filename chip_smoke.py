@@ -144,6 +144,24 @@ exits nonzero and prints no result line):
   16 phase B messages over the ranks (``use_mesh=True``) bit-equal to the
   one-card leg.  H4 runs ``python -m repro_torch.launch.train --steps 5``
   and needs exit code 0.
+* i -- prefill and KV-cache decode of the dense GQA family
+  (``models.prefill``, ``models.decode_step``, ``launch/steps.
+  build_serve_step``); no kernel of the port lies on this path, and the
+  launch counters are printed.  I1 prefills H1's model (chatglm3-6b at its
+  published widths, 2 layers) with a numpy prompt of 16 x 1,024 tokens and
+  decodes 64 greedy tokens: finite logits, ids in range, the caches'
+  bytes; prints prefill ms, decode ms a step (median by CUDA events),
+  tokens/s, peak memory and the cache bytes.  I2 times 10 decode steps
+  from ``concrete_inputs`` at the assigned decode shapes: chatglm3-6b (2
+  layers) at decode_32k (B 128, cache 32,768) and long_500k (B 1, an
+  8,192-slot ring at position 262,144), gemma3-12b (one unit: 5 local
+  layers, 1 global) at decode_32k with B cut to 16; each prints ms a step,
+  tokens/s, peak memory and its bound.  I3 holds the card against the CPU
+  on the reduced chatglm3 and gemma3, float32 and bf16 compute: a prompt
+  of 60 and 16 greedy steps, float32 logits to rtol/atol 1e-4, tokens
+  equal wherever the CPU's top-2 margin exceeds 1e-3 (float32) or 5e-2
+  (bf16).  I4 runs ``python -m repro_torch.launch.serve --role decode``
+  and needs exit code 0 and 4 rows of 16 ids in [0, vocab).
 
 The last two lines are the kernel table and the result, each one JSON object.
 """
@@ -2713,21 +2731,22 @@ def _h_run(torch, label, cfg, mesh, ex_cfg, stream, steps, card):
     if isinstance(state.overflow, torch.Tensor):
         log(f"  {label}: overflow per lane {state.overflow.tolist()} over "
             f"{steps} steps (bucket_factor {step.ex_cfg.bucket_factor})")
-    _h_profile(torch, label, step, params, state, stream.batch(steps))
+    batch = stream.batch(steps)
+    _profile(torch, label, lambda: step(params, state, batch))
     return params, state, losses, launches, step
 
 
-def _h_profile(torch, label, step, params, state, batch):
-    """One more step under the profiler (after the launches were read):
-    the device's busy time and share of the step, and its costliest
-    device rows (kernels, copies, fills)."""
+def _profile(torch, label, fn):
+    """One more call of ``fn`` (a step) under the profiler, after the
+    launches were read: the device's busy time and share of the step, and
+    its costliest device rows (kernels, copies, fills)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, state, batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(a.self_device_time_total, a.count, a.key)
@@ -3149,6 +3168,276 @@ def phase_h3(torch):
         f"k = {idx.shape[1]}) bit-equal to the one-card leg on both ranks")
 
 
+# ---------------------------------------------------------------------------
+# phase I: prefill and KV-cache decode of the dense GQA family
+# ---------------------------------------------------------------------------
+
+I_BATCH, I_PROMPT, I_GEN = 16, 1024, 64      # I1: chatglm3-6b at full width
+I_REPS = 10                                  # I2: timed steps a cell
+# I2's cells: (arch, input shape, layers, batch cut); gemma3 runs one unit
+# of its pattern (5 local layers, 1 global) at B 16 of 128, for memory
+I2_CELLS = (("chatglm3-6b", "decode_32k", 2, None),
+            ("chatglm3-6b", "long_500k", 2, None),
+            ("gemma3-12b", "decode_32k", 6, 16))
+I3_BATCH, I3_PROMPT, I3_STEPS = 4, 60, 16
+I3_MARGIN = {"float32": 1e-3, "bfloat16": 5e-2}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+
+
+def _cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size()
+               for c in caches.values() for t in c)
+
+
+def _decode_bound(cfg, params, caches, batch, pos, long_mode, rate):
+    """(bound ms, "bytes" or "operations") of one decode step: the larger
+    of its bytes over the memory rate (every cache leaf and every parameter
+    read once, of an untied embedding only the batch's rows; the new K/V
+    rows and the float32 logits written once) and its operations over the
+    peak rate of their type (the projections in the compute dtype and the
+    head in its own, 2 flops a weight and token; the float32 scores and PV
+    product over the positions the mask lets through)."""
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.models.attention import _is_windowed
+
+    pattern, n_units = cfg.unit_pattern()
+    table = params["embed"]["table"].numel()
+    weights = sum(p.numel() for p in tree_leaves(params)) - table
+    kv_bytes = next(iter(caches.values())).k.element_size()
+    read = (4 * weights + _cache_bytes(caches)
+            + 4 * (table if cfg.tie_embeddings else batch * cfg.d_model))
+    wrote = (2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.hd * kv_bytes
+             + 4 * batch * cfg.vocab_size)
+    attn = 0
+    for kind in pattern:
+        live = pos + 1
+        if _is_windowed(cfg, kind, long_mode):
+            live = min(live, cfg.window)
+        attn += n_units * 2 * 2 * batch * cfg.n_heads * live * cfg.hd
+    # the tied head multiplies in float32 (``layers.unembed``)
+    tied = 2 * batch * table if cfg.tie_embeddings else 0
+    t_bytes = (read + wrote) / rate * 1e3
+    t_ops = (2 * batch * weights / PEAK_FLOPS[cfg.compute_dtype]
+             + (tied + attn) / PEAK_FLOPS["float32"]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_i(torch, card, rate):
+    """Prefill and decode: I1 chatglm3-6b at full width (2 of 28 layers),
+    I2 decode steps at the assigned decode shapes, I3 the card against the
+    CPU on the reduced models, I4 the decode launcher.  No kernel of the
+    port lies on this path: the launch counters are read and printed."""
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    phase_i1(torch, card)
+    torch.cuda.empty_cache()
+    phase_i2(torch, card, rate)
+    torch.cuda.empty_cache()
+    phase_i3(torch)
+    torch.cuda.empty_cache()
+    log(f"  I: kernel launches "
+        f"{ {k.name: k.launches for k in kernels.KERNELS} } (no kernel on "
+        f"the decode path)")
+    phase_i4()
+
+
+def phase_i1(torch, card):
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = _h_cfg(H_LAYERS)
+    params = init_params(cfg, seed=0, device="cuda")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (I_BATCH, I_PROMPT)).astype(np.int32)).cuda()
+    max_len = I_PROMPT + I_GEN
+    log(f"  I1: {cfg.name} at full width, {cfg.n_layers} layers, B "
+        f"{I_BATCH}, a prompt of {I_PROMPT}, {I_GEN} greedy tokens")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = []
+    for _ in range(2):      # the first call warms the matmuls up
+        logits = caches = None
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits, caches, _ = prefill(params, prompt, cfg, max_len=max_len)
+        ev[1].record()
+        torch.cuda.synchronize()
+        prefill_ms.append(ev[0].elapsed_time(ev[1]))
+    tokens = [logits[:, -1].argmax(-1)]
+    finite = [torch.isfinite(logits).all()]
+    events = []
+    for t in range(I_GEN - 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits, caches = decode_step(params, caches, tokens[-1][:, None],
+                                     I_PROMPT + t, cfg)
+        ev[1].record()
+        events.append(ev)
+        tokens.append(logits[:, 0].argmax(-1))
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    # one more step at the last position, which it writes again
+    _profile(torch, "I1 decode", lambda: decode_step(
+        params, caches, tokens[-1][:, None], max_len - 1, cfg))
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    step = statistics.median(step_ms)
+    out = torch.stack(tokens, dim=1).cpu()
+    want = 2 * cfg.n_layers * I_BATCH * max_len * cfg.n_kv_heads * cfg.hd * 2
+    log(f"  I1 [{card}]: prefill {prefill_ms[1]:.3f} ms (first call "
+        f"{prefill_ms[0]:.3f}); decode {step:.3f} ms a step (median of steps "
+        f"1-{I_GEN - 1}, CUDA events; range {min(step_ms):.3f}-"
+        f"{max(step_ms):.3f}), {I_BATCH / step * 1e3:.1f} tokens/s; peak "
+        f"device memory {peak / 2**30:.2f} GiB; caches "
+        f"{_cache_bytes(caches)} bytes")
+    log(f"  I1: sequence 0's first tokens {out[0, :12].tolist()}")
+    if not all(bool(f) for f in finite):
+        raise AssertionError("I1: non-finite logits")
+    if out.shape != (I_BATCH, I_GEN) or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"I1: tokens out of range, shape {out.shape}")
+    if _cache_bytes(caches) != want:
+        raise AssertionError(f"I1: caches hold {_cache_bytes(caches)} bytes, "
+                             f"not {want}")
+
+
+def phase_i2(torch, card, rate):
+    import dataclasses
+
+    from repro_torch.configs import concrete_inputs, get_arch, get_shape
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import init_params
+
+    for arch, shape_name, layers, batch in I2_CELLS:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        shape = get_shape(shape_name)
+        if batch is not None:
+            shape = dataclasses.replace(shape, global_batch=batch)
+        label = f"I2 {arch} {shape_name}"
+        step = build_serve_step(cfg, LaneMesh(1, "cuda"), shape=shape)
+        params = init_params(cfg, seed=0, device="cuda")
+        inputs = concrete_inputs(cfg, shape, seed=0, device="cuda")
+        caches, token, pos = inputs["caches"], inputs["token"], inputs["pos"]
+        B = shape.global_batch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events, finite = [], []
+        for i in range(I_REPS + 1):     # step 0 warms up
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            logits, caches = step(params, caches, token, pos + i)
+            ev[1].record()
+            token = logits[:, 0].argmax(-1, keepdim=True)
+            finite.append(torch.isfinite(logits).all())
+            events.append(ev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        _profile(torch, label, lambda: step(params, caches, token,
+                                            pos + I_REPS + 1))
+        ms = statistics.median(a.elapsed_time(b) for a, b in events[1:])
+        bound, bound_by = _decode_bound(cfg, params, caches, B, pos,
+                                        shape.long, rate)
+        lens = sorted({c.k.shape[2] for c in caches.values()})
+        log(f"  {label} [{card}]: {cfg.n_layers} layers, B {B}, cache "
+            f"lengths {lens} at pos {pos}"
+            f"{' (long_mode)' if shape.long else ''}, caches "
+            f"{_cache_bytes(caches)} bytes: {ms:.3f} ms a step (median of "
+            f"{I_REPS}, CUDA events), {B / ms * 1e3:.1f} tokens/s; bound "
+            f"{bound:.3f} ms ({bound_by}), {bound / ms:.3f} of it; peak "
+            f"device memory {peak / 2**30:.2f} GiB")
+        if not all(bool(f) for f in finite):
+            raise AssertionError(f"{label}: non-finite logits")
+        del params, inputs, caches, logits, step
+        torch.cuda.empty_cache()
+
+
+def phase_i3(torch):
+    """The card against the CPU on the reduced chatglm3 and gemma3
+    (local:global, window 64), float32 and bf16 compute: the same numpy
+    prompt of 60 tokens, then 16 greedy steps (positions 60-75, past the
+    local layers' window).  float32 logits agree to rtol/atol 1e-4; the
+    greedy tokens are equal wherever the CPU's top-2 margin exceeds the
+    dtype's; a sequence's first disagreement ends its comparison."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import decode_step, init_params, prefill
+
+    for arch in ("chatglm3-6b", "gemma3-12b"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_arch(arch).reduced(),
+                                      compute_dtype=dtype)
+            label = f"I3 {cfg.name} {dtype}"
+            prompt = np.random.default_rng(3).integers(
+                0, cfg.vocab_size, (I3_BATCH, I3_PROMPT)).astype(np.int32)
+            params = init_params(cfg, seed=0, device="cpu")
+            runs = []
+            for dev in ("cpu", "cuda"):
+                p = params_from_numpy(params, dev)
+                logits, caches, _ = prefill(
+                    p, torch.from_numpy(prompt).to(dev), cfg,
+                    max_len=I3_PROMPT + I3_STEPS)
+                seq = [logits[:, -1].cpu()]
+                for t in range(I3_STEPS):
+                    tok = seq[-1].argmax(-1, keepdim=True).to(torch.int32)
+                    logits, caches = decode_step(p, caches, tok.to(dev),
+                                                 I3_PROMPT + t, cfg)
+                    seq.append(logits[:, 0].cpu())
+                runs.append(seq)
+            # a sequence's comparison ends at its first disagreement: from
+            # there the two runs feed different tokens
+            live = torch.ones(I3_BATCH, dtype=torch.bool)
+            worst, agreed = 0.0, 0
+            for t, (cpu, card) in enumerate(zip(*runs)):
+                if dtype == "float32":
+                    np.testing.assert_allclose(
+                        card[live].numpy(), cpu[live].numpy(), rtol=1e-4,
+                        atol=1e-4, err_msg=f"{label}, step {t}")
+                worst = max(worst, float((card - cpu)[live].abs().max()))
+                top2 = cpu.topk(2, dim=-1).values
+                margin = top2[:, 0] - top2[:, 1]
+                differ = live & (cpu.argmax(-1) != card.argmax(-1))
+                for b in differ.nonzero()[:, 0].tolist():
+                    m = float(margin[b])
+                    log(f"  {label}: sequence {b}'s first disagreement at "
+                        f"step {t}, CPU top-2 margin {m:.3e} (gate "
+                        f"{I3_MARGIN[dtype]})")
+                    if m > I3_MARGIN[dtype]:
+                        raise AssertionError(f"{label}: sequence {b}'s tokens"
+                                             f" differ at step {t}, margin "
+                                             f"{m:.3e}")
+                live &= ~differ
+                agreed += int(live.sum())
+                if not bool(live.any()):
+                    break
+            log(f"  {label}: {agreed} of {I3_BATCH * (I3_STEPS + 1)} greedy "
+                f"tokens equal before the sequences' first disagreements; "
+                f"logits max |card - CPU| {worst:.3e} over them")
+
+
+def phase_i4():
+    """``python -m repro_torch.launch.serve --role decode`` with its
+    defaults, on the card: ``--batch`` rows of ``--gen`` ids, each in
+    [0, vocab)."""
+    import re
+
+    from repro_torch.configs import get_arch
+
+    out = _run_launcher("I4", "repro_torch.launch.serve", ["--role", "decode"],
+                        _child_env())
+    vocab = get_arch("chatglm3-6b").reduced().vocab_size
+    rows = [json.loads(m.group(2))
+            for m in re.finditer(r"^  seq (\d+) (\[.*\])$", out, re.M)]
+    if len(rows) != 4 or any(len(r) != 16 for r in rows) \
+            or any(not 0 <= x < vocab for r in rows for x in r):
+        raise AssertionError(f"I4: expected 4 rows of 16 ids in [0, {vocab})"
+                             f", got {rows}")
+    if "device=cuda" not in out:
+        raise AssertionError("I4: the launcher did not run on the card")
+    log(f"  I4: 4 rows of 16 ids in [0, {vocab}) on the card")
+
 
 def main() -> int:
     import torch
@@ -3192,7 +3481,9 @@ def main() -> int:
                       ("f", lambda: phase_f(torch, results, ref)),
                       ("g", lambda: phase_g(torch, results, ref)),
                       ("h", lambda: phase_h(torch, results,
-                                            smi.stdout.strip()))):
+                                            smi.stdout.strip())),
+                      ("i", lambda: phase_i(torch, smi.stdout.strip(),
+                                            rate))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()
         try:

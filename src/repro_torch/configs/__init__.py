@@ -14,7 +14,7 @@ from .minicpm3_4b import CONFIG as minicpm3_4b
 from .musicgen_large import CONFIG as musicgen_large
 from .qwen2_vl_7b import CONFIG as qwen2_vl_7b
 from .qwen3_moe_235b_a22b import CONFIG as qwen3_moe_235b_a22b
-from .shapes import SHAPES, InputShape, input_specs
+from .shapes import SHAPES, InputShape, concrete_inputs, input_specs
 from .zamba2_2p7b import CONFIG as zamba2_2p7b
 
 ARCHS: dict[str, ModelConfig] = {
@@ -42,6 +42,6 @@ def get_shape(name: str) -> InputShape:
 
 
 __all__ = [
-    "ARCHS", "SHAPES", "InputShape", "ModelConfig", "get_arch", "get_shape",
-    "input_specs",
+    "ARCHS", "SHAPES", "InputShape", "ModelConfig", "concrete_inputs",
+    "get_arch", "get_shape", "input_specs",
 ]

@@ -2,7 +2,8 @@
 (PyTorch port of ``repro.configs.shapes``).
 
 ``input_specs`` returns, for each model input, its ``(shape, dtype)``: the
-port's stand-in for the reference's ``jax.ShapeDtypeStruct``.
+port's stand-in for the reference's ``jax.ShapeDtypeStruct``;
+``concrete_inputs`` makes the inputs themselves.
 """
 from __future__ import annotations
 
@@ -10,7 +11,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import config as mcfg
+from repro_torch.models.attention import KVCache
+from repro_torch.models.model import init_caches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +36,8 @@ SHAPES: dict[str, InputShape] = {
 
 def input_specs(cfg: mcfg.ModelConfig, shape: InputShape) -> dict:
     """``{name: (shape, dtype)}`` of every model input of one
-    (architecture, input shape).  Decode's caches are not ported yet."""
+    (architecture, input shape); decode's ``caches`` is the tree of
+    ``init_caches`` with a ``(shape, dtype)`` pair for each leaf."""
     B, S = shape.global_batch, shape.seq_len
     if shape.kind in ("train", "prefill"):
         specs = {"tokens": ((B, S), torch.int32)}
@@ -40,6 +45,37 @@ def input_specs(cfg: mcfg.ModelConfig, shape: InputShape) -> dict:
             specs["frontend_embeds"] = (
                 (B, cfg.frontend_tokens, cfg.d_model), cfg.cdtype)
         return specs
-    raise NotImplementedError(
-        "decode input specs need the KV and SSM caches, which the port "
-        "does not have yet (ROADMAP queue 1 item 4)")
+    # decode: one new token against a seq_len cache
+    caches = init_caches(cfg, B, S, long_mode=shape.long, device="meta")
+    return {
+        "token": ((B, 1), torch.int32),
+        "pos": ((), torch.int32),
+        "caches": {key: KVCache(*((tuple(x.shape), x.dtype) for x in c))
+                   for key, c in caches.items()},
+    }
+
+
+def concrete_inputs(cfg: mcfg.ModelConfig, shape: InputShape, *, seed=0,
+                    device=None) -> dict:
+    """The inputs themselves on ``device`` (None = the card): tokens from a
+    ``torch.Generator`` seeded with ``seed``; for decode zero caches and
+    ``pos = seq_len // 2``, a Python int."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                       generator=gen, device=device,
+                                       dtype=torch.int32)}
+        if cfg.frontend_tokens:
+            out["frontend_embeds"] = torch.randn(
+                (B, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                device=device).to(cfg.cdtype)
+        return out
+    return {
+        "token": torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                               device=device, dtype=torch.int32),
+        "pos": S // 2,
+        "caches": init_caches(cfg, B, S, long_mode=shape.long,
+                              device=device),
+    }

@@ -21,12 +21,19 @@ Roles:
 * ``--role replica`` -- one inference replica process: connects over TCP,
   decodes (the MLP's accuracy on a fixed eval set) between diff pulls and
   writes its final arena to ``--out`` (``.npy``).
-* ``--role decode`` -- the reference's mesh decode demo needs the model
-  zoo, which the port does not have yet: it raises.
+* ``--role decode`` -- the standalone decode demo: the reduced variant of
+  ``--arch`` (a dense GQA architecture: chatglm3-6b, command-r-35b,
+  gemma3-12b) prefills a seeded prompt of ``--batch`` x ``--prompt-len``
+  tokens, then decodes ``--gen - 1`` tokens against its KV caches, greedy
+  or sampled at ``--temperature``, and prints the generated ids.  No
+  cluster; the ``"model"`` axis has size 1.
 
-Every process rebuilds the same problem from ``--seed``
-(``launch.cluster.problem``) and computes on ``--device`` (default: the
-card).
+      PYTHONPATH=src python -m repro_torch.launch.serve --role decode \
+          --device cpu
+
+The fleet and its replicas rebuild the same problem from ``--seed``
+(``launch.cluster.problem``).  Every role computes on ``--device``
+(default: the card).
 """
 from __future__ import annotations
 
@@ -202,6 +209,52 @@ def run_fleet(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# --role decode: the standalone decode demo
+# ---------------------------------------------------------------------------
+
+def run_decode(args) -> int:
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_arch(args.arch).reduced()
+    device = resolve_device(args.device)
+    print(f"[serve] arch={cfg.name} mesh={ {'data': 1, 'model': 1} } "
+          f"device={device}")
+    params = init_params(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    max_len = args.prompt_len + args.gen
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=device, dtype=torch.int32)
+    fe = None
+    if cfg.frontend_tokens:
+        fe = torch.randn((args.batch, cfg.frontend_tokens, cfg.d_model),
+                         generator=gen, device=device).to(cfg.cdtype)
+
+    def pick(logits):
+        if args.temperature > 0:
+            probs = torch.softmax(logits / args.temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=gen)[:, 0]
+        return torch.argmax(logits, dim=-1)
+
+    logits, caches, _ = prefill(params, prompt, cfg, frontend_embeds=fe,
+                                max_len=max_len)
+    tokens = [pick(logits[:, -1])]
+    for t in range(args.gen - 1):
+        logits, caches = decode_step(params, caches, tokens[-1][:, None],
+                                     args.prompt_len + t, cfg)
+        tokens.append(pick(logits[:, 0]))
+    out = torch.stack(tokens, dim=1).cpu()
+    print("[serve] generated token ids:")
+    for b in range(args.batch):
+        print("  seq", b, out[b].tolist())
+    print("[serve] done")
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--role", choices=("fleet", "replica", "decode"),
@@ -257,6 +310,15 @@ def main(argv=None):
                    help="write trace.json + events.jsonl (flight recorder)")
     p.add_argument("--log-level", default=None)
     p.add_argument("--log-file", default=None)
+    # decode role
+    p.add_argument("--arch", default="chatglm3-6b")
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--prompt-len", type=int, default=32)
+    p.add_argument("--gen", type=int, default=16)
+    p.add_argument("--devices", type=int, default=4,
+                   help="accepted for the reference's command line; no "
+                        "effect: the port's model axis has size 1")
+    p.add_argument("--temperature", type=float, default=0.0)
     args = p.parse_args(argv)
     if args.log_level:
         telemetry.set_level(args.log_level)
@@ -275,10 +337,7 @@ def main(argv=None):
     if args.role == "replica":
         return run_replica(args)
     if args.role == "decode":
-        raise NotImplementedError(
-            "--role decode runs the model's prefill and decode_step over "
-            "KV caches, which the port does not have yet (ROADMAP queue 1 "
-            "item 4)")
+        return run_decode(args)
     cluster_launch.install_reaper()
     return run_fleet(args)
 

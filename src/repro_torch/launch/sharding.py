@@ -1,9 +1,13 @@
 """Sharding rules: the per-leaf partition of the parameters over the
-``"model"`` mesh axis (PyTorch port of ``repro.launch.sharding``).
+``"model"`` mesh axis, and of the batch and the decode caches over the data
+axes (PyTorch port of ``repro.launch.sharding``).
 
-The port runs the ``"model"`` axis at size 1 (tensor parallelism is not
-ported); the rules still decide the exchange's per-leaf hints.  Rules are
-name+shape based so one function serves all 10 architectures:
+A spec is a tuple with one entry per dim: ``"model"``, the data axes
+(one name, or a tuple of names), or None, as the reference's
+``PartitionSpec`` reads.  The port runs the ``"model"`` axis at size 1
+(tensor parallelism is not ported); the rules still decide the exchange's
+per-leaf hints.  Rules are name+shape based so one function serves all 10
+architectures:
 
 * attn/MLP in-projections  (d, H*hd|ff)  -> (None, "model")
 * out/down projections     (ff|H*hd, d)  -> ("model", None)
@@ -113,3 +117,57 @@ def shard_axis_hints(cfg: ModelConfig, params_shape, model_size: int):
                           n_kv_heads=cfg.n_kv_heads)
         hints.append(spec.index("model") if "model" in spec else None)
     return hints
+
+
+def _axes(data_axes):
+    """One data axis name alone, as ``PartitionSpec`` normalizes it."""
+    if isinstance(data_axes, tuple) and len(data_axes) == 1:
+        return data_axes[0]
+    return data_axes
+
+
+def _map_leaves(rule, tree):
+    """``rule(shape)`` at every ``(shape, dtype)`` leaf of a tree of dicts
+    and named tuples (the caches' ``KVCache``), as ``input_specs`` makes
+    them; the tree's structure kept."""
+    if isinstance(tree, dict):
+        return {key: _map_leaves(rule, val) for key, val in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(rule, val) for val in tree))
+    return rule(tuple(tree[0]))
+
+
+def batch_specs(cfg: ModelConfig, batch_shape, data_axes):
+    """Shard every batch input along its leading (batch) dim."""
+    axes = _axes(data_axes)
+    return _map_leaves(
+        lambda shape: (axes,) + (None,) * (len(shape) - 1) if shape else (),
+        batch_shape)
+
+
+def cache_specs(cfg: ModelConfig, caches_shape, data_axes, model_size: int,
+                *, batch: int, n_data: int):
+    """Decode caches: (n_units, B, L, heads..., hd).
+
+    Shard batch over the data axes when divisible; otherwise (long_500k,
+    B=1) shard the cache length.  Shard the heads (or head_dim / state)
+    over "model" when divisible.
+    """
+    axes = _axes(data_axes)
+    shard_batch = batch % n_data == 0 and batch >= n_data
+
+    def rule(shape):
+        dims: list = [None] * len(shape)
+        if len(shape) >= 2:
+            if shard_batch:
+                dims[1] = axes
+            elif len(shape) >= 3 and shape[2] % n_data == 0:
+                dims[2] = axes  # shard cache length / conv dim
+        # model axis: try trailing dims from the end (hd, heads, state)
+        for i in range(len(shape) - 1, 2, -1):
+            if shape[i] % model_size == 0 and shape[i] >= model_size:
+                dims[i] = "model"
+                break
+        return tuple(dims)
+
+    return _map_leaves(rule, caches_shape)

@@ -1,6 +1,5 @@
-"""The train step for (arch, mesh, exchange mode) (PyTorch port of the
-train step of ``repro.launch.steps``; the prefill and serve steps come
-with the decode caches).
+"""The train, prefill and serve steps for (arch, mesh, input shape)
+(PyTorch port of ``repro.launch.steps``).
 
 train step topology, as the reference's ``shard_map`` over the data axes:
 
@@ -13,6 +12,11 @@ On a :class:`~repro_torch.launch.mesh.LaneMesh` the W workers' gradients
 are computed one lane after another, each on its ``B/W`` rows of the
 batch; on a :class:`~repro_torch.launch.mesh.ProcessMesh` each process
 computes its own rank's.
+
+The prefill and serve steps need no collective: the ``"model"`` axis has
+size 1, and a worker's rows of the batch and the caches (``batch_specs``,
+``cache_specs``) are served on their own.  A step computes on the rows it
+is given.
 """
 from __future__ import annotations
 
@@ -20,14 +24,19 @@ import dataclasses
 
 import torch
 
+from repro_torch.configs.shapes import input_specs
 from repro_torch.core.distributed import (ExchangeConfig, exchange,
                                           init_state)
 from repro_torch.core.paramspace import (tree_flatten, tree_leaves,
                                          tree_unflatten)
 from repro_torch.models import config as mcfg
-from repro_torch.models.model import abstract_params, loss_fn
+from repro_torch.models.model import (abstract_params, decode_step, loss_fn,
+                                      prefill)
 
 from . import sharding as shard_rules
+
+# the port's meshes have one data axis (its workers) and no model axis
+DATA_AXES = ("data",)
 
 
 def init_exchange_state(params, ex_cfg: ExchangeConfig, mesh,
@@ -110,3 +119,58 @@ def build_train_step(cfg: mcfg.ModelConfig, mesh, ex_cfg: ExchangeConfig,
     hints = shard_rules.shard_axis_hints(cfg, abstract_params(cfg), 1)
     return TrainStep(cfg=cfg, mesh=mesh, ex_cfg=ex_cfg, lr=lr, remat=remat,
                      hints=hints)
+
+
+@dataclasses.dataclass
+class PrefillStep:
+    """``step(params, batch) -> (last-position logits, caches)``;
+    ``batch_specs`` is the batch's layout over the data axes."""
+
+    cfg: mcfg.ModelConfig
+    batch_specs: dict
+
+    def __call__(self, params, batch):
+        logits, caches, _ = prefill(
+            params, batch["tokens"], self.cfg,
+            frontend_embeds=batch.get("frontend_embeds"))
+        return logits, caches
+
+
+@dataclasses.dataclass
+class ServeStep:
+    """``step(params, caches, token, pos) -> (logits, caches)``: one
+    ``decode_step``, the caches updated in place (the reference donates
+    them).  ``cache_specs`` is the caches' layout over the data axes."""
+
+    cfg: mcfg.ModelConfig
+    long_mode: bool
+    cache_specs: dict
+
+    def __call__(self, params, caches, token, pos):
+        return decode_step(params, caches, token, pos, self.cfg,
+                           long_mode=self.long_mode)
+
+
+def build_prefill_step(cfg: mcfg.ModelConfig, mesh, *, shape) -> PrefillStep:
+    return PrefillStep(cfg=cfg, batch_specs=shard_rules.batch_specs(
+        cfg, input_specs(cfg, shape), DATA_AXES))
+
+
+def build_serve_step(cfg: mcfg.ModelConfig, mesh, *, shape) -> ServeStep:
+    # the "model" axis has size 1: tensor parallelism is not ported
+    cspecs = shard_rules.cache_specs(
+        cfg, input_specs(cfg, shape)["caches"], DATA_AXES, 1,
+        batch=shape.global_batch, n_data=mesh.size)
+    return ServeStep(cfg=cfg, long_mode=shape.long, cache_specs=cspecs)
+
+
+def build_step(cfg, mesh, shape, *, ex_cfg: ExchangeConfig | None = None,
+               lr: float = 1e-2):
+    """One entry point: the step kind for the input shape."""
+    if shape.kind == "train":
+        return build_train_step(cfg, mesh,
+                                ex_cfg or ExchangeConfig(mode="allgather"),
+                                lr=lr)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, mesh, shape=shape)
+    return build_serve_step(cfg, mesh, shape=shape)

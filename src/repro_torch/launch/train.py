@@ -81,7 +81,7 @@ def main(argv=None):
     if cfg.frontend_tokens:
         raise NotImplementedError(
             f"{cfg.name} trains with frontend embeddings, which the port "
-            f"does not have yet (ROADMAP queue 1 item 4)")
+            f"does not have yet (ROADMAP queue 1 item 3d)")
     device = resolve_device(args.device)
     if "WORLD_SIZE" in os.environ:
         mesh = mesh_lib.init_process_mesh(

@@ -1,1 +1,6 @@
 """Models."""
+from .model import (abstract_params, decode_step, forward, init_caches,
+                    init_params, loss_fn, prefill)
+
+__all__ = ["abstract_params", "decode_step", "forward", "init_caches",
+           "init_params", "loss_fn", "prefill"]

@@ -1,12 +1,18 @@
 """Model assembly: decoder-only LM over a stack of GQA transformer blocks
-(PyTorch port of the training path of ``repro.models.model``).
+(PyTorch port of ``repro.models.model``).
 
 The parameters are the reference's nested dict, key for key: ``embed``,
 ``final_norm``, ``lm_head`` (when not tied) and ``units.b{i}.…``, each
 unit leaf stacked over the units on a leading dim.  ``forward`` walks the
 units in a Python loop, each reading its slice of the stacked leaves (the
-reference's ``lax.scan``).  The MoE, MLA, SSM and hybrid blocks, the
-modality frontends, prefill and decode are not ported yet.
+reference's ``lax.scan``).  The MoE, MLA, SSM and hybrid blocks and the
+modality frontends are not ported yet.
+
+Three entry points per architecture x input shape:
+  forward / loss_fn  -- training shapes
+  prefill            -- forward + KV cache construction
+  decode_step        -- one token against the caches (the serve step),
+                        which it updates in place
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from .layers import (Init, embed, embedding_init, linear, linear_init, mlp,
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item 4); the port's "
+        f"{what} is not ported yet (ROADMAP queue 1 item 3); the port's "
         f"model runs the dense GQA family")
 
 
@@ -83,11 +89,18 @@ def abstract_params(cfg: ModelConfig):
 
 # ---------------------------------------------------------------- forward --
 
-def _apply_block(bp, h, positions, cfg: ModelConfig, kind: str):
-    h = h + attn.gqa_forward(bp["attn"], norm(cfg.norm, bp["norm1"], h),
-                             positions, cfg, layer_kind=kind)
+def _apply_block(bp, h, positions, cfg: ModelConfig, kind: str, *,
+                 want_cache: bool = False):
+    """One block: (h, the layer's KVCache or None)."""
+    out = attn.gqa_forward(bp["attn"], norm(cfg.norm, bp["norm1"], h),
+                           positions, cfg, layer_kind=kind,
+                           return_kv=want_cache)
+    cache = None
+    if want_cache:
+        out, cache = out
+    h = h + out
     hn = norm(cfg.norm, bp["norm2"], h)
-    return h + mlp(bp["mlp"], hn, activation=cfg.activation)
+    return h + mlp(bp["mlp"], hn, activation=cfg.activation), cache
 
 
 def _sinusoidal(d_model: int, positions):
@@ -112,9 +125,17 @@ def _unit_slices(units, n_units: int):
     return units.unbind(0)
 
 
+def _head(params, h, cfg: ModelConfig):
+    h = norm(cfg.norm, params["final_norm"], h)
+    if cfg.tie_embeddings:
+        return unembed(params["embed"], h)
+    return linear(params["lm_head"], h).to(torch.float32)
+
+
 def forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
-            remat: bool = False):
-    """tokens: (B, S) int -> logits (B, S, V) float32.
+            want_cache: bool = False, remat: bool = False):
+    """tokens: (B, S) int -> logits (B, S, V) float32 (and, when
+    ``want_cache``, the caches stacked over the units, for prefill).
 
     ``remat=True`` checkpoints each unit (activation recomputation in the
     backward pass)."""
@@ -130,19 +151,28 @@ def forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
         h = h + _sinusoidal(cfg.d_model, positions).to(h.dtype)
 
     def unit_fn(h, unit_params):
+        caches = {}
         for i, kind in enumerate(pattern):
-            h = _apply_block(unit_params[f"b{i}"], h, positions, cfg, kind)
-        return h
+            h, caches[f"b{i}"] = _apply_block(unit_params[f"b{i}"], h,
+                                              positions, cfg, kind,
+                                              want_cache=want_cache)
+        return h, caches
 
+    unit_caches = []
     for unit_params in _unit_slices(params["units"], n_units):
         if remat:
-            h = checkpoint(unit_fn, h, unit_params, use_reentrant=False)
+            h, caches = checkpoint(unit_fn, h, unit_params,
+                                   use_reentrant=False)
         else:
-            h = unit_fn(h, unit_params)
-    h = norm(cfg.norm, params["final_norm"], h)
-    if cfg.tie_embeddings:
-        return unembed(params["embed"], h)
-    return linear(params["lm_head"], h).to(torch.float32)
+            h, caches = unit_fn(h, unit_params)
+        unit_caches.append(caches)
+    logits = _head(params, h, cfg)
+    if not want_cache:
+        return logits
+    return logits, {
+        key: attn.KVCache(k=torch.stack([c[key].k for c in unit_caches]),
+                          v=torch.stack([c[key].v for c in unit_caches]))
+        for key in unit_caches[0]}
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
@@ -161,3 +191,93 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
     nll = lse - tgt_logit
     loss = torch.mean(nll)
     return loss, {"nll": loss}
+
+
+# ------------------------------------------------------------ serve paths --
+
+def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
+                long_mode: bool = False, device=None):
+    """Zero caches, one :class:`~repro_torch.models.attention.KVCache` a
+    block of the unit pattern, each leaf stacked over the units:
+    ``(n_units, batch, L, KH, hd)`` on ``device`` (None = the card;
+    ``"meta"`` for shapes only).  The reference broadcasts one unit's
+    zeros; these are allocated whole, since decode writes them in
+    place."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    pattern, n_units = cfg.unit_pattern()
+    return {f"b{i}": attn.gqa_init_cache(cfg, batch, seq_len,
+                                         layer_kind=kind,
+                                         long_mode=long_mode,
+                                         lead=(n_units,), device=device)
+            for i, kind in enumerate(pattern)}
+
+
+def decode_step(params, caches, token, pos, cfg: ModelConfig, *,
+                long_mode: bool = False):
+    """The serve step: one new token per sequence against the caches.
+
+    token: (B, 1) int; pos: the current position, a Python int.  Writes
+    each layer's K/V into ``caches`` in place and returns (logits
+    (B, 1, V) float32, caches)."""
+    _check_supported(cfg)
+    pattern, n_units = cfg.unit_pattern()
+    B = token.shape[0]
+    h = embed(params["embed"], token).to(cfg.cdtype)
+    if cfg.rope == "none":
+        p = torch.full((B, 1), pos, dtype=torch.int32, device=token.device)
+        h = h + _sinusoidal(cfg.d_model, p).to(h.dtype)
+    for u, unit_params in enumerate(_unit_slices(params["units"], n_units)):
+        for i, kind in enumerate(pattern):
+            bp, c = unit_params[f"b{i}"], caches[f"b{i}"]
+            # the unit's views of the stacked cache, written in place
+            out, _ = attn.gqa_decode(
+                bp["attn"], attn.KVCache(k=c.k[u], v=c.v[u]),
+                norm(cfg.norm, bp["norm1"], h), pos, cfg, layer_kind=kind,
+                long_mode=long_mode)
+            h = h + out
+            h = h + mlp(bp["mlp"], norm(cfg.norm, bp["norm2"], h),
+                        activation=cfg.activation)
+    return _head(params, h, cfg), caches
+
+
+def prefill(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
+            max_len: int | None = None):
+    """Forward pass + cache construction for the decode that follows.
+
+    Returns (last-position logits (B,1,V), caches, aux).  The caches are
+    each block's post-rope K/V from the forward pass, so ``decode_step``
+    continues exactly; ``max_len`` pads the linear caches with decode
+    headroom.  ``aux`` holds the reference's MoE losses, zero for the
+    dense family."""
+    logits, caches = forward(params, tokens, cfg,
+                             frontend_embeds=frontend_embeds,
+                             want_cache=True)
+    if max_len is not None:
+        caches = _pad_caches(caches, tokens.shape[1], max_len)
+    zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return logits[:, -1:], caches, {"load_balance": zero,
+                                    "router_z": zero.clone()}
+
+
+def _pad_caches(caches, cur_len: int, max_len: int):
+    """Pad the full-length (linear) caches along the position axis with
+    zeros to ``max_len``.  Leaves are stacked over the units:
+    ``(n_units, B, L, ...)``.  A cache whose length is not ``cur_len`` is a
+    ring (L == window < cur_len) and is left alone: decode masks by age."""
+    def pad(x):
+        L = x.shape[2]
+        if L != cur_len or max_len <= L:
+            return x
+        out = x.new_zeros(x.shape[:2] + (max_len,) + x.shape[3:])
+        out[:, :, :L] = x
+        return out
+
+    def walk(c):
+        if isinstance(c, attn.KVCache):
+            return attn.KVCache(k=pad(c.k), v=pad(c.v))
+        if isinstance(c, dict):
+            return {k: walk(v) for k, v in c.items()}
+        raise TypeError(type(c))
+
+    return walk(caches)

@@ -72,4 +72,4 @@ def standard_rope(q, k, positions, *, theta: float = 10000.0,
 def mrope(q, k, positions_tsw, *, theta: float, sections=(16, 24, 24)):
     """Qwen2-VL M-RoPE: not ported yet."""
     raise NotImplementedError(
-        "M-RoPE (qwen2-vl) is not ported yet (ROADMAP queue 1 item 4)")
+        "M-RoPE (qwen2-vl) is not ported yet (ROADMAP queue 1 item 3d)")

@@ -270,7 +270,7 @@ def test_init_params_default_device_is_the_card(monkeypatch):
 
 @pytest.mark.parametrize("name", [n for n in NAMES if n not in DENSE])
 def test_other_families_raise(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         tinit(TARCHS[name].reduced(), device="cpu")
 
 

@@ -7,8 +7,9 @@
   params, bytes); every replica ends on the final arena bit for bit.
 * The ``sub/*`` counters, ``decode_fn``'s advancing models, the
   coordinator's delta-checkpoint chain (byte-equal to the reference
-  runner's), a replica over TCP, what still raises, and the serve
-  launcher's ``--smoke`` on the CPU.
+  runner's), a replica over TCP, what still raises, the serve
+  launcher's ``--smoke`` on the CPU, and its ``--role decode`` against a
+  direct prefill/decode loop.
 
 The grad_fn is elementwise (grads = w - target), so every parameter, ``M``
 and ``v`` is bit-equal in the two frameworks, and so is its loss.  Every receive and join is
@@ -304,8 +305,56 @@ def test_sharded_serving_and_decode_role_raise():
         with pytest.raises(NotImplementedError, match="later slice"):
             run_inprocess(strat, _torch_grad_fn, tp, tbatch, schedule=[0, 1],
                           n_replicas=1, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        serve.main(["--role", "decode"])
+    # the decode role runs the dense GQA family; the others still raise
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        serve.main(["--role", "decode", "--device", "cpu", "--arch",
+                    "dbrx-132b"])
+
+
+@pytest.mark.parametrize("arch,temperature",
+                         [("chatglm3-6b", 0.0), ("gemma3-12b", 0.8)])
+def test_decode_role_equals_a_direct_loop(arch, temperature, capsys):
+    """``--role decode --device cpu`` prints ``--batch`` rows of ``--gen``
+    ids: those of a prefill/decode_step loop on the same seeded prompt
+    (greedy, or sampled from the same generator)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    B, S, n = 3, 20, 6
+    assert serve.main(["--role", "decode", "--device", "cpu", "--arch", arch,
+                       "--batch", str(B), "--prompt-len", str(S), "--gen",
+                       str(n), "--temperature", str(temperature)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"[serve] arch={arch}-reduced")
+    assert lines[1] == "[serve] generated token ids:"
+    assert lines[-1] == "[serve] done"
+    rows = [line.split(" ", 4) for line in lines[2:-1]]
+    assert [r[:4] for r in rows] == [["", "", "seq", str(b)]
+                                     for b in range(B)]
+    got = [[int(x) for x in r[4].strip("[]").split(",")] for r in rows]
+
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator("cpu").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           dtype=torch.int32)
+
+    def pick(logits):
+        if temperature > 0:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=gen)[:, 0]
+        return logits.argmax(-1)
+
+    logits, caches, _ = prefill(params, prompt, cfg, max_len=S + n)
+    want = [pick(logits[:, -1])]
+    for t in range(n - 1):
+        logits, caches = decode_step(params, caches, want[-1][:, None], S + t,
+                                     cfg)
+        want.append(pick(logits[:, 0]))
+    want = torch.stack(want, dim=1)
+    assert got == want.tolist()
+    assert all(0 <= x < cfg.vocab_size for row in got for x in row)
 
 
 def test_serve_launcher_smoke_on_cpu(tmp_path):
