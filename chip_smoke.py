@@ -162,11 +162,38 @@ exits nonzero and prints no result line):
   equal wherever the CPU's top-2 margin exceeds 1e-3 (float32) or 5e-2
   (bf16).  I4 runs ``python -m repro_torch.launch.serve --role decode``
   and needs exit code 0 and 4 rows of 16 ids in [0, vocab).
+* j -- the MoE family (``models/moe.py``: router, dense and capacity
+  dispatch, aux losses) through forward, loss, prefill and decode; no
+  kernel of the port lies on its forward path.  J1 prefills
+  qwen3-moe-235b-a22b at its published widths (d_model 4,096, 64 heads, 4
+  KV heads, 128 experts of 1,536, top-8, capacity factor 1.25, capacity
+  dispatch, vocab 151,936), 2 of 94 layers (6,220,173,312 parameters),
+  with I1's prompt of 16 x 1,024 and decodes 64 greedy tokens: finite
+  logits, ids in range, the prefill's C 1,280 a layer and finite aux;
+  prints prefill ms, decode ms a step against its bound, tokens/s, peak
+  memory, each call's C and the share of (token, choice) pairs dropped
+  (counted by wrapping ``moe.dispatch`` in untimed calls), and a profiled
+  step.  J2 times 10 decode steps from ``concrete_inputs``: qwen3-moe (2
+  layers) at decode_32k (B 128, C 10) and long_500k (B 1, C 1), dbrx-132b
+  (1 layer) at decode_32k, each against ``_decode_bound`` (of the
+  experts only those with a kept pair read, only the kept pairs
+  multiplied).  J3 holds the card against the CPU on the reduced qwen3-moe
+  and dbrx, dense and capacity dispatch (and dbrx at 8 experts, where
+  pairs drop), float32 and bf16: I3's logits and token gates, the loss
+  with its aux to rtol 1e-4, the router's ids at every float32 layer and
+  token whose margin exceeds 1e-6 (at most 1 in 1,000 excused); then one
+  MoE train step (reduced qwen3-moe, capacity, W = 4 lanes): the
+  blockwise allgather step launches rows 1-4b (counted over that step),
+  H2a's gate on the exact engine's step and H2b's on the blockwise
+  exchange fed the CPU's gradients.  J4 runs ``launch/serve.py --role
+  decode --arch qwen3-moe-235b-a22b`` and ``launch/train.py --arch
+  dbrx-132b --steps 3``; both must exit 0.
 
 The last two lines are the kernel table and the result, each one JSON object.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2855,7 +2882,7 @@ def h1_identity(torch, cfg, mesh, stream):
 H_TIE = 1e-5     # how near a support swap lies to its row's boundary
 
 
-def _tie_gaps(torch, step, velocity, grads):
+def _tie_gaps(torch, step, velocity, grads, *, lanes: bool = False):
     """Per leaf, each coordinate's distance from its row's selection
     boundary on its closest lane, relative to the row's k-th magnitude:
     with ``a`` the coordinate's ``|m * u + lr * g|`` and ``t_k >= t_k1``
@@ -2863,7 +2890,9 @@ def _tie_gaps(torch, step, velocity, grads):
     <= a <= t_k`` and otherwise how far ``a`` lies outside, over ``t_k``
     (inf where the row selects every coordinate).  A coordinate that two
     runs select differently although their accumulations differ by
-    rounding alone lies within that rounding of the boundary."""
+    rounding alone lies within that rounding of the boundary.  With
+    ``lanes`` each leaf's entry is instead a pair of ``(L, *shape)``
+    arrays: every lane's distance and ``a``."""
     from repro_torch.core.distributed import leaf_cut
     from repro_torch.core.engine import velocity_accumulate
     from repro_torch.core.paramspace import tree_leaves
@@ -2875,20 +2904,25 @@ def _tie_gaps(torch, step, velocity, grads):
         c = leaf_cut(shape, ax, step.ex_cfg, step.mesh.size)
         moved = shape if c.ax is None else \
             (shape[c.ax],) + shape[:c.ax] + shape[c.ax + 1:]
-        gap = torch.full((c.S, c.rest), float("inf"), device=u.device)
-        for lane in range(u.shape[0] if c.k_row < c.rest else 0):
+        gaps, accs = [], []
+        for lane in range(u.shape[0]):
             a = velocity_accumulate(u[lane], g[lane],
                                     momentum=step.ex_cfg.momentum,
                                     lr=step.lr).abs()
+            accs.append(a.cpu().numpy())
+            if c.k_row >= c.rest:
+                gaps.append(np.full(shape, np.inf))
+                continue
             a = a.reshape(c.S, c.rest) if c.ax is None else \
                 a.movedim(c.ax, 0).reshape(c.S, c.rest)
             top = a.topk(c.k_row + 1, dim=1).values
             tk, tk1 = top[:, c.k_row - 1:c.k_row], top[:, c.k_row:]
-            gap = torch.minimum(gap, torch.maximum(tk - a, a - tk1).clamp(
-                min=0) / torch.where(tk > 0, tk, 1.0))
-        gap = gap.reshape(moved)
-        out.append((gap if c.ax is None else gap.movedim(0, c.ax))
-                   .cpu().numpy())
+            gap = (torch.maximum(tk - a, a - tk1).clamp(min=0)
+                   / torch.where(tk > 0, tk, 1.0)).reshape(moved)
+            gaps.append((gap if c.ax is None else gap.movedim(0, c.ax))
+                        .cpu().numpy())
+        gaps = np.stack(gaps)
+        out.append((gaps, np.stack(accs)) if lanes else gaps.min(0))
     return out
 
 
@@ -3189,22 +3223,35 @@ def _cache_bytes(caches) -> int:
                for c in caches.values() for t in c)
 
 
-def _decode_bound(cfg, params, caches, batch, pos, long_mode, rate):
+def _decode_bound(cfg, params, caches, batch, pos, long_mode, rate,
+                  moe=None):
     """(bound ms, "bytes" or "operations") of one decode step: the larger
     of its bytes over the memory rate (every cache leaf and every parameter
     read once, of an untied embedding only the batch's rows; the new K/V
     rows and the float32 logits written once) and its operations over the
     peak rate of their type (the projections in the compute dtype and the
     head in its own, 2 flops a weight and token; the float32 scores and PV
-    product over the positions the mask lets through)."""
+    product over the positions the mask lets through).  For the MoE family
+    ``moe`` is the step's routing, (experts with a kept pair, kept pairs),
+    each summed over the layers: of the experts' weights only those
+    experts' are read and only the kept pairs multiplied (the work this
+    run's data needs); the router multiplies in float32."""
     from repro_torch.core.paramspace import tree_leaves
     from repro_torch.models.attention import _is_windowed
 
     pattern, n_units = cfg.unit_pattern()
     table = params["embed"]["table"].numel()
     weights = sum(p.numel() for p in tree_leaves(params)) - table
+    router = expert = per_expert = used = kept = 0
+    if cfg.moe is not None:
+        blocks = [params["units"][f"b{i}"]["moe"] for i in range(len(pattern))]
+        router = sum(b["router"]["w"].numel() for b in blocks)
+        expert = sum(b[key].numel() for b in blocks
+                     for key in ("up", "gate", "down") if key in b)
+        per_expert = expert // (cfg.n_layers * cfg.moe.n_experts)
+        used, kept = moe
     kv_bytes = next(iter(caches.values())).k.element_size()
-    read = (4 * weights + _cache_bytes(caches)
+    read = (4 * (weights - expert + used * per_expert) + _cache_bytes(caches)
             + 4 * (table if cfg.tie_embeddings else batch * cfg.d_model))
     wrote = (2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.hd * kv_bytes
              + 4 * batch * cfg.vocab_size)
@@ -3217,8 +3264,10 @@ def _decode_bound(cfg, params, caches, batch, pos, long_mode, rate):
     # the tied head multiplies in float32 (``layers.unembed``)
     tied = 2 * batch * table if cfg.tie_embeddings else 0
     t_bytes = (read + wrote) / rate * 1e3
-    t_ops = (2 * batch * weights / PEAK_FLOPS[cfg.compute_dtype]
-             + (tied + attn) / PEAK_FLOPS["float32"]) * 1e3
+    t_ops = ((2 * batch * (weights - expert - router) + 2 * kept * per_expert)
+             / PEAK_FLOPS[cfg.compute_dtype]
+             + (tied + attn + 2 * batch * router) / PEAK_FLOPS["float32"]
+             ) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3363,7 +3412,7 @@ def phase_i3(torch):
 
     from repro_torch.configs import get_arch
     from repro_torch.convert import params_from_numpy
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import init_params
 
     for arch in ("chatglm3-6b", "gemma3-12b"):
         for dtype in ("float32", "bfloat16"):
@@ -3373,70 +3422,565 @@ def phase_i3(torch):
             prompt = np.random.default_rng(3).integers(
                 0, cfg.vocab_size, (I3_BATCH, I3_PROMPT)).astype(np.int32)
             params = init_params(cfg, seed=0, device="cpu")
-            runs = []
-            for dev in ("cpu", "cuda"):
-                p = params_from_numpy(params, dev)
-                logits, caches, _ = prefill(
-                    p, torch.from_numpy(prompt).to(dev), cfg,
-                    max_len=I3_PROMPT + I3_STEPS)
-                seq = [logits[:, -1].cpu()]
-                for t in range(I3_STEPS):
-                    tok = seq[-1].argmax(-1, keepdim=True).to(torch.int32)
-                    logits, caches = decode_step(p, caches, tok.to(dev),
-                                                 I3_PROMPT + t, cfg)
-                    seq.append(logits[:, 0].cpu())
-                runs.append(seq)
-            # a sequence's comparison ends at its first disagreement: from
-            # there the two runs feed different tokens
-            live = torch.ones(I3_BATCH, dtype=torch.bool)
-            worst, agreed = 0.0, 0
-            for t, (cpu, card) in enumerate(zip(*runs)):
-                if dtype == "float32":
-                    np.testing.assert_allclose(
-                        card[live].numpy(), cpu[live].numpy(), rtol=1e-4,
-                        atol=1e-4, err_msg=f"{label}, step {t}")
-                worst = max(worst, float((card - cpu)[live].abs().max()))
-                top2 = cpu.topk(2, dim=-1).values
-                margin = top2[:, 0] - top2[:, 1]
-                differ = live & (cpu.argmax(-1) != card.argmax(-1))
-                for b in differ.nonzero()[:, 0].tolist():
-                    m = float(margin[b])
-                    log(f"  {label}: sequence {b}'s first disagreement at "
-                        f"step {t}, CPU top-2 margin {m:.3e} (gate "
-                        f"{I3_MARGIN[dtype]})")
-                    if m > I3_MARGIN[dtype]:
-                        raise AssertionError(f"{label}: sequence {b}'s tokens"
-                                             f" differ at step {t}, margin "
-                                             f"{m:.3e}")
-                live &= ~differ
-                agreed += int(live.sum())
-                if not bool(live.any()):
-                    break
+            runs = [_greedy_run(torch, params_from_numpy(params, dev), prompt,
+                                cfg, dev) for dev in ("cpu", "cuda")]
+            agreed, worst = _greedy_compare(label, *runs, I3_MARGIN[dtype],
+                                            logits_gate=dtype == "float32")
             log(f"  {label}: {agreed} of {I3_BATCH * (I3_STEPS + 1)} greedy "
                 f"tokens equal before the sequences' first disagreements; "
                 f"logits max |card - CPU| {worst:.3e} over them")
+
+
+def _greedy_run(torch, params, prompt, cfg, dev):
+    """Prefill ``prompt`` (numpy) on ``dev``, then ``I3_STEPS`` greedy
+    decode steps: the last-position logits of each, on the host."""
+    from repro_torch.models import decode_step, prefill
+
+    logits, caches, _ = prefill(params, torch.from_numpy(prompt).to(dev),
+                                cfg, max_len=prompt.shape[1] + I3_STEPS)
+    seq = [logits[:, -1].cpu()]
+    for t in range(I3_STEPS):
+        tok = seq[-1].argmax(-1, keepdim=True).to(torch.int32)
+        logits, caches = decode_step(params, caches, tok.to(dev),
+                                     prompt.shape[1] + t, cfg)
+        seq.append(logits[:, 0].cpu())
+    return seq
+
+
+def _greedy_compare(label, cpu_seq, card_seq, gate, *, logits_gate):
+    """The card's greedy run against the CPU's, step by step (each a list
+    of ``(B, V)`` logits): float32 logits to rtol/atol 1e-4 where
+    ``logits_gate``; tokens equal wherever the CPU's top-2 margin exceeds
+    ``gate``.  A sequence's comparison ends at its first disagreement: from
+    there the two runs feed different tokens.  Returns (tokens agreed, max
+    |card - CPU| over the compared logits)."""
+    import torch
+
+    live = torch.ones(cpu_seq[0].shape[0], dtype=torch.bool)
+    worst, agreed = 0.0, 0
+    for t, (cpu, card) in enumerate(zip(cpu_seq, card_seq)):
+        if logits_gate:
+            np.testing.assert_allclose(
+                card[live].numpy(), cpu[live].numpy(), rtol=1e-4,
+                atol=1e-4, err_msg=f"{label}, step {t}")
+        worst = max(worst, float((card - cpu)[live].abs().max()))
+        top2 = cpu.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        differ = live & (cpu.argmax(-1) != card.argmax(-1))
+        for b in differ.nonzero()[:, 0].tolist():
+            m = float(margin[b])
+            log(f"  {label}: sequence {b}'s first disagreement at step {t}, "
+                f"CPU top-2 margin {m:.3e} (gate {gate})")
+            if m > gate:
+                raise AssertionError(f"{label}: sequence {b}'s tokens differ "
+                                     f"at step {t}, margin {m:.3e}")
+        live &= ~differ
+        agreed += int(live.sum())
+        if not bool(live.any()):
+            break
+    return agreed, worst
 
 
 def phase_i4():
     """``python -m repro_torch.launch.serve --role decode`` with its
     defaults, on the card: ``--batch`` rows of ``--gen`` ids, each in
     [0, vocab)."""
+    out = _run_launcher("I4", "repro_torch.launch.serve", ["--role", "decode"],
+                        _child_env())
+    _check_decode_rows("I4", out, "chatglm3-6b")
+
+
+def _check_decode_rows(label, out, arch):
+    """The decode launcher's defaults on the card: 4 rows of 16 ids, each
+    in [0, vocab) of ``arch``'s reduced variant."""
     import re
 
     from repro_torch.configs import get_arch
 
-    out = _run_launcher("I4", "repro_torch.launch.serve", ["--role", "decode"],
-                        _child_env())
-    vocab = get_arch("chatglm3-6b").reduced().vocab_size
+    vocab = get_arch(arch).reduced().vocab_size
     rows = [json.loads(m.group(2))
             for m in re.finditer(r"^  seq (\d+) (\[.*\])$", out, re.M)]
     if len(rows) != 4 or any(len(r) != 16 for r in rows) \
             or any(not 0 <= x < vocab for r in rows for x in r):
-        raise AssertionError(f"I4: expected 4 rows of 16 ids in [0, {vocab})"
-                             f", got {rows}")
+        raise AssertionError(f"{label}: expected 4 rows of 16 ids in [0, "
+                             f"{vocab}), got {rows}")
     if "device=cuda" not in out:
-        raise AssertionError("I4: the launcher did not run on the card")
-    log(f"  I4: 4 rows of 16 ids in [0, {vocab}) on the card")
+        raise AssertionError(f"{label}: the launcher did not run on the card")
+    log(f"  {label}: 4 rows of 16 ids in [0, {vocab}) on the card")
+
+
+# ---------------------------------------------------------------------------
+# phase J: the MoE family through forward, loss, prefill and decode
+# ---------------------------------------------------------------------------
+
+J_ARCH = "qwen3-moe-235b-a22b"
+J_LAYERS = 2                      # of qwen3-moe's 94 (J1, J2)
+# J2's cells: (arch, input shape, layers, batch cut)
+J2_CELLS = (("qwen3-moe-235b-a22b", "decode_32k", 2, None),
+            ("qwen3-moe-235b-a22b", "long_500k", 2, None),
+            ("dbrx-132b", "decode_32k", 1, None))
+# J3's cells: (arch, dispatch, experts of the reduced config); the reduced
+# configs route every token to all 4 experts, so the last cell takes 8
+# (dbrx's top-4 of 8) and drops pairs
+J3_CELLS = (("qwen3-moe-235b-a22b", "dense", 4),
+            ("qwen3-moe-235b-a22b", "capacity", 4),
+            ("dbrx-132b", "dense", 4),
+            ("dbrx-132b", "capacity", 4),
+            ("dbrx-132b", "capacity", 8))
+J_MARGIN = 1e-6        # router ids are held where the margin exceeds it
+J_ROWS = H_ROWS + ("fma",)        # rows 1-4b: the MoE train step's
+
+
+@contextlib.contextmanager
+def _tap(module, name, record):
+    """While active, ``module.name`` calls the original and hands
+    ``record`` its arguments and result (the callers look it up in the
+    module at every call)."""
+    orig = getattr(module, name)
+
+    def tapped(*args):
+        out = orig(*args)
+        record(args, out)
+        return out
+
+    setattr(module, name, tapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _routing(torch, calls):
+    """Taps ``models.moe.dispatch`` (the capacity path's routing): per
+    call its C, pairs, dropped pairs and experts with a kept pair, the
+    last two device tensors until read (no host sync inside the work)."""
+    from repro_torch.models import moe
+
+    def record(args, out):
+        ids, cfg = args
+        _, e_s, _, keep, _ = out
+        hits = torch.zeros(cfg.moe.n_experts, device=ids.device)
+        hits.index_add_(0, e_s, keep.to(torch.float32))
+        calls.append((moe.capacity(ids.shape[0], cfg), keep.numel(),
+                      (~keep).sum(), (hits > 0).sum()))
+
+    return _tap(moe, "dispatch", record)
+
+
+def _routing_totals(calls):
+    """(each call's C, pairs, dropped pairs, experts with a kept pair),
+    the counts summed over the calls (the layers)."""
+    return ([c for c, *_ in calls], sum(n for _, n, _, _ in calls),
+            sum(int(d) for _, _, d, _ in calls),
+            sum(int(u) for *_, u in calls))
+
+
+def _routing_line(calls) -> str:
+    caps, pairs, dropped, used = _routing_totals(calls)
+    return (f"C {caps}, {dropped} of {pairs} (token, choice) pairs dropped "
+            f"({dropped / pairs:.4f}), {used} experts used over the layers")
+
+
+def phase_j(torch, results, card, rate):
+    """The MoE family: J1 qwen3-moe-235b-a22b at its published widths (2 of
+    94 layers), prefill and 64 greedy tokens; J2 decode steps at the
+    assigned decode shapes; J3 the card against the CPU on the reduced
+    MoE models (forward, loss with aux, router ids, greedy decode) and one
+    MoE train step (rows 1-4b); J4 the decode and train launchers.  No
+    kernel of the port lies on the MoE forward path: the counters are
+    read over J1-J3's model runs and printed."""
+    import re
+
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    phase_j1(torch, card, rate)
+    torch.cuda.empty_cache()
+    phase_j2(torch, card, rate)
+    torch.cuda.empty_cache()
+    phase_j3(torch)
+    torch.cuda.empty_cache()
+    log(f"  J1-J3: kernel launches "
+        f"{ {k.name: k.launches for k in kernels.KERNELS} } (no kernel on "
+        f"the MoE forward and decode path)")
+    phase_j3_train(torch, results)
+    torch.cuda.empty_cache()
+    out = _run_launcher("J4 serve", "repro_torch.launch.serve",
+                        ["--role", "decode", "--arch", J_ARCH], _child_env())
+    _check_decode_rows("J4 serve", out, J_ARCH)
+    out = _run_launcher("J4 train", "repro_torch.launch.train",
+                        ["--arch", "dbrx-132b", "--steps", "3"], _child_env())
+    losses = [float(x) for x in re.findall(r"step +\d+ loss=(\S+)", out)]
+    if len(losses) != 3 or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"J4 train: losses {losses}")
+
+
+def phase_j1(torch, card, rate):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(get_arch(J_ARCH), n_layers=J_LAYERS)
+    e = cfg.moe
+    params = init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    log(f"  J1: {cfg.name} at its published widths (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim {cfg.hd}, "
+        f"{e.n_experts} experts of d_expert {e.d_expert}, top-{e.top_k}, "
+        f"capacity factor {e.capacity_factor}, {e.impl} dispatch, vocab "
+        f"{cfg.vocab_size}), {cfg.n_layers} layers: {n_params} parameters "
+        f"({4 * n_params} bytes); B {I_BATCH}, a prompt of {I_PROMPT}, "
+        f"{I_GEN} greedy tokens")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (I_BATCH, I_PROMPT)).astype(np.int32)).cuda()
+    max_len = I_PROMPT + I_GEN
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, routing = [], []
+    for i in range(2):      # the first call warms up and counts the routing
+        logits = caches = None
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        with _routing(torch, routing) if i == 0 else \
+                contextlib.nullcontext():
+            logits, caches, aux = prefill(params, prompt, cfg,
+                                          max_len=max_len)
+        ev[1].record()
+        torch.cuda.synchronize()
+        prefill_ms.append(ev[0].elapsed_time(ev[1]))
+    tokens = [logits[:, -1].argmax(-1)]
+    finite = [torch.isfinite(logits).all()]
+    events = []
+    for t in range(I_GEN - 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits, caches = decode_step(params, caches, tokens[-1][:, None],
+                                     I_PROMPT + t, cfg)
+        ev[1].record()
+        events.append(ev)
+        tokens.append(logits[:, 0].argmax(-1))
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    # one more step at the last position (which it writes again) under the
+    # profiler, and one counting its routing
+    _profile(torch, "J1 decode", lambda: decode_step(
+        params, caches, tokens[-1][:, None], max_len - 1, cfg))
+    step_routing = []
+    with _routing(torch, step_routing):
+        decode_step(params, caches, tokens[-1][:, None], max_len - 1, cfg)
+    _, pairs, dropped, used = _routing_totals(step_routing)
+    bound, bound_by = _decode_bound(cfg, params, caches, I_BATCH,
+                                    max_len - 1, False, rate,
+                                    moe=(used, pairs - dropped))
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    step = statistics.median(step_ms)
+    out = torch.stack(tokens, dim=1).cpu()
+    want = 2 * cfg.n_layers * I_BATCH * max_len * cfg.n_kv_heads * cfg.hd * 2
+    log(f"  J1 [{card}]: prefill {prefill_ms[1]:.3f} ms (first call "
+        f"{prefill_ms[0]:.3f}); decode {step:.3f} ms a step (median of steps "
+        f"1-{I_GEN - 1}, CUDA events; range {min(step_ms):.3f}-"
+        f"{max(step_ms):.3f}), {I_BATCH / step * 1e3:.1f} tokens/s; bound "
+        f"{bound:.3f} ms ({bound_by}), {bound / step:.3f} of it; peak device "
+        f"memory {peak / 2**30:.2f} GiB; caches {_cache_bytes(caches)} bytes")
+    log(f"  J1 prefill routing: {_routing_line(routing)}; aux load_balance "
+        f"{float(aux['load_balance']):.6f}, router_z "
+        f"{float(aux['router_z']):.6f}")
+    log(f"  J1 decode step routing: {_routing_line(step_routing)}")
+    log(f"  J1: sequence 0's first tokens {out[0, :12].tolist()}")
+    if not all(bool(f) for f in finite):
+        raise AssertionError("J1: non-finite logits")
+    if out.shape != (I_BATCH, I_GEN) or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"J1: tokens out of range, shape {out.shape}")
+    if _cache_bytes(caches) != want:
+        raise AssertionError(f"J1: caches hold {_cache_bytes(caches)} bytes, "
+                             f"not {want}")
+    want_c = round(I_BATCH * I_PROMPT * e.top_k / e.n_experts
+                   * e.capacity_factor)
+    if _routing_totals(routing)[0] != [want_c] * cfg.n_layers:
+        raise AssertionError(f"J1: prefill capacity "
+                             f"{_routing_totals(routing)[0]}, not {want_c} "
+                             f"a layer")
+    for key, val in aux.items():
+        if not bool(torch.isfinite(val)) or float(val) <= 0:
+            raise AssertionError(f"J1: prefill aux {key} = {float(val)}")
+
+
+def phase_j2(torch, card, rate):
+    import dataclasses
+
+    from repro_torch.configs import concrete_inputs, get_arch, get_shape
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import init_params
+
+    for arch, shape_name, layers, batch in J2_CELLS:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        shape = get_shape(shape_name)
+        if batch is not None:
+            shape = dataclasses.replace(shape, global_batch=batch)
+        label = f"J2 {arch} {shape_name}"
+        step = build_serve_step(cfg, LaneMesh(1, "cuda"), shape=shape)
+        params = init_params(cfg, seed=0, device="cuda")
+        inputs = concrete_inputs(cfg, shape, seed=0, device="cuda")
+        caches, token, pos = inputs["caches"], inputs["token"], inputs["pos"]
+        B = shape.global_batch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events, finite, routing = [], [], []
+        for i in range(I_REPS + 1):     # step 0 warms up, routing counted
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            with _routing(torch, routing) if i == 0 else \
+                    contextlib.nullcontext():
+                logits, caches = step(params, caches, token, pos + i)
+            ev[1].record()
+            token = logits[:, 0].argmax(-1, keepdim=True)
+            finite.append(torch.isfinite(logits).all())
+            events.append(ev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        _profile(torch, label, lambda: step(params, caches, token,
+                                            pos + I_REPS + 1))
+        ms = statistics.median(a.elapsed_time(b) for a, b in events[1:])
+        _, pairs, dropped, used = _routing_totals(routing)
+        bound, bound_by = _decode_bound(cfg, params, caches, B, pos,
+                                        shape.long, rate,
+                                        moe=(used, pairs - dropped))
+        lens = sorted({c.k.shape[2] for c in caches.values()})
+        log(f"  {label} [{card}]: {cfg.n_layers} layers, B {B}, cache "
+            f"lengths {lens} at pos {pos}"
+            f"{' (long_mode)' if shape.long else ''}, caches "
+            f"{_cache_bytes(caches)} bytes: {ms:.3f} ms a step (median of "
+            f"{I_REPS}, CUDA events), {B / ms * 1e3:.1f} tokens/s; bound "
+            f"{bound:.3f} ms ({bound_by}, step 0's routing), "
+            f"{bound / ms:.3f} of it; peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        log(f"  {label} step 0 routing: {_routing_line(routing)}")
+        if not all(bool(f) for f in finite):
+            raise AssertionError(f"{label}: non-finite logits")
+        del params, inputs, caches, logits, step
+        torch.cuda.empty_cache()
+
+
+def _router_log(torch, calls):
+    """Taps ``models.moe.router_probs``: per call the ids and each token's
+    margin on the host, the least gap between neighbours among its k + 1
+    largest router probabilities (its k largest when k is every expert),
+    the gap a rounding must close to change its ids or their order."""
+    from repro_torch.models import moe
+
+    def record(args, out):
+        p, x, cfg = args
+        probs = torch.softmax(x.float() @ p["router"]["w"].float(), -1)
+        top = torch.sort(probs, dim=-1,
+                         descending=True).values[:, :cfg.moe.top_k + 1]
+        calls.append((out[1].cpu(),
+                      (top[:, :-1] - top[:, 1:]).min(-1).values.cpu()))
+
+    return _tap(moe, "router_probs", record)
+
+
+def phase_j3(torch):
+    """The card against the CPU on the reduced MoE models (J3_CELLS),
+    float32 and bf16 compute, from the same weights and numpy prompt (4 x
+    60): float32 forward logits to rtol/atol 1e-4 (I3's gate), the loss
+    with its aux and the aux themselves to rtol 1e-4 (H2's), the router's
+    ids equal at every layer and token whose CPU margin exceeds 1e-6 (the
+    rest excused, at most 1 in 1,000 tokens); then prefill and 16 greedy
+    steps under I3's token gates."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import forward, init_params, loss_fn
+
+    excused = low = tokens = 0
+    for arch, impl, experts in J3_CELLS:
+        base = get_arch(arch).reduced(n_experts=experts)
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(
+                base, compute_dtype=dtype,
+                moe=dataclasses.replace(base.moe, impl=impl))
+            label = f"J3 {cfg.name} {impl} E{experts} {dtype}"
+            prompt = np.random.default_rng(3).integers(
+                0, cfg.vocab_size, (I3_BATCH, I3_PROMPT)).astype(np.int32)
+            params = init_params(cfg, seed=0, device="cpu")
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                p = params_from_numpy(params, dev)
+                tok = torch.from_numpy(prompt).to(dev)
+                router = []
+                with torch.no_grad(), _router_log(torch, router):
+                    logits = forward(p, tok, cfg).cpu()
+                    loss, metrics = loss_fn(p, {"tokens": tok}, cfg)
+                runs[dev] = dict(
+                    logits=logits, loss=float(loss),
+                    metrics={k: float(v) for k, v in metrics.items()},
+                    router=router[:cfg.n_layers],
+                    seq=_greedy_run(torch, p, prompt, cfg, dev))
+            cpu, card = runs["cpu"], runs["cuda"]
+            if dtype == "float32":
+                np.testing.assert_allclose(card["logits"].numpy(),
+                                           cpu["logits"].numpy(), rtol=1e-4,
+                                           atol=1e-4, err_msg=label)
+                np.testing.assert_allclose(card["loss"], cpu["loss"],
+                                           rtol=1e-4, err_msg=label)
+                for key in cpu["metrics"]:
+                    np.testing.assert_allclose(
+                        card["metrics"][key], cpu["metrics"][key], rtol=1e-4,
+                        err_msg=f"{label} {key}")
+                for (ids_c, margin), (ids_g, _) in zip(cpu["router"],
+                                                       card["router"]):
+                    differ = (ids_c != ids_g).any(-1)
+                    small = margin <= J_MARGIN
+                    if bool((differ & ~small).any()):
+                        raise AssertionError(
+                            f"{label}: router ids differ at tokens "
+                            f"{(differ & ~small).nonzero()[:, 0].tolist()}, "
+                            f"margins above {J_MARGIN}")
+                    excused += int((differ & small).sum())
+                    low += int(small.sum())
+                    tokens += ids_c.shape[0]
+            agreed, worst = _greedy_compare(label, cpu["seq"], card["seq"],
+                                            I3_MARGIN[dtype],
+                                            logits_gate=dtype == "float32")
+            log(f"  {label}: loss card {card['loss']:.6f} CPU "
+                f"{cpu['loss']:.6f}, load_balance "
+                f"{card['metrics']['load_balance']:.6f} / "
+                f"{cpu['metrics']['load_balance']:.6f}, router_z "
+                f"{card['metrics']['router_z']:.6f} / "
+                f"{cpu['metrics']['router_z']:.6f}; {agreed} of "
+                f"{I3_BATCH * (I3_STEPS + 1)} greedy tokens equal before the "
+                f"first disagreements (logits max |card - CPU| {worst:.3e})")
+    log(f"  J3: router ids equal at every float32 layer and token but "
+        f"{excused} excused of {tokens} ({low} under the {J_MARGIN} margin)")
+    if excused * 1000 > tokens:
+        raise AssertionError(f"J3: {excused} router ids excused of {tokens}")
+
+
+def phase_j3_train(torch, results):
+    """One MoE train step, the reduced qwen3-moe (capacity dispatch,
+    float32) on W = 4 lanes, batch 16 x 128, the card against the CPU from
+    the same numpy weights and batch.  The blockwise allgather step end to
+    end on the card launches rows 1-4b (counted over that step alone) and
+    gives the CPU's loss to rtol 1e-4; the blockwise exchange on the card
+    fed the CPU's gradients gives the CPU's parameters and velocities bit
+    for bit (H2b's gate); the exact engine's step holds H2a's (parameters
+    atol 1e-5 but at support swaps, at most 1 in 10,000), where a swap is
+    a coordinate that some lane selects on one side only: its difference
+    is that lane's share of the mean (to 1e-3, relative) and it lies
+    within ``H_TIE`` of its row's boundary on that lane."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.distributed import ExchangeConfig
+    from repro_torch.core.paramspace import tree_flatten, tree_unflatten
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import init_params
+
+    base = get_arch(J_ARCH).reduced()
+    cfg = dataclasses.replace(base, compute_dtype="float32",
+                              moe=dataclasses.replace(base.moe,
+                                                      impl="capacity"))
+    leaves, paths = tree_flatten(init_params(cfg, seed=0, device="cpu"))
+    leaves_np = [x.numpy() for x in leaves]
+    tokens = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
+                         batch_size=H_BATCH, seed=0,
+                         device="cpu").batch(0)["tokens"].numpy()
+
+    def flat(tree):
+        return [x.cpu().numpy().copy() for x in tree_flatten(tree)[0]]
+
+    def setup(engine, dev):
+        ex_cfg = ExchangeConfig(mode="allgather", density=H_DENSITY,
+                                momentum=H_MOMENTUM, engine=engine)
+        step = build_train_step(cfg, LaneMesh(H_W, dev), ex_cfg, lr=H_LR,
+                                remat=False)
+        params = _h2_params(torch, paths, leaves_np, dev)
+        return step, params, step.init_state(params), \
+            {"tokens": torch.from_numpy(tokens).to(dev)}
+
+    # the blockwise step end to end; the card's launches counted over it
+    step, params, state, batch = setup("blockwise", "cpu")
+    grads, lane_losses = step.grads(params, batch)
+    updates, state = step.exchange(state, grads)
+    step.apply(params, updates)
+    cpu_loss, cpu_params, cpu_vel = (float(step.mesh.mean(lane_losses)),
+                                     flat(params), flat(state.velocity))
+    g_leaves, g_paths = tree_flatten(grads)
+    step, params, state, batch = setup("blockwise", "cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    params, state, loss = step(params, state, batch)
+    torch.cuda.synchronize()
+    launches = {info.name: info.launches for info in kernels.KERNELS}
+    for row in results:
+        row["launches_j3"] = launches[row["name"]]
+    log(f"  J3 train: the blockwise allgather step on the card launched "
+        f"{launches}; loss card {float(loss):.6f}, CPU {cpu_loss:.6f}")
+    idle = [k for k in J_ROWS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"J3 train: rows {idle} never launched")
+    np.testing.assert_allclose(float(loss), cpu_loss, rtol=1e-4)
+
+    # H2b: the card's blockwise exchange fed the CPU's gradients
+    step, params, state, _ = setup("blockwise", "cuda")
+    updates, state = step.exchange(state, tree_unflatten(
+        g_paths, [x.cuda() for x in g_leaves]))
+    step.apply(params, updates)
+    for label, a, c in (("parameters", flat(params), cpu_params),
+                        ("velocities", flat(state.velocity), cpu_vel)):
+        bad = ["/".join(p) for p, x, y in zip(paths, a, c)
+               if not np.array_equal(x.view(np.int32), y.view(np.int32))]
+        if bad:
+            raise AssertionError(f"J3 train: {label} differ: {bad}")
+    del grads, g_leaves
+
+    # H2a: the exact engine's step end to end, support swaps counted.  In
+    # one step a swap on one lane moves a coordinate by that lane's share
+    # of the mean, |m * u + lr * g| / W, whether or not another lane
+    # selects it too
+    after, lanes = {}, None
+    for dev in ("cpu", "cuda"):
+        step, params, state, batch = setup("exact", dev)
+        if dev == "cpu":
+            lanes = _tie_gaps(torch, step, state.velocity,
+                              step.grads(params, batch)[0], lanes=True)
+        params, state, _ = step(params, state, batch)
+        after[dev] = flat(params)
+    excused = total = 0
+    worst = 0.0
+    for j, path in enumerate(paths):
+        diff = np.abs(after["cuda"][j] - after["cpu"][j])
+        bad = diff > 1e-5
+        gap, acc = lanes[j][0][:, bad], lanes[j][1][:, bad] / H_W
+        share = np.abs(diff[bad] - acc) <= 1e-3 * acc + 1e-6
+        ok = ((gap <= H_TIE) & share).any(0)
+        if not ok.all():
+            raise AssertionError(
+                f"J3 train: {'/'.join(path)}: {int((~ok).sum())} of "
+                f"{int(bad.sum())} parameters outside atol 1e-5 are no "
+                f"lane's swap at its row's boundary: |diff| "
+                f"{diff[bad][~ok].tolist()[:4]}, lane shares "
+                f"{acc[:, ~ok].T.tolist()[:4]}, distances "
+                f"{gap[:, ~ok].T.tolist()[:4]}")
+        excused += int(bad.sum())
+        total += diff.size
+        worst = max(worst, float(diff[~bad].max(initial=0.0)))
+    log(f"  J3 train: the blockwise exchange on the card fed the CPU's "
+        f"gradients: parameters and velocities bit-equal; the exact step: "
+        f"parameters max |diff| {worst:.3g} but at {excused} support swaps of "
+        f"{total} (each one lane's share of the mean, within {H_TIE} of its "
+        f"row's boundary on that lane)")
+    if excused > total // 10_000:
+        raise AssertionError(f"J3 train: {excused} support swaps")
 
 
 def main() -> int:
@@ -3483,7 +4027,9 @@ def main() -> int:
                       ("h", lambda: phase_h(torch, results,
                                             smi.stdout.strip())),
                       ("i", lambda: phase_i(torch, smi.stdout.strip(),
-                                            rate))):
+                                            rate)),
+                      ("j", lambda: phase_j(torch, results,
+                                            smi.stdout.strip(), rate))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()
         try:

@@ -23,7 +23,7 @@ Roles:
   writes its final arena to ``--out`` (``.npy``).
 * ``--role decode`` -- the standalone decode demo: the reduced variant of
   ``--arch`` (a dense GQA architecture: chatglm3-6b, command-r-35b,
-  gemma3-12b) prefills a seeded prompt of ``--batch`` x ``--prompt-len``
+  gemma3-12b; or an MoE one: dbrx-132b, qwen3-moe-235b-a22b) prefills a seeded prompt of ``--batch`` x ``--prompt-len``
   tokens, then decodes ``--gen - 1`` tokens against its KV caches, greedy
   or sampled at ``--temperature``, and prints the generated ids.  No
   cluster; the ``"model"`` axis has size 1.

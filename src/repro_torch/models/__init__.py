@@ -1,6 +1,7 @@
 """Models."""
+from . import moe
 from .model import (abstract_params, decode_step, forward, init_caches,
                     init_params, loss_fn, prefill)
 
 __all__ = ["abstract_params", "decode_step", "forward", "init_caches",
-           "init_params", "loss_fn", "prefill"]
+           "init_params", "loss_fn", "moe", "prefill"]

@@ -6,7 +6,8 @@ GQA transformers, MLA, MoE, Mamba2/SSD, hybrids, and modality-stub decoders.
 ``repro_torch/configs/<arch>.py`` instantiate these with the exact assigned
 hyperparameters; ``reduced()`` derives the CPU smoke-test variant.  The
 schema is the reference's field for field; ``pdtype``/``cdtype`` are torch
-dtypes.  The port's model runs the dense GQA family (``models/model.py``).
+dtypes.  The port's model runs the dense GQA and MoE families
+(``models/model.py``).
 """
 from __future__ import annotations
 

@@ -5,8 +5,10 @@ The parameters are the reference's nested dict, key for key: ``embed``,
 ``final_norm``, ``lm_head`` (when not tied) and ``units.b{i}.…``, each
 unit leaf stacked over the units on a leading dim.  ``forward`` walks the
 units in a Python loop, each reading its slice of the stacked leaves (the
-reference's ``lax.scan``).  The MoE, MLA, SSM and hybrid blocks and the
-modality frontends are not ported yet.
+reference's ``lax.scan``).  A block's FFN is the dense MLP or, when
+``cfg.moe`` is set, the MoE (``models.moe``), whose router aux losses are
+averaged over the layers.  The MLA, SSM and hybrid blocks and the modality
+frontends are not ported yet.
 
 Three entry points per architecture x input shape:
   forward / loss_fn  -- training shapes
@@ -22,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from . import attention as attn
+from . import moe as moe_lib
 from .config import ModelConfig
 from .layers import (Init, embed, embedding_init, linear, linear_init, mlp,
                      mlp_init, norm, norm_init, unembed)
@@ -30,12 +33,10 @@ from .layers import (Init, embed, embedding_init, linear, linear_init, mlp,
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue 1 item 3); the port's "
-        f"model runs the dense GQA family")
+        f"model runs the dense GQA and MoE families")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise _not_ported("the MoE block")
     if cfg.attention == "mla":
         raise _not_ported("MLA attention")
     if cfg.arch_type in ("ssm", "hybrid"):
@@ -45,13 +46,17 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ------------------------------------------------------------------- init --
 
 def _block_init(init: Init, cfg: ModelConfig):
-    return {
+    p = {
         "norm1": norm_init(init, cfg.norm, cfg.d_model, dtype=cfg.pdtype),
         "attn": attn.gqa_init(init, cfg),
         "norm2": norm_init(init, cfg.norm, cfg.d_model, dtype=cfg.pdtype),
-        "mlp": mlp_init(init, cfg.d_model, cfg.d_ff,
-                        activation=cfg.activation, dtype=cfg.pdtype),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.moe_init(init, cfg)
+    else:
+        p["mlp"] = mlp_init(init, cfg.d_model, cfg.d_ff,
+                            activation=cfg.activation, dtype=cfg.pdtype)
+    return p
 
 
 def _init(init: Init, cfg: ModelConfig):
@@ -89,9 +94,18 @@ def abstract_params(cfg: ModelConfig):
 
 # ---------------------------------------------------------------- forward --
 
+def _ffn(bp, hn, cfg: ModelConfig):
+    """The block's FFN on its normed input: (out, aux), the MoE's router
+    losses or None for the dense MLP."""
+    if cfg.moe is not None:
+        return moe_lib.moe_forward(bp["moe"], hn, cfg)
+    return mlp(bp["mlp"], hn, activation=cfg.activation), None
+
+
 def _apply_block(bp, h, positions, cfg: ModelConfig, kind: str, *,
                  want_cache: bool = False):
-    """One block: (h, the layer's KVCache or None)."""
+    """One block: (h, its aux losses or None, the layer's KVCache or
+    None)."""
     out = attn.gqa_forward(bp["attn"], norm(cfg.norm, bp["norm1"], h),
                            positions, cfg, layer_kind=kind,
                            return_kv=want_cache)
@@ -99,8 +113,8 @@ def _apply_block(bp, h, positions, cfg: ModelConfig, kind: str, *,
     if want_cache:
         out, cache = out
     h = h + out
-    hn = norm(cfg.norm, bp["norm2"], h)
-    return h + mlp(bp["mlp"], hn, activation=cfg.activation), cache
+    out, aux = _ffn(bp, norm(cfg.norm, bp["norm2"], h), cfg)
+    return h + out, aux, cache
 
 
 def _sinusoidal(d_model: int, positions):
@@ -132,13 +146,12 @@ def _head(params, h, cfg: ModelConfig):
     return linear(params["lm_head"], h).to(torch.float32)
 
 
-def forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
-            want_cache: bool = False, remat: bool = False):
-    """tokens: (B, S) int -> logits (B, S, V) float32 (and, when
-    ``want_cache``, the caches stacked over the units, for prefill).
-
-    ``remat=True`` checkpoints each unit (activation recomputation in the
-    backward pass)."""
+def _forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
+             want_cache: bool = False, remat: bool = False):
+    """(logits (B, S, V) float32, aux, caches stacked over the units or
+    None): ``forward``'s work, with the router's aux losses each summed
+    over the layers in order and divided by ``cfg.n_layers`` (zeros for
+    the dense family), as the reference's ``forward`` returns them."""
     _check_supported(cfg)
     if frontend_embeds is not None:
         raise _not_ported("the modality frontends")
@@ -150,47 +163,72 @@ def forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
     if cfg.rope == "none":
         h = h + _sinusoidal(cfg.d_model, positions).to(h.dtype)
 
-    def unit_fn(h, unit_params):
+    def unit_fn(h, lb, rz, unit_params):
         caches = {}
         for i, kind in enumerate(pattern):
-            h, caches[f"b{i}"] = _apply_block(unit_params[f"b{i}"], h,
-                                              positions, cfg, kind,
-                                              want_cache=want_cache)
-        return h, caches
+            h, aux, caches[f"b{i}"] = _apply_block(
+                unit_params[f"b{i}"], h, positions, cfg, kind,
+                want_cache=want_cache)
+            if aux is not None:
+                lb = lb + aux["load_balance"]
+                rz = rz + aux["router_z"]
+        return h, lb, rz, caches
 
+    lb = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    rz = torch.zeros((), dtype=torch.float32, device=tokens.device)
     unit_caches = []
     for unit_params in _unit_slices(params["units"], n_units):
         if remat:
-            h, caches = checkpoint(unit_fn, h, unit_params,
-                                   use_reentrant=False)
+            h, lb, rz, caches = checkpoint(unit_fn, h, lb, rz, unit_params,
+                                           use_reentrant=False)
         else:
-            h, caches = unit_fn(h, unit_params)
+            h, lb, rz, caches = unit_fn(h, lb, rz, unit_params)
         unit_caches.append(caches)
     logits = _head(params, h, cfg)
+    aux = {"load_balance": lb / cfg.n_layers, "router_z": rz / cfg.n_layers}
     if not want_cache:
-        return logits
-    return logits, {
+        return logits, aux, None
+    return logits, aux, {
         key: attn.KVCache(k=torch.stack([c[key].k for c in unit_caches]),
                           v=torch.stack([c[key].v for c in unit_caches]))
         for key in unit_caches[0]}
 
 
+def forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
+            want_cache: bool = False, remat: bool = False):
+    """tokens: (B, S) int -> logits (B, S, V) float32 (and, when
+    ``want_cache``, the caches stacked over the units, for prefill).
+
+    ``remat=True`` checkpoints each unit (activation recomputation in the
+    backward pass).  The MoE's aux losses reach ``loss_fn`` and
+    ``prefill``."""
+    logits, _, caches = _forward(params, tokens, cfg,
+                                 frontend_embeds=frontend_embeds,
+                                 want_cache=want_cache, remat=remat)
+    return (logits, caches) if want_cache else logits
+
+
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
-    """batch: {"tokens": (B,S)}.  Next-token cross entropy.  Returns
-    (loss, metrics)."""
+    """batch: {"tokens": (B,S)}.  Next-token cross entropy (+ the MoE's
+    aux losses, weighted by ``router_aux_weight``).  Returns (loss,
+    metrics): ``nll``, ``load_balance`` and ``router_z`` (zeros for the
+    dense family), as the reference's."""
     tokens = batch["tokens"]
-    logits = forward(params, tokens, cfg,
-                     frontend_embeds=batch.get("frontend_embeds"),
-                     remat=remat)
+    logits, aux, _ = _forward(params, tokens, cfg,
+                              frontend_embeds=batch.get("frontend_embeds"),
+                              remat=remat)
     tgt = tokens[:, 1:].to(torch.int64)
     lg = logits[:, :-1]
     lse = torch.logsumexp(lg, dim=-1)
     # the target logit by a gather: the reference's one-hot sum has the
     # same value for finite logits
     tgt_logit = torch.gather(lg, -1, tgt[..., None])[..., 0]
-    nll = lse - tgt_logit
-    loss = torch.mean(nll)
-    return loss, {"nll": loss}
+    nll = torch.mean(lse - tgt_logit)
+    loss = nll
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * (
+            aux["load_balance"] + aux["router_z"])
+    return loss, {"nll": nll, **aux}
 
 
 # ------------------------------------------------------------ serve paths --
@@ -236,8 +274,10 @@ def decode_step(params, caches, token, pos, cfg: ModelConfig, *,
                 norm(cfg.norm, bp["norm1"], h), pos, cfg, layer_kind=kind,
                 long_mode=long_mode)
             h = h + out
-            h = h + mlp(bp["mlp"], norm(cfg.norm, bp["norm2"], h),
-                        activation=cfg.activation)
+            # the MoE runs on the step's B tokens (the capacity path's C
+            # from T = B, dropping included); its aux is dropped
+            out, _ = _ffn(bp, norm(cfg.norm, bp["norm2"], h), cfg)
+            h = h + out
     return _head(params, h, cfg), caches
 
 
@@ -248,16 +288,14 @@ def prefill(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
     Returns (last-position logits (B,1,V), caches, aux).  The caches are
     each block's post-rope K/V from the forward pass, so ``decode_step``
     continues exactly; ``max_len`` pads the linear caches with decode
-    headroom.  ``aux`` holds the reference's MoE losses, zero for the
-    dense family."""
-    logits, caches = forward(params, tokens, cfg,
-                             frontend_embeds=frontend_embeds,
-                             want_cache=True)
+    headroom.  ``aux`` holds the MoE's router losses (zeros for the dense
+    family)."""
+    logits, aux, caches = _forward(params, tokens, cfg,
+                                   frontend_embeds=frontend_embeds,
+                                   want_cache=True)
     if max_len is not None:
         caches = _pad_caches(caches, tokens.shape[1], max_len)
-    zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    return logits[:, -1:], caches, {"load_balance": zero,
-                                    "router_z": zero.clone()}
+    return logits[:, -1:], caches, aux
 
 
 def _pad_caches(caches, cur_len: int, max_len: int):

@@ -16,7 +16,11 @@ compute):
   long_500k, ``cache_specs`` / ``batch_specs`` at model size 1 and 2;
 * the bf16 config's greedy tokens, equal wherever the reference's top-2
   margin exceeds 5e-2 (the first disagreement ends the comparison);
-* what raises: a position past a linear cache, and the MoE, MLA and SSM
+* the MoE families (the reference's moe_dense and moe_capacity, and a
+  capacity factor of 0.5 that drops pairs at prefill and at decode, where
+  C comes from the step's B tokens) through all of the above, their
+  prefill's aux losses to rtol 1e-5;
+* what raises: a position past a linear cache, and the MLA and SSM
   families.
 """
 import dataclasses
@@ -32,6 +36,7 @@ from repro.configs import ARCHS as JARCHS
 from repro.configs import shapes as jshapes
 from repro.launch import sharding as jsharding
 from repro.models import ModelConfig as JConfig
+from repro.models import MoEConfig as JMoE
 from repro.models import decode_step as jdecode
 from repro.models import init_params as jinit
 from repro.models import prefill as jprefill
@@ -44,6 +49,7 @@ from repro_torch.launch.mesh import LaneMesh
 from repro_torch.models import (decode_step, forward, init_caches,
                                 init_params, prefill)
 from repro_torch.models.config import ModelConfig as TConfig
+from repro_torch.models.config import MoEConfig as TMoE
 
 BASE = JConfig(name="t", arch_type="dense", n_layers=2, d_model=128,
                n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=256,
@@ -59,18 +65,32 @@ FAMILIES = {
         BASE, attention="local_global", local_global_ratio=1, window=8,
         rope_theta_local=10000.0),
     "tied": dataclasses.replace(BASE, tie_embeddings=True),
+    "moe_dense": dataclasses.replace(
+        BASE, arch_type="moe",
+        moe=JMoE(n_experts=4, top_k=2, d_expert=128, impl="dense")),
+    "moe_capacity": dataclasses.replace(
+        BASE, arch_type="moe",
+        moe=JMoE(n_experts=4, top_k=2, d_expert=128, impl="capacity",
+                 capacity_factor=4.0)),
 }
+# held to the reference alone: its drops make decode differ from forward
+# (C = 1 at a decode step of B = 2, 6 at a prefill of 2 x 24)
+DROPS = {"moe_capacity_drops": dataclasses.replace(
+    BASE, arch_type="moe",
+    moe=JMoE(n_experts=4, top_k=2, d_expert=128, impl="capacity",
+             capacity_factor=0.5))}
 NAMES = sorted(JARCHS)
-DENSE = [n for n in NAMES if JARCHS[n].moe is None
-         and JARCHS[n].attention != "mla"
-         and JARCHS[n].arch_type not in ("ssm", "hybrid")]
+PORTED = [n for n in NAMES if JARCHS[n].attention != "mla"
+          and JARCHS[n].arch_type not in ("ssm", "hybrid")]
 DECODE_SHAPES = ("decode_32k", "long_500k")
 
 
 def _tcfg(jc):
     """The port's ModelConfig with the reference config's fields."""
-    return TConfig(**{f.name: getattr(jc, f.name)
-                      for f in dataclasses.fields(jc)})
+    fields = {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)}
+    if jc.moe is not None:
+        fields["moe"] = TMoE(**dataclasses.asdict(jc.moe))
+    return TConfig(**fields)
 
 
 def _models(jc):
@@ -112,23 +132,28 @@ def _jit_decode(jc):
     return jax.jit(lambda p, c, t, pos: jdecode(p, c, t, pos, jc))
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("family", sorted(FAMILIES) + sorted(DROPS))
 def test_prefill_logits_and_caches_equal_reference(family):
-    jc = FAMILIES[family]
+    jc = {**FAMILIES, **DROPS}[family]
     jp, tp = _models(jc)
     tokens = _tokens(jc)[:, :24]
-    jl, jcaches, _ = jprefill(jp, jnp.asarray(tokens), jc, max_len=32)
+    jl, jcaches, jaux = jprefill(jp, jnp.asarray(tokens), jc, max_len=32)
     tl, tcaches, aux = prefill(tp, torch.from_numpy(tokens), _tcfg(jc),
                                max_len=32)
     assert tl.shape == (2, 1, jc.vocab_size) and tl.dtype == torch.float32
     np.testing.assert_allclose(_np(tl), _np(jl), rtol=1e-5, atol=1e-5)
     _close_caches(tcaches, jcaches, rtol=1e-5, atol=1e-5)
-    assert set(aux) == {"load_balance", "router_z"}
+    assert set(aux) == set(jaux) == {"load_balance", "router_z"}
+    for key in aux:
+        np.testing.assert_allclose(_np(aux[key]), _np(jaux[key]), rtol=1e-5,
+                                   err_msg=key)
+    if jc.moe is None:
+        assert not any(bool(v) for v in aux.values())
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("family", sorted(FAMILIES) + sorted(DROPS))
 def test_decode_steps_equal_reference(family):
-    jc = FAMILIES[family]
+    jc = {**FAMILIES, **DROPS}[family]
     jp, tp = _models(jc)
     tokens = _tokens(jc)
     _, jcaches, _ = jprefill(jp, jnp.asarray(tokens[:, :28]), jc, max_len=32)
@@ -216,7 +241,7 @@ def _spec_leaves(specs):
 
 
 @pytest.mark.parametrize("shape_name", DECODE_SHAPES)
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_decode_input_specs_and_concrete_inputs(name, shape_name):
     jshape = jshapes.SHAPES[shape_name]
     tshape = tshapes.SHAPES[shape_name]
@@ -259,7 +284,7 @@ def _ref_spec_leaves(tree):
 
 
 @pytest.mark.parametrize("model_size", [1, 2])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_cache_and_batch_specs_equal_reference(name, model_size):
     jc, tc = JARCHS[name], TARCHS[name]
     for shape_name in DECODE_SHAPES:
@@ -383,7 +408,7 @@ def test_pos_past_a_linear_cache_raises():
     assert torch.isfinite(logits).all()
 
 
-@pytest.mark.parametrize("name", [n for n in NAMES if n not in DENSE])
+@pytest.mark.parametrize("name", [n for n in NAMES if n not in PORTED])
 def test_other_families_raise_in_caches_and_decode(name):
     tc = TARCHS[name].reduced()
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):

@@ -47,23 +47,24 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import rope as trope
 from repro_torch.models.config import ModelConfig as TConfig
+from repro_torch.models.config import MoEConfig as TMoE
 from repro_torch.models.model import abstract_params as tabstract
 from repro_torch.models.model import init_params as tinit
 from repro_torch.models.model import loss_fn as tloss
 
 NAMES = sorted(JARCHS)
-# the architectures whose blocks the port runs (dense GQA, no MoE, MLA or
-# SSM); qwen2-vl's mrope raises only in the forward
-DENSE = [n for n in NAMES if JARCHS[n].moe is None
-         and JARCHS[n].attention != "mla"
-         and JARCHS[n].arch_type not in ("ssm", "hybrid")]
+# the architectures whose blocks the port runs (dense GQA and MoE, no MLA
+# or SSM); qwen2-vl's mrope raises only in the forward
+PORTED = [n for n in NAMES if JARCHS[n].attention != "mla"
+          and JARCHS[n].arch_type not in ("ssm", "hybrid")]
 CHATGLM = "chatglm3-6b"
 
 
 def _port_cfg(cfg):
     """The port's ModelConfig with the reference config's fields."""
+    moe = None if cfg.moe is None else TMoE(**dataclasses.asdict(cfg.moe))
     return dataclasses.replace(
-        TARCHS[cfg.name.removesuffix("-reduced")], **{
+        TARCHS[cfg.name.removesuffix("-reduced")], moe=moe, **{
             f.name: getattr(cfg, f.name)
             for f in dataclasses.fields(cfg)
             if f.name not in ("moe", "mla", "ssm")})
@@ -115,7 +116,7 @@ def test_shard_axis_hints_equal_reference(name, model_size):
     j_specs = jax.tree.leaves(jparam_specs(jc, shapes, model_size),
                               is_leaf=lambda x: isinstance(x, P))
     assert list(t_specs[0]) == [tuple(p) for p in j_specs]
-    if name in DENSE:
+    if name in PORTED:
         # the port's own tree: the reference's keys and shapes
         t_leaves, t_paths = tree_flatten(tabstract(tc))
         j_flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
@@ -268,7 +269,7 @@ def test_init_params_default_device_is_the_card(monkeypatch):
         tinit(TARCHS[CHATGLM].reduced())
 
 
-@pytest.mark.parametrize("name", [n for n in NAMES if n not in DENSE])
+@pytest.mark.parametrize("name", [n for n in NAMES if n not in PORTED])
 def test_other_families_raise(name):
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         tinit(TARCHS[name].reduced(), device="cpu")

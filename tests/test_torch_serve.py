@@ -305,14 +305,16 @@ def test_sharded_serving_and_decode_role_raise():
         with pytest.raises(NotImplementedError, match="later slice"):
             run_inprocess(strat, _torch_grad_fn, tp, tbatch, schedule=[0, 1],
                           n_replicas=1, **kw)
-    # the decode role runs the dense GQA family; the others still raise
+    # the decode role runs the dense GQA and MoE families; MLA still
+    # raises
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         serve.main(["--role", "decode", "--device", "cpu", "--arch",
-                    "dbrx-132b"])
+                    "minicpm3-4b"])
 
 
 @pytest.mark.parametrize("arch,temperature",
-                         [("chatglm3-6b", 0.0), ("gemma3-12b", 0.8)])
+                         [("chatglm3-6b", 0.0), ("gemma3-12b", 0.8),
+                          ("dbrx-132b", 0.0)])
 def test_decode_role_equals_a_direct_loop(arch, temperature, capsys):
     """``--role decode --device cpu`` prints ``--batch`` rows of ``--gen``
     ids: those of a prefill/decode_step loop on the same seeded prompt

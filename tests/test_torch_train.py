@@ -46,8 +46,8 @@ _JAX_SCRIPT = textwrap.dedent("""
     from repro.launch.steps import build_train_step, init_exchange_state
     from repro.models import init_params
 
-    out, B, S, steps, lr = sys.argv[2], 8, 32, 3, 0.05
-    cfg = dataclasses.replace(get_arch("chatglm3-6b").reduced(),
+    out, arch, B, S, steps, lr = sys.argv[2], sys.argv[3], 8, 32, 3, 0.05
+    cfg = dataclasses.replace(get_arch(arch).reduced(),
                               compute_dtype="float32")
     mesh = mesh_lib.make_mesh((4, 1), ("data", "model"))
     ex_cfg = ExchangeConfig(mode="allgather", density=0.05, momentum=0.9,
@@ -77,16 +77,25 @@ _JAX_SCRIPT = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module")
-def ref(tmp_path_factory):
+def _reference_run(tmp_path_factory, arch):
     out = tmp_path_factory.mktemp("jax_train") / "ref.npz"
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, "-c", _JAX_SCRIPT,
-                           str(ROOT / "src"), str(out)],
+                           str(ROOT / "src"), str(out), arch],
                           capture_output=True, text=True, timeout=600,
                           env=env)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return dict(np.load(out))
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return _reference_run(tmp_path_factory, "chatglm3-6b")
+
+
+@pytest.fixture(scope="module")
+def moe_ref(tmp_path_factory):
+    return _reference_run(tmp_path_factory, "qwen3-moe-235b-a22b")
 
 
 def _tree(ref, prefix):
@@ -148,7 +157,19 @@ def test_train_steps_match_reference(ref):
     on this problem: 9.3e-7, about 8 float32 ulps; the boundary's k-th and
     (k+1)-th magnitudes lie about 7e-3 apart on the median row).  At most
     one coordinate in 10,000 may be excused so."""
-    cfg = dataclasses.replace(get_arch("chatglm3-6b").reduced(),
+    _steps_match_reference(ref, "chatglm3-6b")
+
+
+def test_moe_train_steps_match_reference(moe_ref):
+    """The same for the reduced qwen3-moe-235b-a22b (4 experts, top-4,
+    dense dispatch): its loss includes the router's aux losses, and its
+    expert leaves (units, E, d, f) are cut along the expert axis, under
+    the same support-swap rule."""
+    _steps_match_reference(moe_ref, "qwen3-moe-235b-a22b")
+
+
+def _steps_match_reference(ref, arch):
+    cfg = dataclasses.replace(get_arch(arch).reduced(),
                               compute_dtype="float32")
     ex_cfg = ExchangeConfig(mode="allgather", density=0.05, momentum=0.9,
                             engine="exact")
@@ -270,6 +291,16 @@ def test_launcher_runs_on_lanes():
     lines = _launch([sys.executable, "-m", "repro_torch.launch.train",
                      "--devices", "4"] + FLAGS)
     assert len(lines) == 3, lines
+
+
+def test_launcher_runs_the_moe_family():
+    """``--arch qwen3-moe-235b-a22b``: the reduced MoE trains on four lanes
+    with finite losses."""
+    lines = _launch([sys.executable, "-m", "repro_torch.launch.train",
+                     "--arch", "qwen3-moe-235b-a22b", "--devices", "4"]
+                    + FLAGS)
+    assert len(lines) == 3, lines
+    assert all(np.isfinite(float(x.split("=")[1])) for x in lines), lines
 
 
 @pytest.mark.parametrize("mode", ["shardedps"])
