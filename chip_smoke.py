@@ -3218,30 +3218,46 @@ I3_MARGIN = {"float32": 1e-3, "bfloat16": 5e-2}
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 
 
+def _cache_leaves(caches) -> list:
+    """The tensors of a cache tree: dicts and cache named tuples."""
+    if isinstance(caches, dict):
+        return [t for c in caches.values() for t in _cache_leaves(c)]
+    if isinstance(caches, tuple):
+        return [t for c in caches for t in _cache_leaves(c)]
+    return [caches]
+
+
 def _cache_bytes(caches) -> int:
-    return sum(t.numel() * t.element_size()
-               for c in caches.values() for t in c)
+    return sum(t.numel() * t.element_size() for t in _cache_leaves(caches))
 
 
 def _decode_bound(cfg, params, caches, batch, pos, long_mode, rate,
                   moe=None):
     """(bound ms, "bytes" or "operations") of one decode step: the larger
     of its bytes over the memory rate (every cache leaf and every parameter
-    read once, of an untied embedding only the batch's rows; the new K/V
-    rows and the float32 logits written once) and its operations over the
-    peak rate of their type (the projections in the compute dtype and the
-    head in its own, 2 flops a weight and token; the float32 scores and PV
-    product over the positions the mask lets through).  For the MoE family
-    ``moe`` is the step's routing, (experts with a kept pair, kept pairs),
-    each summed over the layers: of the experts' weights only those
-    experts' are read and only the kept pairs multiplied (the work this
-    run's data needs); the router multiplies in float32."""
+    read once, the hybrid's shared block once a use, of an untied
+    embedding only the batch's rows; the new K/V or latent rows, each SSM
+    layer's state and conv window, and the float32 logits written once)
+    and its operations over the peak rate of their type (the projections
+    in the compute dtype and the head in its own, 2 flops a weight and
+    token; the float32 scores and PV product over the positions the mask
+    lets through; MLA without absorption expands those positions' latents
+    through ``wkv_b`` in the compute dtype, with it multiplies the latents
+    in float32; an SSM layer's float32 conv and state update).  For the
+    MoE family ``moe`` is the step's routing, (experts with a kept pair,
+    kept pairs), each summed over the layers: of the experts' weights only
+    those experts' are read and only the kept pairs multiplied (the work
+    this run's data needs); the router multiplies in float32."""
     from repro_torch.core.paramspace import tree_leaves
     from repro_torch.models.attention import _is_windowed
 
     pattern, n_units = cfg.unit_pattern()
     table = params["embed"]["table"].numel()
     weights = sum(p.numel() for p in tree_leaves(params)) - table
+    if "shared" in params:       # read and multiplied once a use
+        uses = n_units * pattern.count("mamba_attn")
+        weights += (uses - 1) * sum(p.numel()
+                                    for p in tree_leaves(params["shared"]))
     router = expert = per_expert = used = kept = 0
     if cfg.moe is not None:
         blocks = [params["units"][f"b{i}"]["moe"] for i in range(len(pattern))]
@@ -3250,22 +3266,45 @@ def _decode_bound(cfg, params, caches, batch, pos, long_mode, rate,
                      for key in ("up", "gate", "down") if key in b)
         per_expert = expert // (cfg.n_layers * cfg.moe.n_experts)
         used, kept = moe
-    kv_bytes = next(iter(caches.values())).k.element_size()
+    el = cfg.cdtype.itemsize
     read = (4 * (weights - expert + used * per_expert) + _cache_bytes(caches)
             + 4 * (table if cfg.tie_embeddings else batch * cfg.d_model))
-    wrote = (2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.hd * kv_bytes
-             + 4 * batch * cfg.vocab_size)
-    attn = 0
+    wrote = 4 * batch * cfg.vocab_size
+    attn = low = 0          # float32 and compute-dtype operations
     for kind in pattern:
         live = pos + 1
+        if kind in ("mamba", "mamba_attn"):
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            nh, conv = d_in // s.head_dim, d_in + 2 * s.n_groups * s.d_state
+            state = nh * s.head_dim * s.d_state
+            wrote += n_units * batch * (4 * state + (s.d_conv - 1) * conv * el)
+            attn += n_units * batch * (2 * s.d_conv * conv + 5 * state)
+            if kind == "mamba_attn" and "shared" in params:
+                wrote += n_units * 2 * batch * cfg.n_kv_heads * cfg.hd * el
+                attn += n_units * 2 * 2 * batch * cfg.n_heads * live * cfg.hd
+            continue
+        if cfg.attention == "mla":
+            m, H = cfg.mla, cfg.n_heads
+            dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                             m.v_head_dim, m.kv_lora_rank)
+            wrote += n_units * batch * (r + dr) * el
+            if m.absorb:
+                attn += n_units * 2 * batch * H * (
+                    dn * r + live * (r + dr) + live * r + r * dv)
+            else:
+                low += n_units * 2 * batch * live * r * H * (dn + dv)
+                attn += n_units * 2 * batch * H * live * (dn + dr + dv)
+            continue
         if _is_windowed(cfg, kind, long_mode):
             live = min(live, cfg.window)
+        wrote += n_units * 2 * batch * cfg.n_kv_heads * cfg.hd * el
         attn += n_units * 2 * 2 * batch * cfg.n_heads * live * cfg.hd
     # the tied head multiplies in float32 (``layers.unembed``)
     tied = 2 * batch * table if cfg.tie_embeddings else 0
     t_bytes = (read + wrote) / rate * 1e3
-    t_ops = ((2 * batch * (weights - expert - router) + 2 * kept * per_expert)
-             / PEAK_FLOPS[cfg.compute_dtype]
+    t_ops = ((2 * batch * (weights - expert - router) + 2 * kept * per_expert
+              + low) / PEAK_FLOPS[cfg.compute_dtype]
              + (tied + attn + 2 * batch * router) / PEAK_FLOPS["float32"]
              ) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -3279,7 +3318,7 @@ def phase_i(torch, card, rate):
     from repro_torch import kernels
 
     kernels.reset_launches()
-    phase_i1(torch, card)
+    phase_i1(torch, card, rate)
     torch.cuda.empty_cache()
     phase_i2(torch, card, rate)
     torch.cuda.empty_cache()
@@ -3291,16 +3330,30 @@ def phase_i(torch, card, rate):
     phase_i4()
 
 
-def phase_i1(torch, card):
-    from repro_torch.models import decode_step, init_params, prefill
+def phase_i1(torch, card, rate):
+    _generate(torch, card, rate, _h_cfg(H_LAYERS), "I1")
 
-    cfg = _h_cfg(H_LAYERS)
+
+def _generate(torch, card, rate, cfg, label):
+    """``cfg`` prefills a B 16 x 1,024 prompt, then decodes 64 greedy
+    tokens: prefill ms, ms a step by CUDA events, tokens/s, the bound, peak
+    memory, one profiled step; the caches must be those of
+    ``init_caches`` at the prompt and the tokens' length."""
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.models import decode_step, init_caches, init_params
+    from repro_torch.models import prefill
+
     params = init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    pattern, n_units = cfg.unit_pattern()
+    log(f"  {label}: published widths (d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, mla {cfg.mla}, ssm {cfg.ssm}), {cfg.n_layers} "
+        f"layers ({n_units} x {pattern}): {n_params} parameters "
+        f"({4 * n_params} bytes); B {I_BATCH}, a prompt of {I_PROMPT}, "
+        f"{I_GEN} greedy tokens")
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (I_BATCH, I_PROMPT)).astype(np.int32)).cuda()
     max_len = I_PROMPT + I_GEN
-    log(f"  I1: {cfg.name} at full width, {cfg.n_layers} layers, B "
-        f"{I_BATCH}, a prompt of {I_PROMPT}, {I_GEN} greedy tokens")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     prefill_ms = []
@@ -3326,79 +3379,93 @@ def phase_i1(torch, card):
         finite.append(torch.isfinite(logits).all())
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    # one more step at the last position, which it writes again
-    _profile(torch, "I1 decode", lambda: decode_step(
+    # one more step at the last position, which it writes again (an SSM
+    # state steps once more: the tokens are read above)
+    _profile(torch, f"{label} decode", lambda: decode_step(
         params, caches, tokens[-1][:, None], max_len - 1, cfg))
+    bound, bound_by = _decode_bound(cfg, params, caches, I_BATCH,
+                                    max_len - 1, False, rate)
     step_ms = [a.elapsed_time(b) for a, b in events]
     step = statistics.median(step_ms)
     out = torch.stack(tokens, dim=1).cpu()
-    want = 2 * cfg.n_layers * I_BATCH * max_len * cfg.n_kv_heads * cfg.hd * 2
-    log(f"  I1 [{card}]: prefill {prefill_ms[1]:.3f} ms (first call "
+    want = _cache_bytes(init_caches(cfg, I_BATCH, max_len, device="meta"))
+    log(f"  {label} [{card}]: prefill {prefill_ms[1]:.3f} ms (first call "
         f"{prefill_ms[0]:.3f}); decode {step:.3f} ms a step (median of steps "
         f"1-{I_GEN - 1}, CUDA events; range {min(step_ms):.3f}-"
-        f"{max(step_ms):.3f}), {I_BATCH / step * 1e3:.1f} tokens/s; peak "
-        f"device memory {peak / 2**30:.2f} GiB; caches "
-        f"{_cache_bytes(caches)} bytes")
-    log(f"  I1: sequence 0's first tokens {out[0, :12].tolist()}")
+        f"{max(step_ms):.3f}), {I_BATCH / step * 1e3:.1f} tokens/s; bound "
+        f"{bound:.3f} ms ({bound_by}), {bound / step:.3f} of it; peak device "
+        f"memory {peak / 2**30:.2f} GiB; caches {_cache_bytes(caches)} bytes")
+    log(f"  {label}: sequence 0's first tokens {out[0, :12].tolist()}")
     if not all(bool(f) for f in finite):
-        raise AssertionError("I1: non-finite logits")
+        raise AssertionError(f"{label}: non-finite logits")
     if out.shape != (I_BATCH, I_GEN) or int(out.min()) < 0 \
             or int(out.max()) >= cfg.vocab_size:
-        raise AssertionError(f"I1: tokens out of range, shape {out.shape}")
+        raise AssertionError(f"{label}: tokens out of range, shape "
+                             f"{out.shape}")
     if _cache_bytes(caches) != want:
-        raise AssertionError(f"I1: caches hold {_cache_bytes(caches)} bytes, "
-                             f"not {want}")
+        raise AssertionError(f"{label}: caches hold {_cache_bytes(caches)} "
+                             f"bytes, not {want}")
 
 
 def phase_i2(torch, card, rate):
     import dataclasses
 
-    from repro_torch.configs import concrete_inputs, get_arch, get_shape
-    from repro_torch.launch.mesh import LaneMesh
-    from repro_torch.launch.steps import build_serve_step
-    from repro_torch.models import init_params
+    from repro_torch.configs import get_arch, get_shape
 
     for arch, shape_name, layers, batch in I2_CELLS:
         cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
         shape = get_shape(shape_name)
         if batch is not None:
             shape = dataclasses.replace(shape, global_batch=batch)
-        label = f"I2 {arch} {shape_name}"
-        step = build_serve_step(cfg, LaneMesh(1, "cuda"), shape=shape)
-        params = init_params(cfg, seed=0, device="cuda")
-        inputs = concrete_inputs(cfg, shape, seed=0, device="cuda")
-        caches, token, pos = inputs["caches"], inputs["token"], inputs["pos"]
-        B = shape.global_batch
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        events, finite = [], []
-        for i in range(I_REPS + 1):     # step 0 warms up
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            logits, caches = step(params, caches, token, pos + i)
-            ev[1].record()
-            token = logits[:, 0].argmax(-1, keepdim=True)
-            finite.append(torch.isfinite(logits).all())
-            events.append(ev)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        _profile(torch, label, lambda: step(params, caches, token,
-                                            pos + I_REPS + 1))
-        ms = statistics.median(a.elapsed_time(b) for a, b in events[1:])
-        bound, bound_by = _decode_bound(cfg, params, caches, B, pos,
-                                        shape.long, rate)
-        lens = sorted({c.k.shape[2] for c in caches.values()})
-        log(f"  {label} [{card}]: {cfg.n_layers} layers, B {B}, cache "
-            f"lengths {lens} at pos {pos}"
-            f"{' (long_mode)' if shape.long else ''}, caches "
-            f"{_cache_bytes(caches)} bytes: {ms:.3f} ms a step (median of "
-            f"{I_REPS}, CUDA events), {B / ms * 1e3:.1f} tokens/s; bound "
-            f"{bound:.3f} ms ({bound_by}), {bound / ms:.3f} of it; peak "
-            f"device memory {peak / 2**30:.2f} GiB")
-        if not all(bool(f) for f in finite):
-            raise AssertionError(f"{label}: non-finite logits")
-        del params, inputs, caches, logits, step
+        _decode_cell(torch, card, rate, f"I2 {arch} {shape_name}", cfg,
+                     shape)
         torch.cuda.empty_cache()
+
+
+def _decode_cell(torch, card, rate, label, cfg, shape):
+    """``I_REPS`` timed serve steps of ``cfg`` at ``shape`` from its
+    concrete inputs (zero caches, pos = seq_len // 2), after one that warms
+    up; then one profiled step and the bound."""
+    from repro_torch.configs import concrete_inputs
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import init_params
+    from repro_torch.models.attention import KVCache
+
+    step = build_serve_step(cfg, LaneMesh(1, "cuda"), shape=shape)
+    params = init_params(cfg, seed=0, device="cuda")
+    inputs = concrete_inputs(cfg, shape, seed=0, device="cuda")
+    caches, token, pos = inputs["caches"], inputs["token"], inputs["pos"]
+    B = shape.global_batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, finite = [], []
+    for i in range(I_REPS + 1):     # step 0 warms up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits, caches = step(params, caches, token, pos + i)
+        ev[1].record()
+        token = logits[:, 0].argmax(-1, keepdim=True)
+        finite.append(torch.isfinite(logits).all())
+        events.append(ev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    _profile(torch, label, lambda: step(params, caches, token,
+                                        pos + I_REPS + 1))
+    ms = statistics.median(a.elapsed_time(b) for a, b in events[1:])
+    bound, bound_by = _decode_bound(cfg, params, caches, B, pos, shape.long,
+                                    rate)
+    lens = sorted({c.k.shape[2] for c in caches.values()
+                   if isinstance(c, KVCache)})
+    log(f"  {label} [{card}]: {cfg.n_layers} layers, B {B}, seq_len "
+        f"{shape.seq_len}{f', KV cache lengths {lens}' if lens else ''} at "
+        f"pos {pos}{' (long_mode)' if shape.long else ''}, caches "
+        f"{_cache_bytes(caches)} bytes: {ms:.3f} ms a step (median of "
+        f"{I_REPS}, CUDA events), {B / ms * 1e3:.1f} tokens/s; bound "
+        f"{bound:.3f} ms ({bound_by}), {bound / ms:.3f} of it; peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    if not all(bool(f) for f in finite):
+        raise AssertionError(f"{label}: non-finite logits")
 
 
 def phase_i3(torch):
@@ -3864,20 +3931,34 @@ def phase_j3(torch):
 
 def phase_j3_train(torch, results):
     """One MoE train step, the reduced qwen3-moe (capacity dispatch,
-    float32) on W = 4 lanes, batch 16 x 128, the card against the CPU from
-    the same numpy weights and batch.  The blockwise allgather step end to
-    end on the card launches rows 1-4b (counted over that step alone) and
-    gives the CPU's loss to rtol 1e-4; the blockwise exchange on the card
-    fed the CPU's gradients gives the CPU's parameters and velocities bit
-    for bit (H2b's gate); the exact engine's step holds H2a's (parameters
-    atol 1e-5 but at support swaps, at most 1 in 10,000), where a swap is
-    a coordinate that some lane selects on one side only: its difference
-    is that lane's share of the mean (to 1e-3, relative) and it lies
-    within ``H_TIE`` of its row's boundary on that lane."""
+    float32), under ``_train_gates``."""
     import dataclasses
 
-    from repro_torch import kernels
     from repro_torch.configs import get_arch
+
+    base = get_arch(J_ARCH).reduced()
+    cfg = dataclasses.replace(base, compute_dtype="float32",
+                              moe=dataclasses.replace(base.moe,
+                                                      impl="capacity"))
+    launches = _train_gates(torch, cfg, "J3 train")
+    for row in results:
+        row["launches_j3"] = launches[row["name"]]
+
+
+def _train_gates(torch, cfg, label):
+    """One train step of ``cfg`` (a reduced model, float32) on W = 4
+    lanes, batch 16 x 128, the card against the CPU from the same numpy
+    weights and batch.  The blockwise allgather step end to end on the
+    card launches rows 1-4b (counted over that step alone) and gives the
+    CPU's loss to rtol 1e-4; the blockwise exchange on the card fed the
+    CPU's gradients gives the CPU's parameters and velocities bit for bit
+    (H2b's gate); the exact engine's step holds H2a's (parameters atol
+    1e-5 but at support swaps, at most 1 in 10,000), where a swap is a
+    coordinate that some lane selects on one side only: its difference is
+    that lane's share of the mean (to 1e-3, relative) and it lies within
+    ``H_TIE`` of its row's boundary on that lane.  Returns the step's
+    launches by kernel name."""
+    from repro_torch import kernels
     from repro_torch.core.distributed import ExchangeConfig
     from repro_torch.core.paramspace import tree_flatten, tree_unflatten
     from repro_torch.data.synthetic import TokenStream
@@ -3885,10 +3966,6 @@ def phase_j3_train(torch, results):
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.model import init_params
 
-    base = get_arch(J_ARCH).reduced()
-    cfg = dataclasses.replace(base, compute_dtype="float32",
-                              moe=dataclasses.replace(base.moe,
-                                                      impl="capacity"))
     leaves, paths = tree_flatten(init_params(cfg, seed=0, device="cpu"))
     leaves_np = [x.numpy() for x in leaves]
     tokens = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
@@ -3921,13 +3998,11 @@ def phase_j3_train(torch, results):
     params, state, loss = step(params, state, batch)
     torch.cuda.synchronize()
     launches = {info.name: info.launches for info in kernels.KERNELS}
-    for row in results:
-        row["launches_j3"] = launches[row["name"]]
-    log(f"  J3 train: the blockwise allgather step on the card launched "
+    log(f"  {label}: the blockwise allgather step on the card launched "
         f"{launches}; loss card {float(loss):.6f}, CPU {cpu_loss:.6f}")
     idle = [k for k in J_ROWS if launches[k] == 0]
     if idle:
-        raise AssertionError(f"J3 train: rows {idle} never launched")
+        raise AssertionError(f"{label}: rows {idle} never launched")
     np.testing.assert_allclose(float(loss), cpu_loss, rtol=1e-4)
 
     # H2b: the card's blockwise exchange fed the CPU's gradients
@@ -3935,12 +4010,12 @@ def phase_j3_train(torch, results):
     updates, state = step.exchange(state, tree_unflatten(
         g_paths, [x.cuda() for x in g_leaves]))
     step.apply(params, updates)
-    for label, a, c in (("parameters", flat(params), cpu_params),
+    for what, a, c in (("parameters", flat(params), cpu_params),
                         ("velocities", flat(state.velocity), cpu_vel)):
         bad = ["/".join(p) for p, x, y in zip(paths, a, c)
                if not np.array_equal(x.view(np.int32), y.view(np.int32))]
         if bad:
-            raise AssertionError(f"J3 train: {label} differ: {bad}")
+            raise AssertionError(f"{label}: {what} differ: {bad}")
     del grads, g_leaves
 
     # H2a: the exact engine's step end to end, support swaps counted.  In
@@ -3965,7 +4040,7 @@ def phase_j3_train(torch, results):
         ok = ((gap <= H_TIE) & share).any(0)
         if not ok.all():
             raise AssertionError(
-                f"J3 train: {'/'.join(path)}: {int((~ok).sum())} of "
+                f"{label}: {'/'.join(path)}: {int((~ok).sum())} of "
                 f"{int(bad.sum())} parameters outside atol 1e-5 are no "
                 f"lane's swap at its row's boundary: |diff| "
                 f"{diff[bad][~ok].tolist()[:4]}, lane shares "
@@ -3974,13 +4049,300 @@ def phase_j3_train(torch, results):
         excused += int(bad.sum())
         total += diff.size
         worst = max(worst, float(diff[~bad].max(initial=0.0)))
-    log(f"  J3 train: the blockwise exchange on the card fed the CPU's "
+    log(f"  {label}: the blockwise exchange on the card fed the CPU's "
         f"gradients: parameters and velocities bit-equal; the exact step: "
         f"parameters max |diff| {worst:.3g} but at {excused} support swaps of "
         f"{total} (each one lane's share of the mean, within {H_TIE} of its "
         f"row's boundary on that lane)")
     if excused > total // 10_000:
-        raise AssertionError(f"J3 train: {excused} support swaps")
+        raise AssertionError(f"{label}: {excused} support swaps")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase K: MLA (minicpm3-4b), the Mamba2/SSD block (mamba2-780m) and the
+# hybrid with shared attention (zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+# (arch, layers of the published depth, None = all): minicpm3 2 of 62;
+# mamba2 all 48; zamba2 one unit of its pattern (5 mamba, 1 mamba_attn)
+K_FAMILIES = (("minicpm3-4b", 2), ("mamba2-780m", None),
+              ("zamba2-2.7b", 6))
+# K2's cells: (arch, input shape, layers, batch cut, MLA absorb); minicpm3
+# without absorption expands k_nope and v for the whole cache (B 16 of
+# 128), zamba2's shared K/V hold 42.9 GB a layer at B 128 (B 32)
+K2_CELLS = (("minicpm3-4b", "decode_32k", 2, 16, False),
+            ("minicpm3-4b", "decode_32k", 2, None, True),
+            ("minicpm3-4b", "long_500k", 2, None, False),
+            ("mamba2-780m", "decode_32k", None, None, None),
+            ("mamba2-780m", "long_500k", None, None, None),
+            ("zamba2-2.7b", "decode_32k", 6, 32, None),
+            ("zamba2-2.7b", "long_500k", 6, None, None))
+# K3's reduced models: (arch, MLA absorb)
+K3_CELLS = (("minicpm3-4b", False), ("minicpm3-4b", True),
+            ("mamba2-780m", None), ("zamba2-2.7b", None))
+
+
+def _k_cfg(arch, layers=None, absorb=None):
+    """``arch`` at its published widths, ``layers`` deep (None: all), MLA
+    decode absorbed or not (None: the config's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if absorb is not None:
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, absorb=absorb))
+    return cfg
+
+
+def phase_k(torch, results, card, rate):
+    """The MLA, Mamba2 and hybrid families: K1 each at its published
+    widths, prefill and 64 greedy tokens; K2 decode steps at the assigned
+    decode shapes; K3 the card against the CPU on the reduced models and
+    ``ssd_chunked`` against the recurrence; K4 one train step of each at
+    full width (rows 1-4b), then H2's gates on the reduced models; K5 the
+    launchers.  No kernel lies on the forward and decode path: the
+    counters are read over K1-K3 and printed."""
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    for arch, layers in K_FAMILIES:
+        _generate(torch, card, rate, _k_cfg(arch, layers), f"K1 {arch}")
+        torch.cuda.empty_cache()
+    phase_k2(torch, card, rate)
+    torch.cuda.empty_cache()
+    phase_k3(torch)
+    torch.cuda.empty_cache()
+    log(f"  K1-K3: kernel launches "
+        f"{ {k.name: k.launches for k in kernels.KERNELS} } (no kernel on "
+        f"the forward and decode path)")
+    phase_k4(torch, results, card)
+    torch.cuda.empty_cache()
+    phase_k5()
+
+
+def phase_k2(torch, card, rate):
+    import dataclasses
+
+    from repro_torch.configs import get_shape
+
+    for arch, shape_name, layers, batch, absorb in K2_CELLS:
+        shape = get_shape(shape_name)
+        if batch is not None:
+            shape = dataclasses.replace(shape, global_batch=batch)
+        _decode_cell(torch, card, rate, f"K2 {arch} {shape_name}" + (
+            "" if absorb is None else f" absorb={absorb}"),
+            _k_cfg(arch, layers, absorb), shape)
+        torch.cuda.empty_cache()
+
+
+def _k3_cfg(arch, absorb, dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), compute_dtype=dtype)
+    if absorb is not None:
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, absorb=absorb))
+    return cfg
+
+
+def phase_k3(torch):
+    """The card against the CPU on the reduced MLA (both decode
+    branches), Mamba2 and hybrid models, float32 and bf16 compute, from
+    the same weights and numpy prompt (4 x 60): float32 forward logits to
+    rtol/atol 1e-4 and the loss to rtol 1e-4; then prefill and 16 greedy
+    steps under I3's gates.  And ``ssd_chunked`` on the card (B 2, S 256,
+    8 heads of 64, 2 groups, state 64, chunks of 64) against the
+    sequential recurrence in float64 (atol 1e-4) and against the CPU's
+    (rtol/atol 1e-4, I3's)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import forward, init_params, loss_fn
+    from repro_torch.models import ssm
+
+    for arch, absorb in K3_CELLS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = _k3_cfg(arch, absorb, dtype)
+            label = f"K3 {cfg.name}" + (
+                "" if absorb is None else f" absorb={absorb}") + f" {dtype}"
+            prompt = np.random.default_rng(3).integers(
+                0, cfg.vocab_size, (I3_BATCH, I3_PROMPT)).astype(np.int32)
+            params = init_params(cfg, seed=0, device="cpu")
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                p = params_from_numpy(params, dev)
+                tok = torch.from_numpy(prompt).to(dev)
+                with torch.no_grad():
+                    logits = forward(p, tok, cfg).cpu()
+                    loss = float(loss_fn(p, {"tokens": tok}, cfg)[0])
+                runs[dev] = dict(logits=logits, loss=loss,
+                                 seq=_greedy_run(torch, p, prompt, cfg, dev))
+            cpu, card = runs["cpu"], runs["cuda"]
+            if dtype == "float32":
+                np.testing.assert_allclose(card["logits"].numpy(),
+                                           cpu["logits"].numpy(), rtol=1e-4,
+                                           atol=1e-4, err_msg=label)
+                np.testing.assert_allclose(card["loss"], cpu["loss"],
+                                           rtol=1e-4, err_msg=label)
+            agreed, worst = _greedy_compare(label, cpu["seq"], card["seq"],
+                                            I3_MARGIN[dtype],
+                                            logits_gate=dtype == "float32")
+            log(f"  {label}: loss card {card['loss']:.6f} CPU "
+                f"{cpu['loss']:.6f}; {agreed} of {I3_BATCH * (I3_STEPS + 1)} "
+                f"greedy tokens equal before the first disagreements (logits "
+                f"max |card - CPU| {worst:.3e})")
+
+    rng = np.random.default_rng(4)
+    B, S, H, P, G, N = 2, 256, 8, 64, 2, 64
+    x = rng.normal(size=(B, S, H, P))
+    dt = np.log1p(np.exp(rng.normal(size=(B, S, H)) - 2.0))
+    A = -np.exp(rng.normal(size=H))
+    Bm = rng.normal(size=(B, S, G, N)) * 0.3
+    Cm = rng.normal(size=(B, S, G, N)) * 0.3
+    args = [a.astype(np.float32) for a in (x, dt, A, Bm, Cm)]
+    cpu_out, card_out = ([t.cpu().numpy() for t in ssm.ssd_chunked(
+        *(torch.from_numpy(a).to(dev) for a in args), chunk=64)]
+        for dev in ("cpu", "cuda"))
+    # the recurrence one step at a time, float64
+    x, dt, A, Bm, Cm = (a.astype(np.float64) for a in args)
+    state = np.zeros((B, H, P, N))
+    ys = np.zeros((B, S, H, P))
+    for t in range(S):
+        Bt = np.repeat(Bm[:, t], H // G, axis=1)
+        Ct = np.repeat(Cm[:, t], H // G, axis=1)
+        state = (state * np.exp(dt[:, t] * A)[..., None, None]
+                 + (x[:, t] * dt[:, t][..., None])[..., None]
+                 * Bt[:, :, None, :])
+        ys[:, t] = np.einsum("bhpn,bhn->bhp", state, Ct)
+    err = [float(np.abs(card_out[0] - ys).max()),
+           float(np.abs(card_out[1] - state).max())]
+    log(f"  K3 ssd_chunked on the card: max |y - recurrence| {err[0]:.3e}, "
+        f"final state {err[1]:.3e}; max |card - CPU| "
+        f"{float(np.abs(card_out[0] - cpu_out[0]).max()):.3e}")
+    np.testing.assert_allclose(card_out[0], ys, atol=1e-4,
+                               err_msg="K3 ssd_chunked y")
+    np.testing.assert_allclose(card_out[1], state, atol=1e-4,
+                               err_msg="K3 ssd_chunked state")
+    for a, b in zip(card_out, cpu_out):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4,
+                                   err_msg="K3 ssd_chunked card vs CPU")
+
+
+def phase_k4(torch, results, card):
+    """One blockwise allgather train step of each family at full width
+    (K_FAMILIES) on W = 4 lanes of the card, batch 16 x 128, density 0.05,
+    after one step that warms up: rows 1-4b each launched over the steps,
+    the split by CUDA events; then ``_train_gates`` on each reduced model
+    (float32), the card against the CPU."""
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.models.model import abstract_params
+
+    _k4_tall_rows(torch)
+    mesh = LaneMesh(H_W, "cuda")
+    counts = {}
+    for arch, layers in K_FAMILIES:
+        cfg = _k_cfg(arch, layers)
+        label = f"K4 {cfg.name}"
+        stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
+                             batch_size=H_BATCH, seed=0, device="cuda")
+        n_params = sum(p.numel() for p in tree_leaves(abstract_params(cfg)))
+        log(f"  {label}: {cfg.n_layers} layers, {n_params} parameters; W = "
+            f"{H_W} lanes, batch {H_BATCH} x seq {H_SEQ}, density "
+            f"{H_DENSITY}, blockwise allgather")
+        _, _, _, launches, _ = _h_run(torch, label, cfg, mesh,
+                                      _h_exchange("allgather"), stream, 2,
+                                      card)
+        idle = [k for k in J_ROWS if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"{label}: rows {idle} never launched")
+        counts[cfg.name] = launches
+        torch.cuda.empty_cache()
+    for row in results:
+        row["launches_k4"] = {name: c[row["name"]] / 2
+                              for name, c in counts.items()}
+    for arch, _ in K_FAMILIES:
+        _train_gates(torch, _k3_cfg(arch, None, "float32"),
+                     f"K4 train {arch}")
+        torch.cuda.empty_cache()
+
+
+def _k4_tall_rows(torch):
+    """Kernel 4 and its fused multiply-adds (rows 4, 4a, 4b) on a block
+    of more rows than a grid's y dimension holds (65,535): minicpm3's
+    embedding and head are cut into 73,448 rows.  Each bit-equal to its
+    plain version on the CPU."""
+    from repro_torch.kernels import ops, samomentum_kernel as sk
+
+    rng = np.random.default_rng(5)
+    rows, n, m, lr = 73_448, 96, H_MOMENTUM, H_LR
+    u, g, c = (rng.normal(size=(rows, n)).astype(np.float32)
+               for _ in range(3))
+    thr = np.abs(rng.normal(size=rows)).astype(np.float32)
+    def run(dev):
+        tu, tg, tc, tt = (torch.from_numpy(x).to(dev) for x in (u, g, c, thr))
+        uacc = sk.velocity_accumulate(tu, tg, momentum=m, lr=lr)
+        sent, u_new = ops.samomentum_fused_rows(uacc, uacc, tt, momentum=m,
+                                                lr=1.0 - m)
+        res = sk.fused_multiply_add(sent, 1.0 / m - 1.0, tc)
+        return [x.cpu().numpy() for x in (uacc, sent, u_new, res)]
+
+    for name, a, b in zip(("accumulate", "fused sent", "fused u_new", "fma"),
+                          run("cuda"), run("cpu")):
+        if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            raise AssertionError(f"K4 {rows} rows: {name} differs from its "
+                                 f"plain version")
+    log(f"  K4: rows 4, 4a, 4b on ({rows}, {n}) bit-equal to their plain "
+        f"versions (grids of 65,535 rows at most a launch)")
+
+
+def phase_k5():
+    """``launch/train.py --arch`` (3 steps) and ``launch/serve.py --role
+    decode --arch`` for each family on the card, the six processes at
+    once: each exits 0, the trainer's losses are finite and the decoder
+    prints 4 rows of 16 ids in range."""
+    import re
+
+    jobs = []
+    for arch, _ in K_FAMILIES:
+        jobs.append((f"K5 train {arch}", "repro_torch.launch.train",
+                     ["--arch", arch, "--steps", "3"], arch))
+        jobs.append((f"K5 serve {arch}", "repro_torch.launch.serve",
+                     ["--role", "decode", "--arch", arch], arch))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", module, *flags],
+                              cwd=ROOT, env=_child_env(),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for _, module, flags, _ in jobs]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=400)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    log(f"  K5: six launchers at once, {time.perf_counter() - t0:.1f} s "
+        f"(process start-up included)")
+    for (label, _, _, arch), proc, out in zip(jobs, procs, outs):
+        for line in out.strip().splitlines()[-4:]:
+            log(f"  {label} | {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: exited {proc.returncode}")
+        if "train" in label:
+            losses = [float(x) for x in re.findall(r"step +\d+ loss=(\S+)",
+                                                   out)]
+            if len(losses) != 3 or not np.all(np.isfinite(losses)):
+                raise AssertionError(f"{label}: losses {losses}")
+        else:
+            _check_decode_rows(label, out, arch)
 
 
 def main() -> int:
@@ -4029,6 +4391,8 @@ def main() -> int:
                       ("i", lambda: phase_i(torch, smi.stdout.strip(),
                                             rate)),
                       ("j", lambda: phase_j(torch, results,
+                                            smi.stdout.strip(), rate)),
+                      ("k", lambda: phase_k(torch, results,
                                             smi.stdout.strip(), rate))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()

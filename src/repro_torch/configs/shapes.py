@@ -13,7 +13,6 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import config as mcfg
-from repro_torch.models.attention import KVCache
 from repro_torch.models.model import init_caches
 
 
@@ -37,7 +36,8 @@ SHAPES: dict[str, InputShape] = {
 def input_specs(cfg: mcfg.ModelConfig, shape: InputShape) -> dict:
     """``{name: (shape, dtype)}`` of every model input of one
     (architecture, input shape); decode's ``caches`` is the tree of
-    ``init_caches`` with a ``(shape, dtype)`` pair for each leaf."""
+    ``init_caches`` (dicts and cache named tuples) with a ``(shape,
+    dtype)`` pair for each leaf."""
     B, S = shape.global_batch, shape.seq_len
     if shape.kind in ("train", "prefill"):
         specs = {"tokens": ((B, S), torch.int32)}
@@ -50,9 +50,16 @@ def input_specs(cfg: mcfg.ModelConfig, shape: InputShape) -> dict:
     return {
         "token": ((B, 1), torch.int32),
         "pos": ((), torch.int32),
-        "caches": {key: KVCache(*((tuple(x.shape), x.dtype) for x in c))
-                   for key, c in caches.items()},
+        "caches": _leaf_specs(caches),
     }
+
+
+def _leaf_specs(tree):
+    if isinstance(tree, dict):
+        return {key: _leaf_specs(val) for key, val in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_leaf_specs(leaf) for leaf in tree))
+    return tuple(tree.shape), tree.dtype
 
 
 def concrete_inputs(cfg: mcfg.ModelConfig, shape: InputShape, *, seed=0,

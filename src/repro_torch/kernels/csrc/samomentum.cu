@@ -240,14 +240,31 @@ rowmap_kernel(Op op, Args<Op::kIn, Op::kOut> args) {
   }
 }
 
+// gridDim.y holds at most 65,535 rows: a taller block (a vocabulary's
+// rows) runs in slabs of that many, one launch a slab, each operand's
+// pointer moved to the slab's first row.
+constexpr long long kMaxRows = 65535;
+
 template <class Op>
 int launch(const Op& op, const Args<Op::kIn, Op::kOut>& args, long long b,
            void* stream) {
   if (b <= 0 || args.n <= 0) return 0;
-  if (b > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((args.n + kChunk - 1) / kChunk), (unsigned)b);
-  rowmap_kernel<Op><<<grid, kThreads, 0, (cudaStream_t)stream>>>(op, args);
-  return (int)cudaGetLastError();
+  for (long long b0 = 0; b0 < b; b0 += kMaxRows) {
+    Args<Op::kIn, Op::kOut> slab = args;
+    for (int j = 0; j < Op::kOut; ++j) slab.out[j] = args.out[j] + b0 * args.n;
+    for (int j = 0; j < Op::kIn; ++j) {
+      if (args.in[j].kind == kFull || args.in[j].kind == kRow) {
+        slab.in[j].p = args.in[j].p + b0 * args.in[j].stride;
+      }
+    }
+    const long long rows = b - b0 < kMaxRows ? b - b0 : kMaxRows;
+    const dim3 grid((unsigned)((args.n + kChunk - 1) / kChunk),
+                    (unsigned)rows);
+    rowmap_kernel<Op><<<grid, kThreads, 0, (cudaStream_t)stream>>>(op, slab);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 Operand full(const void* p, long long stride) {

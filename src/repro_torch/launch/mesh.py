@@ -79,7 +79,11 @@ class ProcessMesh(_Mesh):
     back to the card."""
 
     def __init__(self, group=None, device=None):
-        self.group = group if group is not None else dist.group.WORLD
+        # None names the default group at each call: a mesh holding the
+        # default group's object would keep it alive past
+        # ``destroy_process_group``, and its destructor would then run at
+        # interpreter exit, where gloo's threads can abort the process
+        self.group = group
         self.size = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
         self.device = resolve_device(device)

@@ -22,9 +22,10 @@ Roles:
   decodes (the MLP's accuracy on a fixed eval set) between diff pulls and
   writes its final arena to ``--out`` (``.npy``).
 * ``--role decode`` -- the standalone decode demo: the reduced variant of
-  ``--arch`` (a dense GQA architecture: chatglm3-6b, command-r-35b,
-  gemma3-12b; or an MoE one: dbrx-132b, qwen3-moe-235b-a22b) prefills a seeded prompt of ``--batch`` x ``--prompt-len``
-  tokens, then decodes ``--gen - 1`` tokens against its KV caches, greedy
+  ``--arch`` (any but the modality architectures qwen2-vl-7b and
+  musicgen-large: dense GQA, MLA, MoE, Mamba2 or the hybrid) prefills a
+  seeded prompt of ``--batch`` x ``--prompt-len`` tokens, then decodes
+  ``--gen - 1`` tokens against its KV, latent or SSM caches, greedy
   or sampled at ``--temperature``, and prints the generated ids.  No
   cluster; the ``"model"`` axis has size 1.
 

@@ -1,9 +1,10 @@
 """Training launcher (PyTorch port of ``repro.launch.train``): the reduced
 variant of an architecture trained data-parallel with DGS as the gradient
-exchange, printing losses.
+exchange, printing losses.  Every family but the modality ones runs
+(dense GQA, MLA, MoE, Mamba2, the hybrid):
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
-        --devices 4 --steps 3 --batch 4 --seq 32
+        --devices 4 --steps 3 --batch 4 --seq 32 --arch mamba2-780m
 
 ``--devices N`` is the number of workers, N lanes of one process on
 ``--device`` (None = the card).  Under ``torchrun`` (``WORLD_SIZE`` set) it
@@ -78,10 +79,10 @@ def main(argv=None):
         telemetry.set_log_file(args.log_file)
 
     cfg = get_arch(args.arch).reduced()
-    if cfg.frontend_tokens:
+    if cfg.frontend_tokens or cfg.rope == "mrope":
         raise NotImplementedError(
-            f"{cfg.name} trains with frontend embeddings, which the port "
-            f"does not have yet (ROADMAP queue 1 item 3d)")
+            f"{cfg.name} needs the modality frontends or M-RoPE, which the "
+            f"port does not have yet (ROADMAP queue 1 item 3d)")
     device = resolve_device(args.device)
     if "WORLD_SIZE" in os.environ:
         mesh = mesh_lib.init_process_mesh(

@@ -1,7 +1,7 @@
 """Models."""
-from . import moe
+from . import moe, ssm
 from .model import (abstract_params, decode_step, forward, init_caches,
                     init_params, loss_fn, prefill)
 
 __all__ = ["abstract_params", "decode_step", "forward", "init_caches",
-           "init_params", "loss_fn", "moe", "prefill"]
+           "init_params", "loss_fn", "moe", "prefill", "ssm"]

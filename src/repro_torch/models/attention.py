@@ -1,6 +1,6 @@
 """Attention blocks: GQA with full, sliding-window and local:global masks,
-and its KV cache (PyTorch port of ``repro.models.attention``; MLA is not
-ported yet).
+MLA (multi-head latent attention), and their caches (PyTorch port of
+``repro.models.attention``).
 
 The forward runs query-block *chunked* attention, so the score matrix
 never holds more than ``(chunk_q, S_kv)`` per head, and sliding-window
@@ -15,6 +15,11 @@ linear cache of ``seq_len``; sliding-window layers keep a ring buffer of
 ``window`` slots, position p in slot ``p % window``.  The cache is
 updated in place (the reference donates it), and its scores and PV
 product are computed in float32, as the reference's einsums.
+
+MLA (MiniCPM3/DeepSeek-style) caches the compressed latent ``c_kv`` and
+the one shared rope key only, linear over ``seq_len`` in every mode.  Its
+decode either expands the whole cache through ``wkv_b`` (``absorb=False``)
+or folds ``wkv_b`` into the query and the output (``absorb=True``).
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 
 from . import rope as rope_lib
 from .config import ModelConfig
-from .layers import Init, linear, linear_init
+from .layers import Init, linear, linear_init, norm_init, rmsnorm
 
 NEG_INF = -1e30
 
@@ -181,7 +186,160 @@ def gqa_decode(params, cache: KVCache, x, pos, cfg: ModelConfig, *,
     return linear(params["wo"], o), cache
 
 
-def mla_forward(params, x, positions, cfg: ModelConfig, **_):
-    raise NotImplementedError(
-        "MLA attention (minicpm3) is not ported yet (ROADMAP queue 1 "
-        "item 3b)")
+# ---------------------------------------------------------------- MLA --
+
+def mla_init(init: Init, cfg: ModelConfig):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": linear_init(init, d, m.q_lora_rank, dtype=cfg.pdtype),
+        "q_norm": norm_init(init, "rmsnorm", m.q_lora_rank, dtype=cfg.pdtype),
+        "wq_b": linear_init(init, m.q_lora_rank, H * qd, dtype=cfg.pdtype),
+        "wkv_a": linear_init(init, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                             dtype=cfg.pdtype),
+        "kv_norm": norm_init(init, "rmsnorm", m.kv_lora_rank,
+                             dtype=cfg.pdtype),
+        "wkv_b": linear_init(init, m.kv_lora_rank,
+                             H * (m.qk_nope_head_dim + m.v_head_dim),
+                             dtype=cfg.pdtype),
+        "wo": linear_init(init, H * m.v_head_dim, d, dtype=cfg.pdtype),
+    }
+
+
+def _mla_qkv(params, x, positions, cfg: ModelConfig):
+    """(q_nope (B,S,H,dn), q_rope (B,S,H,dr), c_kv (B,S,rank), k_rope
+    (B,S,1,dr)); RoPE at the full ``dr`` on the queries and on the one
+    shared key."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    q = linear(params["wq_b"], rmsnorm(params["q_norm"],
+                                       linear(params["wq_a"], x)))
+    q = q.reshape(B, S, cfg.n_heads, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv_a = linear(params["wkv_a"], x)
+    c_kv = rmsnorm(params["kv_norm"], kv_a[..., :m.kv_lora_rank])
+    k_rope = kv_a[..., m.kv_lora_rank:].reshape(B, S, 1, dr)
+    q_rope, k_rope = rope_lib.standard_rope(q_rope, k_rope, positions,
+                                            theta=cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(params, c_kv, cfg: ModelConfig):
+    """The latents through ``wkv_b``: (k_nope (..., H, dn), v (..., H,
+    dv)) in the latents' dtype."""
+    m = cfg.mla
+    kv = linear(params["wkv_b"], c_kv)
+    kv = kv.reshape(*c_kv.shape[:-1], cfg.n_heads,
+                    m.qk_nope_head_dim + m.v_head_dim)
+    return kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+
+
+def mla_forward(params, x, positions, cfg: ModelConfig, *,
+                chunk_q: int = 512, return_kv: bool = False, **_):
+    """Training/prefill MLA, query-block chunked. x: (B,S,d) -> (B,S,d)
+    (and the layer's :class:`MLACache` when ``return_kv``).  Scores scale
+    by ``(dn + dr) ** -0.5``."""
+    B, S, _ = x.shape
+    m = cfg.mla
+    H = cfg.n_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
+    k_nope, v = _mla_expand_kv(params, c_kv, cfg)   # (B,S,H,dn), (B,S,H,dv)
+    scale = (dn + dr) ** -0.5
+    C = min(chunk_q, S)
+    while S % C:
+        C -= 1
+    knt = k_nope.to(torch.float32).permute(0, 2, 3, 1)       # (B,H,dn,S)
+    krt = k_rope.to(torch.float32).permute(0, 2, 3, 1)       # (B,1,dr,S)
+    vf = v.to(torch.float32).transpose(1, 2)                 # (B,H,S,dv)
+    qn = q_nope.to(torch.float32).transpose(1, 2)            # (B,H,S,dn)
+    qr = q_rope.to(torch.float32).transpose(1, 2)            # (B,H,S,dr)
+    kv_pos = torch.arange(S, device=x.device)
+    outs = []
+    for start in range(0, S, C):
+        q_pos = start + torch.arange(C, device=x.device)
+        s = (qn[:, :, start:start + C] @ knt
+             + qr[:, :, start:start + C] @ krt) * scale      # (B,H,C,S)
+        s = torch.where(kv_pos[None, :] <= q_pos[:, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        # the reference rounds p to the compute dtype before the PV matmul
+        outs.append(p.to(v.dtype).to(torch.float32) @ vf)   # (B,H,C,dv)
+    out = torch.cat(outs, dim=2).transpose(1, 2).reshape(B, S, H * dv)
+    out = linear(params["wo"], out.to(x.dtype))
+    if not return_kv:
+        return out
+    return out, MLACache(c_kv=c_kv.to(cfg.cdtype),
+                         k_rope=k_rope[:, :, 0].to(cfg.cdtype))
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor      # (..., B, L, kv_lora_rank)
+    k_rope: torch.Tensor    # (..., B, L, rope_dim)
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
+                   lead: tuple = (), device, **_) -> MLACache:
+    """Zero latents of ``lead + (batch, seq_len, ...)`` in the compute
+    dtype: linear in every mode (``long_mode`` keeps no ring)."""
+    m = cfg.mla
+    lead = tuple(lead) + (batch, seq_len)
+    return MLACache(
+        c_kv=torch.zeros(lead + (m.kv_lora_rank,), dtype=cfg.cdtype,
+                         device=device),
+        k_rope=torch.zeros(lead + (m.qk_rope_head_dim,), dtype=cfg.cdtype,
+                           device=device))
+
+
+def mla_decode(params, cache: MLACache, x, pos, cfg: ModelConfig, **_):
+    """One-token MLA decode. x: (B,1,d); ``pos`` a Python int.  Writes
+    the token's latent and rope key into ``cache`` in place and returns
+    (out (B,1,d), cache).  Scores, softmax and the value product are
+    float32, as the reference's einsums; a ``pos`` past the cache
+    raises."""
+    pos = operator.index(pos)
+    B = x.shape[0]
+    m = cfg.mla
+    H = cfg.n_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    L = cache.c_kv.shape[1]
+    if not 0 <= pos < L:
+        raise IndexError(f"decode position {pos} outside the linear cache's "
+                         f"{L} slots")
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
+    cache.c_kv[:, pos] = c_kv[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[:, pos] = k_rope[:, 0, 0].to(cache.k_rope.dtype)
+    valid = torch.arange(L, device=x.device) <= pos
+    scale = (dn + dr) ** -0.5
+    qn = q_nope[:, 0].to(torch.float32)                      # (B,H,dn)
+    qr = q_rope[:, 0].to(torch.float32)                      # (B,H,dr)
+    s_rope = qr @ cache.k_rope.to(torch.float32).transpose(1, 2)  # (B,H,L)
+    if m.absorb:
+        # score = (q_nope @ Wkn^T) . c + q_rope . k_rope; out = (p . c) @ Wv
+        wkv = params["wkv_b"]["w"].reshape(m.kv_lora_rank, H, dn + dv)
+        wkn = wkv[..., :dn].to(torch.float32).permute(1, 2, 0)  # (H,dn,r)
+        wv = wkv[..., dn:].to(torch.float32).transpose(0, 1)    # (H,r,dv)
+        q_abs = (qn.transpose(0, 1) @ wkn).transpose(0, 1)      # (B,H,r)
+        cf = cache.c_kv.to(torch.float32)                       # (B,L,r)
+        s = (q_abs @ cf.transpose(1, 2) + s_rope) * scale
+        s = torch.where(valid, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        ctx = p @ cf                                            # (B,H,r)
+        del cf
+        o = (ctx.transpose(0, 1) @ wv).transpose(0, 1)          # (B,H,dv)
+    else:
+        k_nope, v = _mla_expand_kv(params, cache.c_kv, cfg)  # (B,L,H,dn|dv)
+        kf = k_nope.permute(0, 2, 3, 1).to(
+            torch.float32, memory_format=torch.contiguous_format)
+        s = ((qn[:, :, None] @ kf)[:, :, 0] + s_rope) * scale   # (B,H,L)
+        del kf, k_nope
+        s = torch.where(valid, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        vf = v.transpose(1, 2).to(torch.float32,
+                                  memory_format=torch.contiguous_format)
+        del v
+        o = (p[:, :, None] @ vf)[:, :, 0]                       # (B,H,dv)
+    o = o.reshape(B, 1, H * dv).to(x.dtype)
+    return linear(params["wo"], o), cache

@@ -1,18 +1,21 @@
-"""Model assembly: decoder-only LM over a stack of GQA transformer blocks
+"""Model assembly: decoder-only LM over heterogeneous block stacks
 (PyTorch port of ``repro.models.model``).
 
 The parameters are the reference's nested dict, key for key: ``embed``,
-``final_norm``, ``lm_head`` (when not tied) and ``units.b{i}.…``, each
-unit leaf stacked over the units on a leading dim.  ``forward`` walks the
-units in a Python loop, each reading its slice of the stacked leaves (the
-reference's ``lax.scan``).  A block's FFN is the dense MLP or, when
-``cfg.moe`` is set, the MoE (``models.moe``), whose router aux losses are
-averaged over the layers.  The MLA, SSM and hybrid blocks and the modality
-frontends are not ported yet.
+``final_norm``, ``lm_head`` (when not tied), ``shared`` (the hybrid's one
+attention block) and ``units.b{i}.…``, each unit leaf stacked over the
+units on a leading dim.  ``forward`` walks the units in a Python loop,
+each reading its slice of the stacked leaves (the reference's
+``lax.scan``).  An attention block is GQA or MLA, its FFN the dense MLP
+or, when ``cfg.moe`` is set, the MoE (``models.moe``), whose router aux
+losses are averaged over the layers.  A ``mamba`` block is the Mamba2/SSD
+mixer (``models.ssm``); a ``mamba_attn`` block follows it with the shared
+attention block (zamba2).  The modality frontends and M-RoPE are not
+ported yet.
 
 Three entry points per architecture x input shape:
   forward / loss_fn  -- training shapes
-  prefill            -- forward + KV cache construction
+  prefill            -- forward + KV/MLA/SSM cache construction
   decode_step        -- one token against the caches (the serve step),
                         which it updates in place
 """
@@ -25,6 +28,7 @@ from repro_torch.device import resolve_device
 
 from . import attention as attn
 from . import moe as moe_lib
+from . import ssm as ssm_lib
 from .config import ModelConfig
 from .layers import (Init, embed, embedding_init, linear, linear_init, mlp,
                      mlp_init, norm, norm_init, unembed)
@@ -32,23 +36,32 @@ from .layers import (Init, embed, embedding_init, linear, linear_init, mlp,
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item 3); the port's "
-        f"model runs the dense GQA and MoE families")
+        f"{what} is not ported yet (ROADMAP queue 1 item 3d); the port's "
+        f"model runs every family but the modality frontends and M-RoPE")
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attention == "mla":
-        raise _not_ported("MLA attention")
-    if cfg.arch_type in ("ssm", "hybrid"):
-        raise _not_ported("the Mamba2/SSD block")
+def _check_supported(cfg: ModelConfig, frontend_embeds=None) -> None:
+    """Raise for what the forward and decode cannot run yet: the modality
+    frontends' embeddings and M-RoPE (parameters and caches are made for
+    every architecture)."""
+    if frontend_embeds is not None:
+        raise _not_ported("the modality frontends")
+    if cfg.rope == "mrope":
+        raise _not_ported("M-RoPE")
 
 
 # ------------------------------------------------------------------- init --
 
-def _block_init(init: Init, cfg: ModelConfig):
+def _block_init(init: Init, cfg: ModelConfig, kind: str):
+    if kind in ("mamba", "mamba_attn"):
+        return {
+            "norm1": norm_init(init, cfg.norm, cfg.d_model, dtype=cfg.pdtype),
+            "mamba": ssm_lib.mamba_init(init, cfg),
+        }
     p = {
         "norm1": norm_init(init, cfg.norm, cfg.d_model, dtype=cfg.pdtype),
-        "attn": attn.gqa_init(init, cfg),
+        "attn": (attn.mla_init if cfg.attention == "mla"
+                 else attn.gqa_init)(init, cfg),
         "norm2": norm_init(init, cfg.norm, cfg.d_model, dtype=cfg.pdtype),
     }
     if cfg.moe is not None:
@@ -59,8 +72,24 @@ def _block_init(init: Init, cfg: ModelConfig):
     return p
 
 
+def _shared_block_init(init: Init, cfg: ModelConfig):
+    """The hybrid's one attention block (unstacked), applied after every
+    ``mamba_attn`` block's mixer; its MLP is ``max(d_ff, 4 d_model)``
+    wide."""
+    return {
+        "norm1": norm_init(init, cfg.norm, cfg.d_model, dtype=cfg.pdtype),
+        "attn": attn.gqa_init(init, cfg),
+        "norm2": norm_init(init, cfg.norm, cfg.d_model, dtype=cfg.pdtype),
+        "mlp": mlp_init(init, cfg.d_model, max(cfg.d_ff, 4 * cfg.d_model),
+                        activation=cfg.activation, dtype=cfg.pdtype),
+    }
+
+
+def _has_shared(cfg: ModelConfig, pattern) -> bool:
+    return cfg.shared_attention and "mamba_attn" in pattern
+
+
 def _init(init: Init, cfg: ModelConfig):
-    _check_supported(cfg)
     pattern, n_units = cfg.unit_pattern()
     params: dict = {
         "embed": embedding_init(init, cfg.vocab_size, cfg.d_model,
@@ -69,8 +98,10 @@ def _init(init: Init, cfg: ModelConfig):
                                 dtype=cfg.pdtype),
     }
     units = init.stacked(n_units)
-    params["units"] = {f"b{i}": _block_init(units, cfg)
-                       for i in range(len(pattern))}
+    params["units"] = {f"b{i}": _block_init(units, cfg, kind)
+                       for i, kind in enumerate(pattern)}
+    if _has_shared(cfg, pattern):
+        params["shared"] = _shared_block_init(init, cfg)
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(init, cfg.d_model, cfg.vocab_size,
                                         dtype=cfg.pdtype)
@@ -102,19 +133,56 @@ def _ffn(bp, hn, cfg: ModelConfig):
     return mlp(bp["mlp"], hn, activation=cfg.activation), None
 
 
-def _apply_block(bp, h, positions, cfg: ModelConfig, kind: str, *,
-                 want_cache: bool = False):
-    """One block: (h, its aux losses or None, the layer's KVCache or
-    None)."""
-    out = attn.gqa_forward(bp["attn"], norm(cfg.norm, bp["norm1"], h),
-                           positions, cfg, layer_kind=kind,
+def _apply_shared(shared, h, positions, cfg: ModelConfig, *,
+                  want_cache: bool = False):
+    """The shared attention block: (h, its KVCache or None)."""
+    out = attn.gqa_forward(shared["attn"], norm(cfg.norm, shared["norm1"], h),
+                           positions, cfg, layer_kind="attn",
                            return_kv=want_cache)
+    cache = None
+    if want_cache:
+        out, cache = out
+    h = h + out
+    h = h + mlp(shared["mlp"], norm(cfg.norm, shared["norm2"], h),
+                activation=cfg.activation)
+    return h, cache
+
+
+def _apply_block(bp, h, positions, cfg: ModelConfig, kind: str, shared, *,
+                 want_cache: bool = False):
+    """One block: (h, its aux losses or None, the layer's cache or None:
+    a KVCache or MLACache, or for a mamba block ``{"ssm": SSMCache}`` and,
+    after the shared attention, ``"shared": KVCache``)."""
+    if kind in ("mamba", "mamba_attn"):
+        out = ssm_lib.mamba_forward(bp["mamba"],
+                                    norm(cfg.norm, bp["norm1"], h), cfg,
+                                    return_state=want_cache)
+        cache = None
+        if want_cache:
+            out, ssm_cache = out
+            cache = {"ssm": ssm_cache}
+        h = h + out
+        if kind == "mamba_attn" and shared is not None:
+            h, kv = _apply_shared(shared, h, positions, cfg,
+                                  want_cache=want_cache)
+            if want_cache:
+                cache["shared"] = kv
+        return h, None, cache
+    fwd = attn.mla_forward if cfg.attention == "mla" else attn.gqa_forward
+    out = fwd(bp["attn"], norm(cfg.norm, bp["norm1"], h), positions, cfg,
+              layer_kind=kind, return_kv=want_cache)
     cache = None
     if want_cache:
         out, cache = out
     h = h + out
     out, aux = _ffn(bp, norm(cfg.norm, bp["norm2"], h), cfg)
     return h + out, aux, cache
+
+
+def _abs_pos(cfg: ModelConfig) -> bool:
+    """Whether the model adds sinusoidal positions: ``rope='none'``
+    outside the SSM and hybrid families (mamba2 has no positions)."""
+    return cfg.rope == "none" and cfg.arch_type not in ("ssm", "hybrid")
 
 
 def _sinusoidal(d_model: int, positions):
@@ -152,22 +220,21 @@ def _forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
     None): ``forward``'s work, with the router's aux losses each summed
     over the layers in order and divided by ``cfg.n_layers`` (zeros for
     the dense family), as the reference's ``forward`` returns them."""
-    _check_supported(cfg)
-    if frontend_embeds is not None:
-        raise _not_ported("the modality frontends")
+    _check_supported(cfg, frontend_embeds)
     pattern, n_units = cfg.unit_pattern()
     B, S = tokens.shape
     h = embed(params["embed"], tokens).to(cfg.cdtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    if cfg.rope == "none":
+    if _abs_pos(cfg):
         h = h + _sinusoidal(cfg.d_model, positions).to(h.dtype)
+    shared = params.get("shared")
 
     def unit_fn(h, lb, rz, unit_params):
         caches = {}
         for i, kind in enumerate(pattern):
             h, aux, caches[f"b{i}"] = _apply_block(
-                unit_params[f"b{i}"], h, positions, cfg, kind,
+                unit_params[f"b{i}"], h, positions, cfg, kind, shared,
                 want_cache=want_cache)
             if aux is not None:
                 lb = lb + aux["load_balance"]
@@ -188,10 +255,29 @@ def _forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
     aux = {"load_balance": lb / cfg.n_layers, "router_z": rz / cfg.n_layers}
     if not want_cache:
         return logits, aux, None
-    return logits, aux, {
-        key: attn.KVCache(k=torch.stack([c[key].k for c in unit_caches]),
-                          v=torch.stack([c[key].v for c in unit_caches]))
-        for key in unit_caches[0]}
+    return logits, aux, _stack_caches(unit_caches)
+
+
+def _stack_caches(unit_caches):
+    """One cache tree per unit -> one tree whose leaves are stacked over
+    the units (every cache type: dicts and named tuples)."""
+    first = unit_caches[0]
+    if isinstance(first, dict):
+        return {key: _stack_caches([c[key] for c in unit_caches])
+                for key in first}
+    if isinstance(first, tuple):
+        return type(first)(*(_stack_caches(list(leaves))
+                             for leaves in zip(*unit_caches)))
+    return torch.stack(unit_caches)
+
+
+def _unit_view(cache, u: int):
+    """Unit ``u``'s views of a stacked cache tree (written in place)."""
+    if isinstance(cache, dict):
+        return {key: _unit_view(val, u) for key, val in cache.items()}
+    if isinstance(cache, tuple):
+        return type(cache)(*(leaf[u] for leaf in cache))
+    return cache[u]
 
 
 def forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
@@ -235,20 +321,35 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
                 long_mode: bool = False, device=None):
-    """Zero caches, one :class:`~repro_torch.models.attention.KVCache` a
-    block of the unit pattern, each leaf stacked over the units:
-    ``(n_units, batch, L, KH, hd)`` on ``device`` (None = the card;
-    ``"meta"`` for shapes only).  The reference broadcasts one unit's
+    """Zero caches, one a block of the unit pattern, each leaf stacked
+    over the units on ``device`` (None = the card; ``"meta"`` for shapes
+    only): a :class:`~repro_torch.models.attention.KVCache` ``(n_units,
+    batch, L, KH, hd)`` or an ``MLACache`` for attention blocks; for a
+    mamba block ``{"ssm": SSMCache}`` and, where the shared attention
+    follows, ``"shared": KVCache``.  The reference broadcasts one unit's
     zeros; these are allocated whole, since decode writes them in
     place."""
-    _check_supported(cfg)
     device = resolve_device(device)
     pattern, n_units = cfg.unit_pattern()
-    return {f"b{i}": attn.gqa_init_cache(cfg, batch, seq_len,
-                                         layer_kind=kind,
-                                         long_mode=long_mode,
-                                         lead=(n_units,), device=device)
-            for i, kind in enumerate(pattern)}
+    lead = (n_units,)
+
+    def one(kind):
+        if kind in ("mamba", "mamba_attn"):
+            c = {"ssm": ssm_lib.mamba_init_cache(cfg, batch, lead=lead,
+                                                 device=device)}
+            if kind == "mamba_attn" and cfg.shared_attention:
+                c["shared"] = attn.gqa_init_cache(
+                    cfg, batch, seq_len, layer_kind="attn",
+                    long_mode=long_mode, lead=lead, device=device)
+            return c
+        if cfg.attention == "mla":
+            return attn.mla_init_cache(cfg, batch, seq_len, lead=lead,
+                                       device=device)
+        return attn.gqa_init_cache(cfg, batch, seq_len, layer_kind=kind,
+                                   long_mode=long_mode, lead=lead,
+                                   device=device)
+
+    return {f"b{i}": one(kind) for i, kind in enumerate(pattern)}
 
 
 def decode_step(params, caches, token, pos, cfg: ModelConfig, *,
@@ -256,23 +357,38 @@ def decode_step(params, caches, token, pos, cfg: ModelConfig, *,
     """The serve step: one new token per sequence against the caches.
 
     token: (B, 1) int; pos: the current position, a Python int.  Writes
-    each layer's K/V into ``caches`` in place and returns (logits
-    (B, 1, V) float32, caches)."""
+    each layer's K/V, latents or SSM state into ``caches`` in place and
+    returns (logits (B, 1, V) float32, caches)."""
     _check_supported(cfg)
     pattern, n_units = cfg.unit_pattern()
     B = token.shape[0]
     h = embed(params["embed"], token).to(cfg.cdtype)
-    if cfg.rope == "none":
+    if _abs_pos(cfg):
         p = torch.full((B, 1), pos, dtype=torch.int32, device=token.device)
         h = h + _sinusoidal(cfg.d_model, p).to(h.dtype)
+    shared = params.get("shared")
+    dec = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
     for u, unit_params in enumerate(_unit_slices(params["units"], n_units)):
         for i, kind in enumerate(pattern):
-            bp, c = unit_params[f"b{i}"], caches[f"b{i}"]
             # the unit's views of the stacked cache, written in place
-            out, _ = attn.gqa_decode(
-                bp["attn"], attn.KVCache(k=c.k[u], v=c.v[u]),
-                norm(cfg.norm, bp["norm1"], h), pos, cfg, layer_kind=kind,
-                long_mode=long_mode)
+            bp, c = unit_params[f"b{i}"], _unit_view(caches[f"b{i}"], u)
+            if kind in ("mamba", "mamba_attn"):
+                out, _ = ssm_lib.mamba_decode(
+                    bp["mamba"], c["ssm"], norm(cfg.norm, bp["norm1"], h),
+                    pos, cfg)
+                h = h + out
+                if kind == "mamba_attn" and shared is not None:
+                    out, _ = attn.gqa_decode(
+                        shared["attn"], c["shared"],
+                        norm(cfg.norm, shared["norm1"], h), pos, cfg,
+                        layer_kind="attn", long_mode=long_mode)
+                    h = h + out
+                    h = h + mlp(shared["mlp"],
+                                norm(cfg.norm, shared["norm2"], h),
+                                activation=cfg.activation)
+                continue
+            out, _ = dec(bp["attn"], c, norm(cfg.norm, bp["norm1"], h), pos,
+                         cfg, layer_kind=kind, long_mode=long_mode)
             h = h + out
             # the MoE runs on the step's B tokens (the capacity path's C
             # from T = B, dropping included); its aux is dropped
@@ -286,10 +402,10 @@ def prefill(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
     """Forward pass + cache construction for the decode that follows.
 
     Returns (last-position logits (B,1,V), caches, aux).  The caches are
-    each block's post-rope K/V from the forward pass, so ``decode_step``
-    continues exactly; ``max_len`` pads the linear caches with decode
-    headroom.  ``aux`` holds the MoE's router losses (zeros for the dense
-    family)."""
+    each block's post-rope K/V, MLA latents or final SSM state from the
+    forward pass, so ``decode_step`` continues exactly; ``max_len`` pads
+    the linear caches with decode headroom.  ``aux`` holds the MoE's
+    router losses (zeros for the dense family)."""
     logits, aux, caches = _forward(params, tokens, cfg,
                                    frontend_embeds=frontend_embeds,
                                    want_cache=True)
@@ -299,10 +415,11 @@ def prefill(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
 
 
 def _pad_caches(caches, cur_len: int, max_len: int):
-    """Pad the full-length (linear) caches along the position axis with
-    zeros to ``max_len``.  Leaves are stacked over the units:
-    ``(n_units, B, L, ...)``.  A cache whose length is not ``cur_len`` is a
-    ring (L == window < cur_len) and is left alone: decode masks by age."""
+    """Pad the full-length (linear) KV and MLA caches along the position
+    axis with zeros to ``max_len``; SSM caches have no position axis.
+    Leaves are stacked over the units: ``(n_units, B, L, ...)``.  A cache
+    whose length is not ``cur_len`` is a ring (L == window < cur_len) and
+    is left alone: decode masks by age."""
     def pad(x):
         L = x.shape[2]
         if L != cur_len or max_len <= L:
@@ -314,6 +431,10 @@ def _pad_caches(caches, cur_len: int, max_len: int):
     def walk(c):
         if isinstance(c, attn.KVCache):
             return attn.KVCache(k=pad(c.k), v=pad(c.v))
+        if isinstance(c, attn.MLACache):
+            return attn.MLACache(c_kv=pad(c.c_kv), k_rope=pad(c.k_rope))
+        if isinstance(c, ssm_lib.SSMCache):
+            return c
         if isinstance(c, dict):
             return {k: walk(v) for k, v in c.items()}
         raise TypeError(type(c))

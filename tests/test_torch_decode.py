@@ -20,8 +20,11 @@ compute):
   capacity factor of 0.5 that drops pairs at prefill and at decode, where
   C comes from the step's B tokens) through all of the above, their
   prefill's aux losses to rtol 1e-5;
-* what raises: a position past a linear cache, and the MLA and SSM
-  families.
+* the MLA, SSM and hybrid families (the reference's mla, ssm and
+  hybrid_shared) through all of the above, their caches ``MLACache``,
+  ``{"ssm": SSMCache}`` and ``"shared": KVCache``;
+* what raises: a position past a linear cache, and M-RoPE and the
+  frontends' embeddings at decode.
 """
 import dataclasses
 
@@ -35,8 +38,10 @@ from jax.sharding import PartitionSpec as P
 from repro.configs import ARCHS as JARCHS
 from repro.configs import shapes as jshapes
 from repro.launch import sharding as jsharding
+from repro.models import MLAConfig as JMLA
 from repro.models import ModelConfig as JConfig
 from repro.models import MoEConfig as JMoE
+from repro.models import SSMConfig as JSSM
 from repro.models import decode_step as jdecode
 from repro.models import init_params as jinit
 from repro.models import prefill as jprefill
@@ -48,8 +53,10 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import LaneMesh
 from repro_torch.models import (decode_step, forward, init_caches,
                                 init_params, prefill)
+from repro_torch.models.config import MLAConfig as TMLA
 from repro_torch.models.config import ModelConfig as TConfig
 from repro_torch.models.config import MoEConfig as TMoE
+from repro_torch.models.config import SSMConfig as TSSM
 
 BASE = JConfig(name="t", arch_type="dense", n_layers=2, d_model=128,
                n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=256,
@@ -72,6 +79,16 @@ FAMILIES = {
         BASE, arch_type="moe",
         moe=JMoE(n_experts=4, top_k=2, d_expert=128, impl="capacity",
                  capacity_factor=4.0)),
+    "mla": dataclasses.replace(
+        BASE, attention="mla",
+        mla=JMLA(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+                 qk_rope_head_dim=16, v_head_dim=32)),
+    "ssm": dataclasses.replace(
+        BASE, arch_type="ssm", attention="none", rope="none", d_ff=0,
+        ssm=JSSM(d_state=16, head_dim=32, chunk=8)),
+    "hybrid_shared": dataclasses.replace(
+        BASE, arch_type="hybrid", attn_every=2, shared_attention=True,
+        ssm=JSSM(d_state=16, head_dim=32, chunk=8)),
 }
 # held to the reference alone: its drops make decode differ from forward
 # (C = 1 at a decode step of B = 2, 6 at a prefill of 2 x 24)
@@ -80,16 +97,19 @@ DROPS = {"moe_capacity_drops": dataclasses.replace(
     moe=JMoE(n_experts=4, top_k=2, d_expert=128, impl="capacity",
              capacity_factor=0.5))}
 NAMES = sorted(JARCHS)
-PORTED = [n for n in NAMES if JARCHS[n].attention != "mla"
-          and JARCHS[n].arch_type not in ("ssm", "hybrid")]
+# every architecture's caches and input specs are made; qwen2-vl's M-RoPE
+# and the frontends' embeddings raise at prefill and decode
+PORTED = NAMES
+UNPORTED = ("musicgen-large", "qwen2-vl-7b")
 DECODE_SHAPES = ("decode_32k", "long_500k")
 
 
 def _tcfg(jc):
     """The port's ModelConfig with the reference config's fields."""
     fields = {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)}
-    if jc.moe is not None:
-        fields["moe"] = TMoE(**dataclasses.asdict(jc.moe))
+    for name, cls in (("moe", TMoE), ("mla", TMLA), ("ssm", TSSM)):
+        if fields[name] is not None:
+            fields[name] = cls(**dataclasses.asdict(fields[name]))
     return TConfig(**fields)
 
 
@@ -111,11 +131,16 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-def _cache_leaves(caches):
-    """[(name, leaf)] of a cache tree (dict of KVCache), in JAX's leaf
-    order."""
-    return [(f"{key}.{field}", leaf) for key in sorted(caches)
-            for field, leaf in zip(("k", "v"), caches[key])]
+def _cache_leaves(caches, name=""):
+    """[(name, leaf)] of a cache tree (dicts and cache named tuples), in
+    JAX's leaf order."""
+    if isinstance(caches, dict):
+        return [x for key in sorted(caches)
+                for x in _cache_leaves(caches[key], f"{name}.{key}")]
+    if isinstance(caches, tuple):
+        return [x for field, leaf in zip(caches._fields, caches)
+                for x in _cache_leaves(leaf, f"{name}.{field}")]
+    return [(name, caches)]
 
 
 def _close_caches(got, want, rtol, atol):
@@ -354,7 +379,9 @@ def _margin(logits: np.ndarray) -> np.ndarray:
     return top2[:, 1] - top2[:, 0]
 
 
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "gemma3-12b",
+                                  "minicpm3-4b", "mamba2-780m",
+                                  "zamba2-2.7b"])
 def test_bf16_greedy_tokens_equal_reference(arch):
     """The bf16-compute reduced config, 8 greedy steps after a prompt of
     24: the tokens agree wherever the reference's top-2 margin exceeds
@@ -408,12 +435,18 @@ def test_pos_past_a_linear_cache_raises():
     assert torch.isfinite(logits).all()
 
 
-@pytest.mark.parametrize("name", [n for n in NAMES if n not in PORTED])
+@pytest.mark.parametrize("name", UNPORTED)
 def test_other_families_raise_in_caches_and_decode(name):
+    """Caches and decode specs are made; prefill with a frontend's
+    embeddings and decode under M-RoPE raise."""
     tc = TARCHS[name].reduced()
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        init_caches(tc, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        decode_step({}, {}, torch.zeros((2, 1), dtype=torch.int32), 0, tc)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tshapes.input_specs(tc, tshapes.SHAPES["decode_32k"])
+    caches = init_caches(tc, 2, 16, device="cpu")
+    assert tshapes.input_specs(tc, tshapes.SHAPES["decode_32k"])["caches"]
+    params = init_params(tc, seed=0, device="cpu")
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    if tc.rope == "mrope":
+        with pytest.raises(NotImplementedError, match="queue 1 item 3d"):
+            decode_step(params, caches, tokens[:, :1], 0, tc)
+    fe = torch.zeros((2, tc.frontend_tokens, tc.d_model))
+    with pytest.raises(NotImplementedError, match="queue 1 item 3d"):
+        prefill(params, tokens, tc, frontend_embeds=fe)

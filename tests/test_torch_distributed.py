@@ -22,6 +22,7 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -297,31 +298,49 @@ def _route_problem(S: int):
     return spec, torch.from_numpy(idx), torch.from_numpy(vals)
 
 
+RANK_DEADLINE = 600     # seconds for all ranks (alone: about 7 s)
+
+
 @pytest.fixture(scope="module", params=[2, 4])
 def ranks(request, ref, tmp_path_factory):
     """(W, every rank's results): one process per rank, a ProcessMesh over
     gloo (a file rendezvous, so files running in parallel never share a
-    port)."""
+    port).  Each rank writes its output to a file, so no rank blocks on a
+    full pipe while the test waits on another."""
     world = request.param
     tmp = tmp_path_factory.mktemp(f"ranks{world}")
     ref_path = tmp / "ref.npz"
     np.savez(ref_path, **{k: v for k, v in ref.items()
                           if k.startswith("grad/")})
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK_SCRIPT, str(ROOT / "src"),
-         str(ROOT / "tests"), str(r), str(world), f"file://{tmp}/rendezvous",
-         str(ref_path), str(tmp / f"rank{r}.npz")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for r in range(world)]
-    errs = []
+    logs = [tmp / f"rank{r}.log" for r in range(world)]
+    procs = []
+    for r, path in enumerate(logs):
+        with open(path, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _RANK_SCRIPT, str(ROOT / "src"),
+                 str(ROOT / "tests"), str(r), str(world),
+                 f"file://{tmp}/rendezvous", str(ref_path),
+                 str(tmp / f"rank{r}.npz")],
+                stdout=out, stderr=subprocess.STDOUT, env=env))
+    # every rank at once, to one deadline: a rank that fails ends the
+    # others (which would wait for it in a collective), and its error is
+    # what the assert shows
+    start = time.monotonic()
+    while any(p.poll() is None for p in procs) \
+            and not any(p.poll() for p in procs) \
+            and time.monotonic() - start < RANK_DEADLINE:
+        time.sleep(0.1)
     for proc in procs:
-        try:
-            _, err = proc.communicate(timeout=300)
-        finally:
+        if proc.poll() is None:
             proc.kill()
-        errs.append((proc.returncode, err[-3000:]))
-    assert all(rc == 0 for rc, _ in errs), errs
+        proc.wait()
+    seconds = time.monotonic() - start
+    errs = [(r, proc.returncode, path.read_text()[-3000:])
+            for r, (proc, path) in enumerate(zip(procs, logs))]
+    assert all(proc.returncode == 0 for proc in procs), (
+        f"world {world} after {seconds:.1f} s (deadline {RANK_DEADLINE} s)",
+        errs)
     return world, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
 
 

@@ -305,16 +305,17 @@ def test_sharded_serving_and_decode_role_raise():
         with pytest.raises(NotImplementedError, match="later slice"):
             run_inprocess(strat, _torch_grad_fn, tp, tbatch, schedule=[0, 1],
                           n_replicas=1, **kw)
-    # the decode role runs the dense GQA and MoE families; MLA still
-    # raises
+    # the decode role runs every family but the modality ones: qwen2-vl's
+    # frontend still raises
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         serve.main(["--role", "decode", "--device", "cpu", "--arch",
-                    "minicpm3-4b"])
+                    "qwen2-vl-7b"])
 
 
 @pytest.mark.parametrize("arch,temperature",
                          [("chatglm3-6b", 0.0), ("gemma3-12b", 0.8),
-                          ("dbrx-132b", 0.0)])
+                          ("dbrx-132b", 0.0), ("minicpm3-4b", 0.0),
+                          ("mamba2-780m", 0.8), ("zamba2-2.7b", 0.0)])
 def test_decode_role_equals_a_direct_loop(arch, temperature, capsys):
     """``--role decode --device cpu`` prints ``--batch`` rows of ``--gen``
     ids: those of a prefill/decode_step loop on the same seeded prompt
