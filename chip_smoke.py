@@ -188,6 +188,38 @@ exits nonzero and prints no result line):
   exchange fed the CPU's gradients.  J4 runs ``launch/serve.py --role
   decode --arch qwen3-moe-235b-a22b`` and ``launch/train.py --arch
   dbrx-132b --steps 3``; both must exit 0.
+* k -- MLA (minicpm3-4b), the Mamba2/SSD block (mamba2-780m) and the
+  hybrid with shared attention (zamba2-2.7b); no kernel of the port lies
+  on their forward path.  K1 prefills each at its published widths
+  (minicpm3 2 of 62 layers, mamba2 all 48, zamba2 one unit of 5 mamba and
+  1 mamba_attn blocks) with I1's prompt and decodes 64 greedy tokens,
+  against ``_decode_bound``; K2 times 10 decode steps from
+  ``concrete_inputs`` at decode_32k and long_500k (minicpm3 expanded at B
+  16 and absorbed at B 128, zamba2 at B 32), each cut printed; K3 holds
+  the card against the CPU on the reduced models under I3's gates, and
+  ``ssd_chunked`` against the float64 recurrence (atol 1e-4); K4 runs one
+  blockwise allgather train step of each at full width on W = 4 lanes
+  (rows 1-4b launched; rows 4-4b on 73,448 rows, more than a grid's y
+  holds, bit-equal to their plain versions) and ``_train_gates`` on the
+  reduced ones; K5 runs the six launchers at once, each exiting 0.
+* l -- M-RoPE and the modality frontends: qwen2-vl-7b (M-RoPE sections
+  (16, 24, 24) over a 32 x 32 patch grid) and musicgen-large (sinusoidal
+  positions, 512 frame embeddings); no kernel of the port lies on their
+  forward path.  L1 prefills qwen2-vl at its published widths, 2 of 28
+  layers, with 16 x 1,280 (1,024 patch embeddings, then 256 tokens) and
+  musicgen, all 48 layers, with 16 x 1,024 (512 frames, then 512
+  tokens), the embeddings a seeded numpy draw in bf16, and decodes 64
+  greedy tokens against ``_decode_bound``; L2 times 10 decode steps from
+  ``concrete_inputs`` at decode_32k and long_500k (qwen2-vl 2 layers at B
+  128 and B 1; musicgen 4 layers at B 16, and all 48 at B 1), each cut
+  printed; L3 holds the card against the CPU on the reduced models with
+  their frontend embeddings, float32 and bf16, under I3's gates; L4 runs
+  one blockwise allgather train step of each at full width (qwen2-vl 1
+  layer, global batch 8 x 1,280; musicgen 8 layers, 16 x 640; W = 4
+  lanes unless the printed reckoning passes 72 GiB) with rows 1-4b
+  launched, then ``_train_gates`` on the reduced ones; L5 runs the four
+  launchers at once, each exiting 0.  The launch counters over L1-L3 are
+  printed (0 expected).
 
 The last two lines are the kernel table and the result, each one JSON object.
 """
@@ -3334,11 +3366,13 @@ def phase_i1(torch, card, rate):
     _generate(torch, card, rate, _h_cfg(H_LAYERS), "I1")
 
 
-def _generate(torch, card, rate, cfg, label):
-    """``cfg`` prefills a B 16 x 1,024 prompt, then decodes 64 greedy
-    tokens: prefill ms, ms a step by CUDA events, tokens/s, the bound, peak
-    memory, one profiled step; the caches must be those of
-    ``init_caches`` at the prompt and the tokens' length."""
+def _generate(torch, card, rate, cfg, label, *, prompt_len=I_PROMPT,
+              frontend_embeds=None):
+    """``cfg`` prefills a B 16 x ``prompt_len`` prompt (1,024; a modality
+    family's ``frontend_embeds`` in place of its first positions), then
+    decodes 64 greedy tokens: prefill ms, ms a step by CUDA events,
+    tokens/s, the bound, peak memory, one profiled step; the caches must
+    be those of ``init_caches`` at the prompt and the tokens' length."""
     from repro_torch.core.paramspace import tree_leaves
     from repro_torch.models import decode_step, init_caches, init_params
     from repro_torch.models import prefill
@@ -3349,11 +3383,14 @@ def _generate(torch, card, rate, cfg, label):
     log(f"  {label}: published widths (d_model {cfg.d_model}, vocab "
         f"{cfg.vocab_size}, mla {cfg.mla}, ssm {cfg.ssm}), {cfg.n_layers} "
         f"layers ({n_units} x {pattern}): {n_params} parameters "
-        f"({4 * n_params} bytes); B {I_BATCH}, a prompt of {I_PROMPT}, "
-        f"{I_GEN} greedy tokens")
+        f"({4 * n_params} bytes); B {I_BATCH}, a prompt of {prompt_len}"
+        + ("" if frontend_embeds is None else
+           f" ({frontend_embeds.shape[1]} frontend embeddings, then "
+           f"{prompt_len - frontend_embeds.shape[1]} tokens)")
+        + f", {I_GEN} greedy tokens")
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (I_BATCH, I_PROMPT)).astype(np.int32)).cuda()
-    max_len = I_PROMPT + I_GEN
+        0, cfg.vocab_size, (I_BATCH, prompt_len)).astype(np.int32)).cuda()
+    max_len = prompt_len + I_GEN
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     prefill_ms = []
@@ -3361,7 +3398,8 @@ def _generate(torch, card, rate, cfg, label):
         logits = caches = None
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        logits, caches, _ = prefill(params, prompt, cfg, max_len=max_len)
+        logits, caches, _ = prefill(params, prompt, cfg, max_len=max_len,
+                                    frontend_embeds=frontend_embeds)
         ev[1].record()
         torch.cuda.synchronize()
         prefill_ms.append(ev[0].elapsed_time(ev[1]))
@@ -3372,7 +3410,7 @@ def _generate(torch, card, rate, cfg, label):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         logits, caches = decode_step(params, caches, tokens[-1][:, None],
-                                     I_PROMPT + t, cfg)
+                                     prompt_len + t, cfg)
         ev[1].record()
         events.append(ev)
         tokens.append(logits[:, 0].argmax(-1))
@@ -3498,13 +3536,17 @@ def phase_i3(torch):
                 f"logits max |card - CPU| {worst:.3e} over them")
 
 
-def _greedy_run(torch, params, prompt, cfg, dev):
-    """Prefill ``prompt`` (numpy) on ``dev``, then ``I3_STEPS`` greedy
+def _greedy_run(torch, params, prompt, cfg, dev, frontend_embeds=None):
+    """Prefill ``prompt`` (numpy; a modality family's ``frontend_embeds``,
+    numpy, in its first positions) on ``dev``, then ``I3_STEPS`` greedy
     decode steps: the last-position logits of each, on the host."""
     from repro_torch.models import decode_step, prefill
 
+    fe = None if frontend_embeds is None else \
+        torch.from_numpy(frontend_embeds).to(dev)
     logits, caches, _ = prefill(params, torch.from_numpy(prompt).to(dev),
-                                cfg, max_len=prompt.shape[1] + I3_STEPS)
+                                cfg, max_len=prompt.shape[1] + I3_STEPS,
+                                frontend_embeds=fe)
     seq = [logits[:, -1].cpu()]
     for t in range(I3_STEPS):
         tok = seq[-1].argmax(-1, keepdim=True).to(torch.int32)
@@ -3947,17 +3989,17 @@ def phase_j3_train(torch, results):
 
 def _train_gates(torch, cfg, label):
     """One train step of ``cfg`` (a reduced model, float32) on W = 4
-    lanes, batch 16 x 128, the card against the CPU from the same numpy
-    weights and batch.  The blockwise allgather step end to end on the
-    card launches rows 1-4b (counted over that step alone) and gives the
-    CPU's loss to rtol 1e-4; the blockwise exchange on the card fed the
-    CPU's gradients gives the CPU's parameters and velocities bit for bit
-    (H2b's gate); the exact engine's step holds H2a's (parameters atol
-    1e-5 but at support swaps, at most 1 in 10,000), where a swap is a
-    coordinate that some lane selects on one side only: its difference is
-    that lane's share of the mean (to 1e-3, relative) and it lies within
-    ``H_TIE`` of its row's boundary on that lane.  Returns the step's
-    launches by kernel name."""
+    lanes, batch 16 x 128 (and a modality family's frontend embeddings),
+    the card against the CPU from the same numpy weights and batch.  The
+    blockwise allgather step end to end on the card launches rows 1-4b
+    (counted over that step alone) and gives the CPU's loss to rtol 1e-4;
+    the blockwise exchange on the card fed the CPU's gradients gives the
+    CPU's parameters and velocities bit for bit (H2b's gate); the exact
+    engine's step holds H2a's (parameters atol 1e-5 but at support swaps,
+    at most 1 in 10,000), where a swap is a coordinate that some lane
+    selects on one side only: its difference is that lane's share of the
+    mean (to 1e-3, relative) and it lies within ``H_TIE`` of its row's
+    boundary on that lane.  Returns the step's launches by kernel name."""
     from repro_torch import kernels
     from repro_torch.core.distributed import ExchangeConfig
     from repro_torch.core.paramspace import tree_flatten, tree_unflatten
@@ -3971,6 +4013,10 @@ def _train_gates(torch, cfg, label):
     tokens = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
                          batch_size=H_BATCH, seed=0,
                          device="cpu").batch(0)["tokens"].numpy()
+    fe = None
+    if cfg.frontend_tokens:
+        fe = np.random.default_rng(1).standard_normal(
+            (H_BATCH, cfg.frontend_tokens, cfg.d_model), dtype=np.float32)
 
     def flat(tree):
         return [x.cpu().numpy().copy() for x in tree_flatten(tree)[0]]
@@ -3981,8 +4027,10 @@ def _train_gates(torch, cfg, label):
         step = build_train_step(cfg, LaneMesh(H_W, dev), ex_cfg, lr=H_LR,
                                 remat=False)
         params = _h2_params(torch, paths, leaves_np, dev)
-        return step, params, step.init_state(params), \
-            {"tokens": torch.from_numpy(tokens).to(dev)}
+        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        if fe is not None:
+            batch["frontend_embeds"] = torch.from_numpy(fe).to(dev)
+        return step, params, step.init_state(params), batch
 
     # the blockwise step end to end; the card's launches counted over it
     step, params, state, batch = setup("blockwise", "cpu")
@@ -4307,13 +4355,19 @@ def phase_k5():
     decode --arch`` for each family on the card, the six processes at
     once: each exits 0, the trainer's losses are finite and the decoder
     prints 4 rows of 16 ids in range."""
+    _launchers("K5", [arch for arch, _ in K_FAMILIES])
+
+
+def _launchers(phase, archs):
+    """The train (3 steps) and decode launchers of each of ``archs`` on
+    the card, all at once."""
     import re
 
     jobs = []
-    for arch, _ in K_FAMILIES:
-        jobs.append((f"K5 train {arch}", "repro_torch.launch.train",
+    for arch in archs:
+        jobs.append((f"{phase} train {arch}", "repro_torch.launch.train",
                      ["--arch", arch, "--steps", "3"], arch))
-        jobs.append((f"K5 serve {arch}", "repro_torch.launch.serve",
+        jobs.append((f"{phase} serve {arch}", "repro_torch.launch.serve",
                      ["--role", "decode", "--arch", arch], arch))
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-m", module, *flags],
@@ -4329,8 +4383,8 @@ def phase_k5():
         for proc in procs:
             proc.kill()
             proc.wait()
-    log(f"  K5: six launchers at once, {time.perf_counter() - t0:.1f} s "
-        f"(process start-up included)")
+    log(f"  {phase}: {len(jobs)} launchers at once, "
+        f"{time.perf_counter() - t0:.1f} s (process start-up included)")
     for (label, _, _, arch), proc, out in zip(jobs, procs, outs):
         for line in out.strip().splitlines()[-4:]:
             log(f"  {label} | {line}")
@@ -4343,6 +4397,215 @@ def phase_k5():
                 raise AssertionError(f"{label}: losses {losses}")
         else:
             _check_decode_rows(label, out, arch)
+
+
+# ---------------------------------------------------------------------------
+# phase L: M-RoPE and the modality frontends (qwen2-vl-7b, musicgen-large)
+# ---------------------------------------------------------------------------
+
+# (arch, layers of the published depth (None = all), prompt length): the
+# prompt is the frontend's embeddings (qwen2-vl's 1,024 patches of a 32 x
+# 32 grid, musicgen's 512 frames), then tokens
+L_FAMILIES = (("qwen2-vl-7b", 2, 1280), ("musicgen-large", None, 1024))
+# L2's cells: (arch, input shape, layers, batch cut); musicgen's 32 MHA
+# heads of 64 hold 34.4 GB of K/V a layer at B 128 x 32k: 4 layers at B 16
+L2_CELLS = (("qwen2-vl-7b", "decode_32k", 2, None),
+            ("qwen2-vl-7b", "long_500k", 2, None),
+            ("musicgen-large", "decode_32k", 4, 16),
+            ("musicgen-large", "long_500k", None, None))
+# L4's full-width train steps: (arch, layers, global batch, seq)
+L4_CELLS = (("qwen2-vl-7b", 1, 8, 1280), ("musicgen-large", 8, 16, 640))
+L4_BYTES_A_PARAM = (46, 53)      # H1's peak per parameter at W = 4 lanes
+L4_LIMIT_GIB = 72                # above it the step runs on W = 2 lanes
+L_PREDICTION = (
+    "L1 qwen2-vl (2 layers, B 16 x 1,280) prefill 60-200 ms, decode 3-8 ms "
+    "a step, bound about 1.2 ms; musicgen (48 layers, B 16 x 1,024) prefill "
+    "200-600 ms, decode 10-30 ms a step (host-bound, about 1,200 kernels), "
+    "bound about 2.9 ms; L2 qwen2-vl decode_32k (B 128, 17.2 GB of cache) "
+    "25-45 ms, bound about 6.3 ms; long_500k 3-8 ms; musicgen decode_32k (4 "
+    "layers, B 16, 17.2 GB) 20-40 ms, long_500k (48 layers, B 1) 15-40 ms; "
+    "L3 within I3's gates; L4 rows 1-4b launched, qwen2-vl 0.5-1.0 s a step "
+    "at 45-66 GiB, musicgen 0.2-0.6 s at 15-30 GiB; L5 exit 0; phase L "
+    "100-180 s")
+
+
+def _frontend_embeds(torch, seed, shape):
+    """A bf16 draw on the card: numpy standard normals from ``seed``."""
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape, dtype=np.float32)).to("cuda", torch.bfloat16)
+
+
+class _FrontendStream:
+    """``TokenStream`` batches with the frontend's embeddings beside the
+    tokens: ``(batch, frontend_tokens, d_model)`` bf16 from a numpy seed
+    per step."""
+
+    def __init__(self, torch, cfg, batch_size, seq_len):
+        from repro_torch.data.synthetic import TokenStream
+
+        self.torch, self.cfg = torch, cfg
+        self.batch_size, self.seq_len = batch_size, seq_len
+        self.tokens = TokenStream(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                                  batch_size=batch_size, seed=0,
+                                  device="cuda")
+
+    def batch(self, i):
+        out = self.tokens.batch(i)
+        out["frontend_embeds"] = _frontend_embeds(
+            self.torch, (7, i), (self.batch_size, self.cfg.frontend_tokens,
+                                 self.cfg.d_model))
+        return out
+
+
+def phase_l(torch, results, card, rate):
+    """The modality families: L1 each at its published widths, prefill
+    with its frontend's embeddings and 64 greedy tokens; L2 decode steps
+    at the assigned decode shapes; L3 the card against the CPU on the
+    reduced models with their frontends; L4 one train step of each at full
+    width (rows 1-4b), then H2's gates on the reduced models; L5 the
+    launchers.  No kernel lies on the forward and decode path: the
+    counters are read over L1-L3 and printed."""
+    from repro_torch import kernels
+
+    log(f"  L prediction (written before the first run): {L_PREDICTION}")
+    kernels.reset_launches()
+    for arch, layers, prompt_len in L_FAMILIES:
+        cfg = _k_cfg(arch, layers)
+        fe = _frontend_embeds(torch, 0, (I_BATCH, cfg.frontend_tokens,
+                                         cfg.d_model))
+        _generate(torch, card, rate, cfg, f"L1 {arch}",
+                  prompt_len=prompt_len, frontend_embeds=fe)
+        del fe
+        torch.cuda.empty_cache()
+    phase_l2(torch, card, rate)
+    torch.cuda.empty_cache()
+    phase_l3(torch)
+    torch.cuda.empty_cache()
+    log(f"  L1-L3: kernel launches "
+        f"{ {k.name: k.launches for k in kernels.KERNELS} } (no kernel on "
+        f"the forward and decode path)")
+    phase_l4(torch, results, card)
+    torch.cuda.empty_cache()
+    phase_l5()
+
+
+def phase_l2(torch, card, rate):
+    import dataclasses
+
+    from repro_torch.configs import get_shape
+
+    for arch, shape_name, layers, batch in L2_CELLS:
+        shape = get_shape(shape_name)
+        cfg = _k_cfg(arch, layers)
+        cuts = [f"{cfg.n_layers} of {_k_cfg(arch).n_layers} layers"]
+        if batch is not None:
+            cuts.append(f"B {batch} of {shape.global_batch}")
+            shape = dataclasses.replace(shape, global_batch=batch)
+        log(f"  L2 {arch} {shape_name}: cut to {', '.join(cuts)}")
+        _decode_cell(torch, card, rate, f"L2 {arch} {shape_name}", cfg,
+                     shape)
+        torch.cuda.empty_cache()
+
+
+def phase_l3(torch):
+    """The card against the CPU on the reduced qwen2-vl (M-RoPE, 16 patch
+    positions) and musicgen (16 frames), float32 and bf16 compute, from
+    the same weights, numpy prompt (4 x 60) and frontend embeddings:
+    float32 forward logits to rtol/atol 1e-4 and the loss to rtol 1e-4;
+    then prefill and 16 greedy steps under I3's gates."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import forward, init_params, loss_fn
+
+    for arch, _, _ in L_FAMILIES:
+        for dtype in ("float32", "bfloat16"):
+            cfg = _k3_cfg(arch, None, dtype)
+            label = f"L3 {cfg.name} {dtype}"
+            prompt = np.random.default_rng(3).integers(
+                0, cfg.vocab_size, (I3_BATCH, I3_PROMPT)).astype(np.int32)
+            fe = np.random.default_rng(4).standard_normal(
+                (I3_BATCH, cfg.frontend_tokens, cfg.d_model),
+                dtype=np.float32)
+            params = init_params(cfg, seed=0, device="cpu")
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                p = params_from_numpy(params, dev)
+                batch = {"tokens": torch.from_numpy(prompt).to(dev),
+                         "frontend_embeds": torch.from_numpy(fe).to(dev)}
+                with torch.no_grad():
+                    logits = forward(p, batch["tokens"], cfg,
+                                     frontend_embeds=batch[
+                                         "frontend_embeds"]).cpu()
+                    loss = float(loss_fn(p, batch, cfg)[0])
+                runs[dev] = dict(logits=logits, loss=loss,
+                                 seq=_greedy_run(torch, p, prompt, cfg, dev,
+                                                 frontend_embeds=fe))
+            cpu, card = runs["cpu"], runs["cuda"]
+            if dtype == "float32":
+                np.testing.assert_allclose(card["logits"].numpy(),
+                                           cpu["logits"].numpy(), rtol=1e-4,
+                                           atol=1e-4, err_msg=label)
+                np.testing.assert_allclose(card["loss"], cpu["loss"],
+                                           rtol=1e-4, err_msg=label)
+            agreed, worst = _greedy_compare(label, cpu["seq"], card["seq"],
+                                            I3_MARGIN[dtype],
+                                            logits_gate=dtype == "float32")
+            log(f"  {label}: loss card {card['loss']:.6f} CPU "
+                f"{cpu['loss']:.6f}; {agreed} of {I3_BATCH * (I3_STEPS + 1)} "
+                f"greedy tokens equal before the first disagreements (logits "
+                f"max |card - CPU| {worst:.3e})")
+
+
+def phase_l4(torch, results, card):
+    """One blockwise allgather train step of each family at full width
+    (L4_CELLS) on W = 4 lanes of the card (2 where the reckoning of H1's
+    bytes a parameter passes ``L4_LIMIT_GIB``), density 0.05, its frontend
+    embeddings in every batch, after one step that warms up: rows 1-4b
+    each launched over the steps, the split by CUDA events; then
+    ``_train_gates`` on each reduced model (float32), the card against the
+    CPU."""
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.models.model import abstract_params
+
+    counts = {}
+    for arch, layers, batch, seq in L4_CELLS:
+        cfg = _k_cfg(arch, layers)
+        label = f"L4 {cfg.name}"
+        n_params = sum(p.numel() for p in tree_leaves(abstract_params(cfg)))
+        lo, hi = (n_params * b / 2**30 for b in L4_BYTES_A_PARAM)
+        W = H_W if hi <= L4_LIMIT_GIB else 2
+        log(f"  {label}: {cfg.n_layers} of {_k_cfg(arch).n_layers} layers, "
+            f"{n_params} parameters; reckoned peak {lo:.1f}-{hi:.1f} GiB at "
+            f"H1's {L4_BYTES_A_PARAM[0]}-{L4_BYTES_A_PARAM[1]} bytes a "
+            f"parameter (limit {L4_LIMIT_GIB}): W = {W} lanes"
+            + ("" if W == H_W else " (cut from 4 for memory)")
+            + f", global batch {batch} x seq {seq} ({cfg.frontend_tokens} "
+            f"frontend embeddings a sequence), density {H_DENSITY}, "
+            f"blockwise allgather")
+        _, _, _, launches, _ = _h_run(torch, label, cfg, LaneMesh(W, "cuda"),
+                                      _h_exchange("allgather"),
+                                      _FrontendStream(torch, cfg, batch, seq),
+                                      2, card)
+        idle = [k for k in J_ROWS if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"{label}: rows {idle} never launched")
+        counts[cfg.name] = launches
+        torch.cuda.empty_cache()
+    for row in results:
+        row["launches_l4"] = {name: c[row["name"]] / 2
+                              for name, c in counts.items()}
+    for arch, _, _, _ in L4_CELLS:
+        _train_gates(torch, _k3_cfg(arch, None, "float32"),
+                     f"L4 train {arch}")
+        torch.cuda.empty_cache()
+
+
+def phase_l5():
+    """``launch/train.py --arch`` (3 steps) and ``launch/serve.py --role
+    decode --arch`` for each modality family on the card, the four
+    processes at once: each exits 0, the trainer's losses are finite and
+    the decoder prints 4 rows of 16 ids in range."""
+    _launchers("L5", [arch for arch, _, _ in L_FAMILIES])
 
 
 def main() -> int:
@@ -4393,6 +4656,8 @@ def main() -> int:
                       ("j", lambda: phase_j(torch, results,
                                             smi.stdout.strip(), rate)),
                       ("k", lambda: phase_k(torch, results,
+                                            smi.stdout.strip(), rate)),
+                      ("l", lambda: phase_l(torch, results,
                                             smi.stdout.strip(), rate))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()

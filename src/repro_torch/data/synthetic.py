@@ -1,7 +1,7 @@
-"""Deterministic synthetic data (PyTorch port of ``TokenStream`` and
-``ClassificationTask`` from ``repro.data.synthetic``): markov-chain token
-sequences for LM training, and gaussian-blobs classification, the CIFAR
-stand-in of the paper's convergence experiments.
+"""Deterministic synthetic data (PyTorch port of ``repro.data.synthetic``):
+markov-chain token sequences for LM training, gaussian-blobs
+classification, the CIFAR stand-in of the paper's convergence
+experiments, and the delayed-copy task of its LSTM experiment.
 
 Random draws come from ``torch.Generator``s seeded from ``(seed, step,
 worker)`` on the CPU and are then moved to ``device`` (None = the card),
@@ -97,3 +97,42 @@ class ClassificationTask:
 
     def eval_set(self, n: int = 512):
         return self._draw(seeded_generator(self.seed + 31337), n)
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceCopyTask:
+    """Emit a marker, a payload of ``copy_len`` symbols in [2, vocab), then
+    ``delay`` blanks, then expect the payload back: an LSTM-friendly
+    memory task.  ``batch(step, worker)`` is stateless: the payload comes
+    from ``seeded_generator(seed, step, worker)``."""
+
+    vocab_size: int = 32
+    copy_len: int = 8
+    delay: int = 8
+    batch_size: int = 16
+    seed: int = 0
+    device: Any = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    @property
+    def seq_len(self):
+        return 1 + self.copy_len + self.delay + self.copy_len
+
+    def batch(self, step: int, worker: int = 0):
+        """(inputs, targets), each ``(batch_size, seq_len)`` int32 on the
+        device: inputs are the marker 1, the payload, then zeros (blanks
+        and the answer's slots); targets are -1 (ignored) but for the
+        payload at the tail."""
+        B, n = self.batch_size, self.copy_len
+        payload = torch.randint(2, self.vocab_size, (B, n),
+                                generator=seeded_generator(self.seed, step,
+                                                           worker),
+                                dtype=torch.int32)
+        marker = torch.ones((B, 1), dtype=torch.int32)
+        inputs = torch.cat([marker, payload, torch.zeros(
+            (B, self.delay + n), dtype=torch.int32)], dim=1)
+        ignore = torch.full((B, 1 + n + self.delay), -1, dtype=torch.int32)
+        targets = torch.cat([ignore, payload], dim=1)
+        return inputs.to(self.device), targets.to(self.device)

@@ -22,8 +22,9 @@ Roles:
   decodes (the MLP's accuracy on a fixed eval set) between diff pulls and
   writes its final arena to ``--out`` (``.npy``).
 * ``--role decode`` -- the standalone decode demo: the reduced variant of
-  ``--arch`` (any but the modality architectures qwen2-vl-7b and
-  musicgen-large: dense GQA, MLA, MoE, Mamba2 or the hybrid) prefills a
+  ``--arch`` (any of the zoo: dense GQA, MLA, MoE, Mamba2, the hybrid, or
+  a modality architecture, whose seeded frontend embeddings take the
+  prompt's first positions) prefills a
   seeded prompt of ``--batch`` x ``--prompt-len`` tokens, then decodes
   ``--gen - 1`` tokens against its KV, latent or SSM caches, greedy
   or sampled at ``--temperature``, and prints the generated ids.  No

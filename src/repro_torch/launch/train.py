@@ -1,7 +1,8 @@
 """Training launcher (PyTorch port of ``repro.launch.train``): the reduced
 variant of an architecture trained data-parallel with DGS as the gradient
-exchange, printing losses.  Every family but the modality ones runs
-(dense GQA, MLA, MoE, Mamba2, the hybrid):
+exchange, printing losses.  Every family runs (dense GQA, MLA, MoE,
+Mamba2, the hybrid, and the modality ones with seeded frontend
+embeddings):
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --devices 4 --steps 3 --batch 4 --seq 32 --arch mamba2-780m
@@ -62,11 +63,13 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
+    import torch
+
     from repro_torch import telemetry
     from repro_torch.checkpoint import save_checkpoint
     from repro_torch.configs import get_arch
     from repro_torch.core.distributed import ExchangeConfig
-    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.data.synthetic import TokenStream, seeded_generator
     from repro_torch.device import resolve_device
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.steps import build_train_step
@@ -79,10 +82,6 @@ def main(argv=None):
         telemetry.set_log_file(args.log_file)
 
     cfg = get_arch(args.arch).reduced()
-    if cfg.frontend_tokens or cfg.rope == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name} needs the modality frontends or M-RoPE, which the "
-            f"port does not have yet (ROADMAP queue 1 item 3d)")
     device = resolve_device(args.device)
     if "WORLD_SIZE" in os.environ:
         mesh = mesh_lib.init_process_mesh(
@@ -107,9 +106,21 @@ def main(argv=None):
     ex_state = step.init_state(params)
     stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=args.seq,
                          batch_size=args.batch, seed=0, device=device)
+
+    def batch(i):
+        """Step ``i``'s global batch; the modality families' frontend
+        embeddings come from ``seeded_generator(1, i)`` (every rank draws
+        the same)."""
+        out = stream.batch(i)
+        if cfg.frontend_tokens:
+            out["frontend_embeds"] = torch.randn(
+                (args.batch, cfg.frontend_tokens, cfg.d_model),
+                generator=seeded_generator(1, i)).to(device, cfg.cdtype)
+        return out
+
     try:
         for i in range(args.steps):
-            params, ex_state, loss = step(params, ex_state, stream.batch(i))
+            params, ex_state, loss = step(params, ex_state, batch(i))
             if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
                 log.info(f"  step {i:4d} loss={float(loss):.4f}")
         if args.checkpoint and getattr(mesh, "rank", 0) == 0:

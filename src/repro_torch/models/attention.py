@@ -31,6 +31,7 @@ import torch
 from . import rope as rope_lib
 from .config import ModelConfig
 from .layers import Init, linear, linear_init, norm_init, rmsnorm
+from .multimodal import mrope_text_position
 
 NEG_INF = -1e30
 
@@ -55,11 +56,23 @@ def _apply_positions(cfg: ModelConfig, q, k, positions, *, layer_kind: str):
     if cfg.rope == "none":
         return q, k
     if cfg.rope == "mrope":
-        return rope_lib.mrope(q, k, positions, theta=theta)
+        if positions.dim() == 2:    # (B,S) text only -> three equal streams
+            positions = rope_lib.text_mrope_positions(positions)
+        return rope_lib.mrope(q, k, positions, theta=theta,
+                              sections=_mrope_sections(cfg))
     rd = int(cfg.hd * cfg.rotary_pct)
     rd -= rd % 2
     return rope_lib.standard_rope(q, k, positions, theta=theta,
                                   rotary_dim=rd)
+
+
+def _mrope_sections(cfg: ModelConfig):
+    """M-RoPE's (t, h, w) pairs, summing to hd/2 in a 1:1.5:1.5 split
+    (qwen2-vl's (16, 24, 24) at hd 128)."""
+    half = cfg.hd // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
 
 
 def gqa_forward(params, x, positions, cfg: ModelConfig, *,
@@ -146,7 +159,9 @@ def gqa_decode(params, cache: KVCache, x, pos, cfg: ModelConfig, *,
     Python int.  Writes the token's K/V into ``cache`` in place (windowed
     layers: slot ``pos % L`` of the ring) and returns (out (B,1,d),
     cache).  A ``pos`` past a linear cache raises, where the reference's
-    update slice clamps it to the last slot."""
+    update slice clamps it to the last slot.  Under M-RoPE the rotation
+    takes the text position ``multimodal.mrope_text_position(cfg, pos)``;
+    the slot and the mask keep ``pos``."""
     pos = operator.index(pos)
     B = x.shape[0]
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -159,7 +174,8 @@ def gqa_decode(params, cache: KVCache, x, pos, cfg: ModelConfig, *,
     q = linear(params["wq"], x).reshape(B, 1, H, hd)
     k = linear(params["wk"], x).reshape(B, 1, KH, hd)
     v = linear(params["wv"], x).reshape(B, 1, KH, hd)
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    rpos = mrope_text_position(cfg, pos) if cfg.rope == "mrope" else pos
+    positions = torch.full((B, 1), rpos, dtype=torch.int32, device=x.device)
     q, k = _apply_positions(cfg, q, k, positions, layer_kind=layer_kind)
 
     slot = pos % L if windowed else pos

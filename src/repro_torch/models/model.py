@@ -10,8 +10,10 @@ each reading its slice of the stacked leaves (the reference's
 or, when ``cfg.moe`` is set, the MoE (``models.moe``), whose router aux
 losses are averaged over the layers.  A ``mamba`` block is the Mamba2/SSD
 mixer (``models.ssm``); a ``mamba_attn`` block follows it with the shared
-attention block (zamba2).  The modality frontends and M-RoPE are not
-ported yet.
+attention block (zamba2).  The modality families take the frontend's
+patch or frame embeddings in place of the first ``frontend_tokens``
+positions (``models.multimodal``); qwen2-vl rotates by M-RoPE over the
+patch grid's (t, h, w) positions.
 
 Three entry points per architecture x input shape:
   forward / loss_fn  -- training shapes
@@ -28,26 +30,11 @@ from repro_torch.device import resolve_device
 
 from . import attention as attn
 from . import moe as moe_lib
+from . import multimodal
 from . import ssm as ssm_lib
 from .config import ModelConfig
 from .layers import (Init, embed, embedding_init, linear, linear_init, mlp,
                      mlp_init, norm, norm_init, unembed)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item 3d); the port's "
-        f"model runs every family but the modality frontends and M-RoPE")
-
-
-def _check_supported(cfg: ModelConfig, frontend_embeds=None) -> None:
-    """Raise for what the forward and decode cannot run yet: the modality
-    frontends' embeddings and M-RoPE (parameters and caches are made for
-    every architecture)."""
-    if frontend_embeds is not None:
-        raise _not_ported("the modality frontends")
-    if cfg.rope == "mrope":
-        raise _not_ported("M-RoPE")
 
 
 # ------------------------------------------------------------------- init --
@@ -135,7 +122,10 @@ def _ffn(bp, hn, cfg: ModelConfig):
 
 def _apply_shared(shared, h, positions, cfg: ModelConfig, *,
                   want_cache: bool = False):
-    """The shared attention block: (h, its KVCache or None)."""
+    """The shared attention block: (h, its KVCache or None).  It takes the
+    first stream of three-stream positions."""
+    if positions.dim() == 3:
+        positions = positions[0]
     out = attn.gqa_forward(shared["attn"], norm(cfg.norm, shared["norm1"], h),
                            positions, cfg, layer_kind="attn",
                            return_kv=want_cache)
@@ -179,6 +169,14 @@ def _apply_block(bp, h, positions, cfg: ModelConfig, kind: str, shared, *,
     return h + out, aux, cache
 
 
+def _positions_for(cfg: ModelConfig, batch: int, seq_len: int, device):
+    """(B, S) int32 positions, or M-RoPE's (3, B, S) (t, h, w) ids."""
+    if cfg.rope == "mrope":
+        return multimodal.mrope_positions(cfg, batch, seq_len, device=device)
+    return torch.arange(seq_len, dtype=torch.int32,
+                        device=device)[None].expand(batch, seq_len)
+
+
 def _abs_pos(cfg: ModelConfig) -> bool:
     """Whether the model adds sinusoidal positions: ``rope='none'``
     outside the SSM and hybrid families (mamba2 has no positions)."""
@@ -219,15 +217,18 @@ def _forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
     """(logits (B, S, V) float32, aux, caches stacked over the units or
     None): ``forward``'s work, with the router's aux losses each summed
     over the layers in order and divided by ``cfg.n_layers`` (zeros for
-    the dense family), as the reference's ``forward`` returns them."""
-    _check_supported(cfg, frontend_embeds)
+    the dense family), as the reference's ``forward`` returns them.  The
+    frontend's embeddings replace the first positions before the
+    sinusoidal positions are added, as in the reference, so they get
+    theirs too."""
     pattern, n_units = cfg.unit_pattern()
     B, S = tokens.shape
     h = embed(params["embed"], tokens).to(cfg.cdtype)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device)[None].expand(B, S)
+    h = multimodal.merge_frontend(cfg, h, frontend_embeds)
+    positions = _positions_for(cfg, B, S, tokens.device)
     if _abs_pos(cfg):
-        h = h + _sinusoidal(cfg.d_model, positions).to(h.dtype)
+        p = positions if positions.dim() == 2 else positions[0]
+        h = h + _sinusoidal(cfg.d_model, p).to(h.dtype)
     shared = params.get("shared")
 
     def unit_fn(h, lb, rz, unit_params):
@@ -295,10 +296,11 @@ def forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
-    """batch: {"tokens": (B,S)}.  Next-token cross entropy (+ the MoE's
-    aux losses, weighted by ``router_aux_weight``).  Returns (loss,
-    metrics): ``nll``, ``load_balance`` and ``router_z`` (zeros for the
-    dense family), as the reference's."""
+    """batch: {"tokens": (B,S), optional "frontend_embeds" (B, n, d)}.
+    Next-token cross entropy (+ the MoE's aux losses, weighted by
+    ``router_aux_weight``).  Returns (loss, metrics): ``nll``,
+    ``load_balance`` and ``router_z`` (zeros for the dense family), as the
+    reference's."""
     tokens = batch["tokens"]
     logits, aux, _ = _forward(params, tokens, cfg,
                               frontend_embeds=batch.get("frontend_embeds"),
@@ -359,7 +361,6 @@ def decode_step(params, caches, token, pos, cfg: ModelConfig, *,
     token: (B, 1) int; pos: the current position, a Python int.  Writes
     each layer's K/V, latents or SSM state into ``caches`` in place and
     returns (logits (B, 1, V) float32, caches)."""
-    _check_supported(cfg)
     pattern, n_units = cfg.unit_pattern()
     B = token.shape[0]
     h = embed(params["embed"], token).to(cfg.cdtype)

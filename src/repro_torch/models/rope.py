@@ -1,6 +1,6 @@
-"""Rotary position embeddings: standard 1-D and partial/2-D (ChatGLM), with
-per-layer theta (PyTorch port of ``repro.models.rope``; M-RoPE is not
-ported yet).
+"""Rotary position embeddings: standard 1-D, partial/2-D (ChatGLM) and
+M-RoPE (Qwen2-VL's three sections), with per-layer theta (PyTorch port of
+``repro.models.rope``).
 
 All functions take and return ``(B, S, H, D)`` query/key tensors.  The
 rotation acts on interleaved pairs ``(x0, x1) -> (-x1, x0)``, not on
@@ -70,6 +70,36 @@ def standard_rope(q, k, positions, *, theta: float = 10000.0,
 
 
 def mrope(q, k, positions_tsw, *, theta: float, sections=(16, 24, 24)):
-    """Qwen2-VL M-RoPE: not ported yet."""
-    raise NotImplementedError(
-        "M-RoPE (qwen2-vl) is not ported yet (ROADMAP queue 1 item 3d)")
+    """Qwen2-VL M-RoPE: the first ``rd = 2 * sum(sections)`` head dims are
+    split into (temporal, height, width) sections of frequency pairs, each
+    rotated by its own position stream; the dims past ``rd`` are left
+    untouched.
+
+    positions_tsw: (3, B, S) int -- per-token (t, h, w) position ids.  For
+    pure text all three streams are equal and M-RoPE == RoPE.  The angle is
+    the float32 position of each pair's stream times the float32 frequency,
+    as in :func:`rope_cos_sin`.
+    """
+    D = q.shape[-1]
+    rd = 2 * sum(sections)
+    assert rd <= D, (rd, D)
+    inv = torch.from_numpy(_freqs(rd, theta).astype(np.float32)).to(q.device)
+    # the section (position stream) of each frequency pair
+    sec = torch.from_numpy(np.concatenate([
+        np.full(s, i) for i, s in enumerate(sections)])).to(q.device)
+    pos = positions_tsw.to(torch.float32).movedim(0, -1)      # (B, S, 3)
+    ang = pos[..., sec] * inv                                 # (B, S, rd/2)
+    cos = _interleave2(torch.cos(ang))
+    sin = _interleave2(torch.sin(ang))
+    q_rot = apply_rope(q[..., :rd], cos, sin)
+    k_rot = apply_rope(k[..., :rd], cos, sin)
+    if rd == D:
+        return q_rot, k_rot
+    return (torch.cat([q_rot, q[..., rd:]], dim=-1),
+            torch.cat([k_rot, k[..., rd:]], dim=-1))
+
+
+def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """Degenerate (text-only) M-RoPE position ids: all three streams
+    equal, ``(3, *positions.shape)``."""
+    return torch.stack([positions, positions, positions], dim=0)

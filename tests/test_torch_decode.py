@@ -23,8 +23,10 @@ compute):
 * the MLA, SSM and hybrid families (the reference's mla, ssm and
   hybrid_shared) through all of the above, their caches ``MLACache``,
   ``{"ssm": SSMCache}`` and ``"shared": KVCache``;
-* what raises: a position past a linear cache, and M-RoPE and the
-  frontends' embeddings at decode.
+* the modality families (qwen2-vl-7b, musicgen-large): a prefill with
+  their frontend embeddings and decode steps past it, to the same
+  tolerances;
+* what raises: a position past a linear cache.
 """
 import dataclasses
 
@@ -97,10 +99,9 @@ DROPS = {"moe_capacity_drops": dataclasses.replace(
     moe=JMoE(n_experts=4, top_k=2, d_expert=128, impl="capacity",
              capacity_factor=0.5))}
 NAMES = sorted(JARCHS)
-# every architecture's caches and input specs are made; qwen2-vl's M-RoPE
-# and the frontends' embeddings raise at prefill and decode
+# every architecture's caches and input specs are made, and every one
+# runs prefill and decode
 PORTED = NAMES
-UNPORTED = ("musicgen-large", "qwen2-vl-7b")
 DECODE_SHAPES = ("decode_32k", "long_500k")
 
 
@@ -435,18 +436,33 @@ def test_pos_past_a_linear_cache_raises():
     assert torch.isfinite(logits).all()
 
 
-@pytest.mark.parametrize("name", UNPORTED)
+@pytest.mark.parametrize("name", ["musicgen-large", "qwen2-vl-7b"])
 def test_other_families_raise_in_caches_and_decode(name):
-    """Caches and decode specs are made; prefill with a frontend's
-    embeddings and decode under M-RoPE raise."""
-    tc = TARCHS[name].reduced()
-    caches = init_caches(tc, 2, 16, device="cpu")
+    """The modality families: caches and decode specs are made, and a
+    prefill of 24 positions with the frontend's 16 embeddings, then 6
+    decode steps past it, give the reference's logits (rtol/atol 1e-5 at
+    prefill, atol 1e-4 a step) and caches (rtol/atol 1e-5), float32."""
+    jc = dataclasses.replace(JARCHS[name].reduced(), compute_dtype="float32")
+    tc = _tcfg(jc)
+    assert init_caches(tc, 2, 16, device="cpu")
     assert tshapes.input_specs(tc, tshapes.SHAPES["decode_32k"])["caches"]
-    params = init_params(tc, seed=0, device="cpu")
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    if tc.rope == "mrope":
-        with pytest.raises(NotImplementedError, match="queue 1 item 3d"):
-            decode_step(params, caches, tokens[:, :1], 0, tc)
-    fe = torch.zeros((2, tc.frontend_tokens, tc.d_model))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3d"):
-        prefill(params, tokens, tc, frontend_embeds=fe)
+    jp, tp = _models(jc)
+    tokens = _tokens(jc, S=30, seed=8)
+    fe = np.random.default_rng(8).normal(
+        size=(2, jc.frontend_tokens, jc.d_model)).astype(np.float32)
+    jl, jcaches, _ = jprefill(jp, jnp.asarray(tokens[:, :24]), jc,
+                              frontend_embeds=jnp.asarray(fe), max_len=30)
+    tl, tcaches, _ = prefill(tp, torch.from_numpy(tokens[:, :24]), tc,
+                             frontend_embeds=torch.from_numpy(fe),
+                             max_len=30)
+    np.testing.assert_allclose(_np(tl), _np(jl), rtol=1e-5, atol=1e-5)
+    _close_caches(tcaches, jcaches, rtol=1e-5, atol=1e-5)
+    step = _jit_decode(jc)
+    for t in range(24, 30):
+        jl, jcaches = step(jp, jcaches, jnp.asarray(tokens[:, t:t + 1]),
+                           jnp.int32(t))
+        tl, tcaches = decode_step(tp, tcaches,
+                                  torch.from_numpy(tokens[:, t:t + 1]), t, tc)
+        np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4,
+                                   err_msg=f"step {t}")
+    _close_caches(tcaches, jcaches, rtol=1e-5, atol=1e-5)

@@ -12,6 +12,9 @@
   (loss) and 1e-4 / atol 1e-6 (every gradient leaf); the config's bf16
   compute to rtol 2e-2 (loss) and a cosine similarity of at least 0.99
   per gradient leaf.
+* the modality families (qwen2-vl-7b's M-RoPE, musicgen-large's
+  frames) with and without their frontend embeddings: the loss to rtol
+  1e-5 and every gradient leaf to rtol 1e-4 / atol 1e-6, float32.
 * ``TokenStream``'s transition table is the reference's, bit for bit.
 """
 import dataclasses
@@ -54,11 +57,8 @@ from repro_torch.models.model import loss_fn as tloss
 
 NAMES = sorted(JARCHS)
 # the architectures whose parameter trees the port makes: all ten (dense
-# GQA, MLA, MoE, SSM, hybrid); qwen2-vl's M-RoPE and the frontends'
-# embeddings raise only in the forward
+# GQA, MLA, MoE, SSM, hybrid, and the modality ones)
 PORTED = NAMES
-# the architectures whose forward still raises
-UNPORTED = {"qwen2-vl-7b": "M-RoPE", "musicgen-large": "frontends"}
 CHATGLM = "chatglm3-6b"
 
 
@@ -271,19 +271,35 @@ def test_init_params_default_device_is_the_card(monkeypatch):
         tinit(TARCHS[CHATGLM].reduced())
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
+@pytest.mark.parametrize("name", ["musicgen-large", "qwen2-vl-7b"])
 def test_other_families_raise(name):
-    """The parameters are made; the forward raises for M-RoPE (qwen2-vl)
-    and for a frontend's embeddings (musicgen)."""
-    tc = TARCHS[name].reduced()
-    params = tinit(tc, seed=0, device="cpu")
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    batch = {"tokens": tokens}
-    if UNPORTED[name] == "frontends":
-        batch["frontend_embeds"] = torch.zeros(
-            (2, tc.frontend_tokens, tc.d_model))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3d"):
-        tloss(params, batch, tc)
+    """The modality families give the reference's loss and gradients
+    (float32 compute), with their frontend embeddings and without
+    (qwen2-vl's M-RoPE over the patch grid's positions either way)."""
+    jc = dataclasses.replace(JARCHS[name].reduced(), compute_dtype="float32")
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, jc.vocab_size, (2, 24)).astype(np.int32)
+    fe = rng.normal(size=(2, jc.frontend_tokens, jc.d_model)).astype(
+        np.float32)
+    jp = jinit(jax.random.PRNGKey(0), jc)
+    tp = params_from_numpy(jax.device_get(jp), "cpu")
+    leaves, paths = tree_flatten(tp)
+    for leaf in leaves:
+        leaf.requires_grad_()
+    for with_fe in (True, False):
+        jbatch = {"tokens": jnp.asarray(tokens)}
+        tbatch = {"tokens": torch.from_numpy(tokens)}
+        if with_fe:
+            jbatch["frontend_embeds"] = jnp.asarray(fe)
+            tbatch["frontend_embeds"] = torch.from_numpy(fe)
+        jl, jg = jax.value_and_grad(lambda p: jloss(p, jbatch, jc)[0])(jp)
+        tl = tloss(tp, tbatch, _port_cfg(jc))[0]
+        tg = torch.autograd.grad(tl, leaves)
+        np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+        for path, got, want in zip(paths, tg, jax.tree.leaves(jg)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{path} fe={with_fe}")
 
 
 def test_token_stream_table_and_walk():

@@ -9,7 +9,9 @@
   coordinator's delta-checkpoint chain (byte-equal to the reference
   runner's), a replica over TCP, what still raises, the serve
   launcher's ``--smoke`` on the CPU, and its ``--role decode`` against a
-  direct prefill/decode loop.
+  direct prefill/decode loop (every family, the modality ones with their
+  seeded frontend embeddings) and, for qwen2-vl-7b, against the
+  reference's greedy ids from the same weights, prompt and patches.
 
 The grad_fn is elementwise (grads = w - target), so every parameter, ``M``
 and ``v`` is bit-equal in the two frameworks, and so is its loss.  Every receive and join is
@@ -296,8 +298,11 @@ def test_tcp_replica_bit_exact():
     assert hist.metrics["counters"]["sub/0/pushes"] >= 1
 
 
-def test_sharded_serving_and_decode_role_raise():
-    from repro_torch.launch import serve
+def test_sharded_serving_and_decode_role_raise(capsys):
+    from repro.models import decode_step as jdecode
+    from repro.models import prefill as jprefill
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
 
     _, (tp, tbatch) = _both()
     strat = tmake("dgs", density=0.25)
@@ -305,26 +310,51 @@ def test_sharded_serving_and_decode_role_raise():
         with pytest.raises(NotImplementedError, match="later slice"):
             run_inprocess(strat, _torch_grad_fn, tp, tbatch, schedule=[0, 1],
                           n_replicas=1, **kw)
-    # the decode role runs every family but the modality ones: qwen2-vl's
-    # frontend still raises
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        serve.main(["--role", "decode", "--device", "cpu", "--arch",
-                    "qwen2-vl-7b"])
+    # the decode role of qwen2-vl (M-RoPE over a patch grid) against the
+    # reference: its greedy ids are those of the reference's prefill and
+    # decode_step from the same weights, prompt and patch embeddings,
+    # wherever the reference's top-2 margin exceeds 5e-2 (bf16 compute;
+    # the first disagreement ends a sequence's comparison)
+    arch, B, S, n = "qwen2-vl-7b", 3, 20, 8
+    got = _decode_role_ids(capsys, arch, B, S, n, 0.0)
+    cfg = get_arch(arch).reduced()
+    params = jax.tree.map(lambda x: jnp.asarray(x.numpy()),
+                          init_params(cfg, seed=0, device="cpu"))
+    gen = torch.Generator("cpu").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           dtype=torch.int32)
+    fe = torch.randn((B, cfg.frontend_tokens, cfg.d_model),
+                     generator=gen).to(cfg.cdtype)
+    jcfg = _ref_cfg(arch)
+    logits, caches, _ = jprefill(params, jnp.asarray(prompt.numpy()), jcfg,
+                                 frontend_embeds=jnp.asarray(
+                                     fe.float().numpy()), max_len=S + n)
+    step = jax.jit(lambda p, c, t, pos: jdecode(p, c, t, pos, jcfg))
+    live = np.ones(B, bool)
+    for t in range(n):
+        lg = np.asarray(logits[:, -1], np.float32)
+        want = lg.argmax(-1)
+        top2 = np.sort(lg, axis=-1)[:, -2:]
+        differ = live & (want != np.array([row[t] for row in got]))
+        assert (top2[differ, 1] - top2[differ, 0] <= 5e-2).all(), (t, got)
+        live &= ~differ
+        if t == 0:
+            assert live.any(), "the first token differs in every sequence"
+        tok = np.array([row[t] for row in got], np.int32)[:, None]
+        logits, caches = step(params, caches, jnp.asarray(tok),
+                              jnp.int32(S + t))
 
 
-@pytest.mark.parametrize("arch,temperature",
-                         [("chatglm3-6b", 0.0), ("gemma3-12b", 0.8),
-                          ("dbrx-132b", 0.0), ("minicpm3-4b", 0.0),
-                          ("mamba2-780m", 0.8), ("zamba2-2.7b", 0.0)])
-def test_decode_role_equals_a_direct_loop(arch, temperature, capsys):
-    """``--role decode --device cpu`` prints ``--batch`` rows of ``--gen``
-    ids: those of a prefill/decode_step loop on the same seeded prompt
-    (greedy, or sampled from the same generator)."""
-    from repro_torch.configs import get_arch
+def _ref_cfg(arch):
+    from repro.configs import get_arch as jget_arch
+
+    return jget_arch(arch).reduced()
+
+
+def _decode_role_ids(capsys, arch, B, S, n, temperature):
+    """``--role decode --device cpu``'s ``B`` rows of ``n`` ids."""
     from repro_torch.launch import serve
-    from repro_torch.models import decode_step, init_params, prefill
 
-    B, S, n = 3, 20, 6
     assert serve.main(["--role", "decode", "--device", "cpu", "--arch", arch,
                        "--batch", str(B), "--prompt-len", str(S), "--gen",
                        str(n), "--temperature", str(temperature)]) == 0
@@ -335,13 +365,34 @@ def test_decode_role_equals_a_direct_loop(arch, temperature, capsys):
     rows = [line.split(" ", 4) for line in lines[2:-1]]
     assert [r[:4] for r in rows] == [["", "", "seq", str(b)]
                                      for b in range(B)]
-    got = [[int(x) for x in r[4].strip("[]").split(",")] for r in rows]
+    return [[int(x) for x in r[4].strip("[]").split(",")] for r in rows]
+
+
+@pytest.mark.parametrize("arch,temperature",
+                         [("chatglm3-6b", 0.0), ("gemma3-12b", 0.8),
+                          ("dbrx-132b", 0.0), ("minicpm3-4b", 0.0),
+                          ("mamba2-780m", 0.8), ("zamba2-2.7b", 0.0),
+                          ("qwen2-vl-7b", 0.0), ("musicgen-large", 0.8)])
+def test_decode_role_equals_a_direct_loop(arch, temperature, capsys):
+    """``--role decode --device cpu`` prints ``--batch`` rows of ``--gen``
+    ids: those of a prefill/decode_step loop on the same seeded prompt
+    (and, for the modality families, the frontend embeddings drawn next
+    from the same generator), greedy or sampled from that generator."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode_step, init_params, prefill
+
+    B, S, n = 3, 20, 6
+    got = _decode_role_ids(capsys, arch, B, S, n, temperature)
 
     cfg = get_arch(arch).reduced()
     params = init_params(cfg, seed=0, device="cpu")
     gen = torch.Generator("cpu").manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            dtype=torch.int32)
+    fe = None
+    if cfg.frontend_tokens:
+        fe = torch.randn((B, cfg.frontend_tokens, cfg.d_model),
+                         generator=gen).to(cfg.cdtype)
 
     def pick(logits):
         if temperature > 0:
@@ -349,7 +400,8 @@ def test_decode_role_equals_a_direct_loop(arch, temperature, capsys):
             return torch.multinomial(probs, 1, generator=gen)[:, 0]
         return logits.argmax(-1)
 
-    logits, caches, _ = prefill(params, prompt, cfg, max_len=S + n)
+    logits, caches, _ = prefill(params, prompt, cfg, frontend_embeds=fe,
+                                max_len=S + n)
     want = [pick(logits[:, -1])]
     for t in range(n - 1):
         logits, caches = decode_step(params, caches, want[-1][:, None], S + t,
