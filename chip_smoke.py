@@ -143,7 +143,8 @@ exits nonzero and prints no result line):
   bit-equal to each other's and to a ``LaneMesh(2)`` run, and the route of
   16 phase B messages over the ranks (``use_mesh=True``) bit-equal to the
   one-card leg.  H4 runs ``python -m repro_torch.launch.train --steps 5``
-  and needs exit code 0.
+  (``--devices 8``: the reference's (4 data, 2 model) mesh, which its log
+  must name) and needs exit code 0.
 * i -- prefill and KV-cache decode of the dense GQA family
   (``models.prefill``, ``models.decode_step``, ``launch/steps.
   build_serve_step``); no kernel of the port lies on this path, and the
@@ -220,8 +221,33 @@ exits nonzero and prints no result line):
   launched, then ``_train_gates`` on the reduced ones; L5 runs the four
   launchers at once, each exiting 0.  The launch counters over L1-L3 are
   printed (0 expected).
+* m -- the ``"model"`` mesh axis (``models/tensor_parallel.py``: tensor
+  parallelism of the projections and the vocabulary, expert parallelism
+  of the MoE; the exchange on each shard's rows).  M1 trains H1's model
+  (chatglm3-6b, 2 layers, bf16) on ``LaneMesh(2, model=2)`` and on
+  ``LaneMesh(2, model=1)``, 3 blockwise allgather steps each: the split
+  by CUDA events, peak memory, launches a step (rows 1-4b must launch at
+  model size 2), a profiled step; then, float32 compute, each of 3 steps
+  from model size 1's state on both meshes under H2a's gates (a swap
+  within ``M_TIE`` of its boundary; its velocity differs by ``a (1/m -
+  1)``).  M1b holds the reduced chatglm3 and qwen3-moe at model size 2
+  on the card to the CPU under ``_train_gates``: rows 1-4b launched, the
+  blockwise exchange fed the CPU's gradients bit-equal to the CPU's
+  plain versions.  M2 runs four processes on the card as a (2, 2)
+  ``ProcessMesh`` over gloo, 1 layer: each rank's shards of the
+  parameters and its lane's velocity bit-equal to a ``LaneMesh(2,
+  model=2)`` run's, its resident bytes within 1% of its shards' (the NCCL
+  leg and qwen3-moe's full-width step at model size 4 need four cards:
+  printed as unverified).  M3 prefills I1's prompt and decodes 64 greedy
+  tokens at model size 2 and 1 through the prefill and serve steps
+  (chatglm3-6b and qwen3-moe-235b-a22b, 2 layers), then holds the reduced
+  ones at model size 2, card against CPU, to I3's gates.  M4 runs
+  ``launch.train --devices 8`` and ``launch.serve --role decode
+  --devices 4``; both exit 0 and name their meshes.
 
-The last two lines are the kernel table and the result, each one JSON object.
+The kernel rows carry ``launches_m_per_step`` (M1 at model size 2) beside
+their other counts.  The last two lines are the kernel table and the
+result, each one JSON object.
 """
 from __future__ import annotations
 
@@ -2836,8 +2862,12 @@ def phase_h(torch, results, card):
     torch.cuda.empty_cache()
     phase_h3(torch)
     torch.cuda.empty_cache()
-    _run_launcher("H4", "repro_torch.launch.train", ["--steps", "5"],
-                  _child_env())
+    out = _run_launcher("H4", "repro_torch.launch.train", ["--steps", "5"],
+                        _child_env())
+    # --devices 8 by default: the reference's (4 data, 2 model) mesh
+    if "mesh={'data': 4, 'model': 2}" not in out:
+        raise AssertionError("H4: the launcher did not train the (4, 2) "
+                             "mesh")
 
 
 def phase_h1(torch, results, card):
@@ -3536,7 +3566,8 @@ def phase_i3(torch):
                 f"logits max |card - CPU| {worst:.3e} over them")
 
 
-def _greedy_run(torch, params, prompt, cfg, dev, frontend_embeds=None):
+def _greedy_run(torch, params, prompt, cfg, dev, frontend_embeds=None,
+                tp=None):
     """Prefill ``prompt`` (numpy; a modality family's ``frontend_embeds``,
     numpy, in its first positions) on ``dev``, then ``I3_STEPS`` greedy
     decode steps: the last-position logits of each, on the host."""
@@ -3546,12 +3577,12 @@ def _greedy_run(torch, params, prompt, cfg, dev, frontend_embeds=None):
         torch.from_numpy(frontend_embeds).to(dev)
     logits, caches, _ = prefill(params, torch.from_numpy(prompt).to(dev),
                                 cfg, max_len=prompt.shape[1] + I3_STEPS,
-                                frontend_embeds=fe)
+                                frontend_embeds=fe, tp=tp)
     seq = [logits[:, -1].cpu()]
     for t in range(I3_STEPS):
         tok = seq[-1].argmax(-1, keepdim=True).to(torch.int32)
         logits, caches = decode_step(params, caches, tok.to(dev),
-                                     prompt.shape[1] + t, cfg)
+                                     prompt.shape[1] + t, cfg, tp=tp)
         seq.append(logits[:, 0].cpu())
     return seq
 
@@ -3987,9 +4018,10 @@ def phase_j3_train(torch, results):
         row["launches_j3"] = launches[row["name"]]
 
 
-def _train_gates(torch, cfg, label):
-    """One train step of ``cfg`` (a reduced model, float32) on W = 4
-    lanes, batch 16 x 128 (and a modality family's frontend embeddings),
+def _train_gates(torch, cfg, label, model: int = 1):
+    """One train step of ``cfg`` (a reduced model, float32) on 4 lanes
+    (W = 4 data workers, or 4 / ``model`` each of ``model`` shards), batch
+    16 x 128 (and a modality family's frontend embeddings),
     the card against the CPU from the same numpy weights and batch.  The
     blockwise allgather step end to end on the card launches rows 1-4b
     (counted over that step alone) and gives the CPU's loss to rtol 1e-4;
@@ -4024,8 +4056,9 @@ def _train_gates(torch, cfg, label):
     def setup(engine, dev):
         ex_cfg = ExchangeConfig(mode="allgather", density=H_DENSITY,
                                 momentum=H_MOMENTUM, engine=engine)
-        step = build_train_step(cfg, LaneMesh(H_W, dev), ex_cfg, lr=H_LR,
-                                remat=False)
+        step = build_train_step(cfg, LaneMesh(H_W // model, dev,
+                                              model=model),
+                                ex_cfg, lr=H_LR, remat=False)
         params = _h2_params(torch, paths, leaves_np, dev)
         batch = {"tokens": torch.from_numpy(tokens).to(dev)}
         if fe is not None:
@@ -4083,7 +4116,8 @@ def _train_gates(torch, cfg, label):
     for j, path in enumerate(paths):
         diff = np.abs(after["cuda"][j] - after["cpu"][j])
         bad = diff > 1e-5
-        gap, acc = lanes[j][0][:, bad], lanes[j][1][:, bad] / H_W
+        gap = lanes[j][0][:, bad]
+        acc = lanes[j][1][:, bad] / (H_W // model)
         share = np.abs(diff[bad] - acc) <= 1e-3 * acc + 1e-6
         ok = ((gap <= H_TIE) & share).any(0)
         if not ok.all():
@@ -4608,6 +4642,454 @@ def phase_l5():
     _launchers("L5", [arch for arch, _, _ in L_FAMILIES])
 
 
+# ---------------------------------------------------------------------------
+# phase M: the "model" mesh axis (tensor and expert parallelism)
+# ---------------------------------------------------------------------------
+
+M_STEPS = 3
+# how near a support swap lies to its row's boundary at full width: a
+# float32 row-parallel GEMM's split sum over 6,848 + 6,848 terms rounds
+# apart from the whole one by up to about 1e-5 of the gradient (H_TIE is
+# the reduced models'; swaps measured up to 1.37e-5 away on an H100)
+M_TIE = 1e-4
+M_PREDICTION = (
+    "M1 chatglm3-6b (2 layers, 940,602,368 parameters) on LaneMesh(2, "
+    "model=2): gradients 1.1-1.6x model size 1's (each row-parallel GEMM "
+    "split in two and summed, the shards' pieces copied once a step), the "
+    "exchange and update unchanged (the lanes keep whole leaves), peak "
+    "+4-8 GiB (the pieces' copies); float32 model 2 against model 1 "
+    "within H2a's gates, 0-20 support swaps; M2 four gloo ranks bit-equal "
+    "to the lanes, each resident within 1% of its reckoned shard bytes; M3 "
+    "decode 1.1-1.5x model size 1's ms a step (twice the launches of the "
+    "sharded blocks), prefill 1.0-1.3x; card against CPU within I3's "
+    "gates; M4 exit 0; phase M 60-140 s")
+
+
+def phase_m(torch, results, card):
+    """The model axis: M1 chatglm3-6b at full width on LaneMesh(2,
+    model=2) against model size 1; M2 four gloo ranks on the card against
+    the lanes; M3 prefill and decode at model size 2; M4 the launchers."""
+    log(f"  M prediction: {M_PREDICTION}")
+    phase_m1(torch, results, card)
+    torch.cuda.empty_cache()
+    phase_m1b(torch)
+    torch.cuda.empty_cache()
+    phase_m2(torch)
+    torch.cuda.empty_cache()
+    phase_m3(torch, card)
+    torch.cuda.empty_cache()
+    phase_m4()
+
+
+def phase_m1(torch, results, card):
+    """chatglm3-6b at its published widths (2 of 28 layers), batch 16 x
+    128, the blockwise allgather step: M_STEPS timed steps on LaneMesh(2,
+    model=2) and on LaneMesh(2, model=1) (bf16 compute; the split and the
+    launches a step of each; rows 1-4b must launch at model size 2), then
+    with float32 compute each of M_STEPS steps from model size 1's state
+    on both meshes under H2a's gates: losses rtol 1e-4, parameters atol
+    1e-5 but at support swaps (a lane's share of the mean, within M_TIE of
+    its row's boundary at model size 1), velocities the same but at the
+    swap's ``a (1/m - 1)``, at most 1 in 10,000.  At full width a swap
+    may lie up to M_TIE from the boundary: a row-parallel GEMM's two
+    halves, summed, round apart from the whole GEMM (the largest swap's
+    distance is printed)."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.mesh import LaneMesh
+
+    cfg = _h_cfg(H_LAYERS)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
+                         batch_size=H_BATCH, seed=0, device="cuda")
+    for model in (2, 1):
+        label = f"M1 model={model}"
+        params, state, _, launches, _ = _h_run(
+            torch, label, cfg, LaneMesh(2, "cuda", model=model),
+            _h_exchange("allgather"), stream, M_STEPS, card)
+        del params, state
+        torch.cuda.empty_cache()
+        if model == 2:
+            for row in results:
+                row["launches_m_per_step"] = launches[row["name"]] / M_STEPS
+            idle = [k for k in H_ROWS if launches[k] == 0]
+            if idle:
+                raise AssertionError(f"{label}: rows {idle} never launched")
+    _m1_gates(torch, dataclasses.replace(cfg, compute_dtype="float32"),
+              stream)
+
+
+def _m1_gates(torch, cfg, stream):
+    from repro_torch.core.distributed import leaf_cut
+    from repro_torch.core.engine import velocity_accumulate
+    from repro_torch.core.paramspace import tree_flatten, tree_unflatten
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import init_params
+
+    steps = {m: build_train_step(cfg, LaneMesh(2, "cuda", model=m),
+                                 _h_exchange("allgather"), lr=H_LR,
+                                 remat=False) for m in (1, 2)}
+    one = steps[1]
+    W, mom = one.mesh.size, H_MOMENTUM
+    params = init_params(cfg, seed=0, device="cuda")
+    paths = tree_flatten(params)[1]
+    state = one.init_state(params)
+    excused = total = 0
+    worst = [0.0, 0.0]
+
+    def clone(tree):
+        leaves, p = tree_flatten(tree)
+        return tree_unflatten(p, [x.clone() for x in leaves])
+
+    def swaps(diff, lane_a, lane_gap, share, what):
+        """The coordinates of ``diff`` (a leaf) outside atol 1e-5: each a
+        swap on some lane.  Returns how many."""
+        bad = diff > 1e-5
+        n = int(bad.sum())
+        if n == 0:
+            return 0
+        ok = torch.zeros_like(bad)
+        for a, gap in zip(lane_a, lane_gap):
+            hit = (gap <= M_TIE) & ((diff - a * share).abs()
+                                    <= 1e-3 * a * share + 1e-6)
+            ok |= hit
+            if bool((hit & bad).any()):
+                tie[0] = max(tie[0], float(gap[hit & bad].max()))
+        if not bool(ok[bad].all()):
+            no = bad & ~ok
+            detail = [(float(diff[no][q]),
+                       [float(gp[no][q]) for gp in lane_gap],
+                       [float(a[no][q] * share) for a in lane_a])
+                      for q in range(min(4, int(no.sum())))]
+            raise AssertionError(
+                f"M1: {what}: {int(no.sum())} of {n} coordinates outside "
+                f"atol 1e-5 are no swap: (diff, the lanes' distances from "
+                f"the boundary, the lanes' shares) {detail}")
+        return n
+
+    tie = [0.0]
+    for i in range(M_STEPS):
+        batch = stream.batch(i)
+        grads, _ = one.grads(params, batch)
+        before_v = [x.clone() for x in tree_flatten(state.velocity)[0]]
+        runs = {}
+        for m in (2, 1):
+            p, st = clone(params), state._replace(
+                velocity=clone(state.velocity))
+            p, st, loss = steps[m](p, st, batch)
+            runs[m] = (p, st, float(loss))
+        np.testing.assert_allclose(runs[2][2], runs[1][2], rtol=1e-4)
+        for j, (x2, x1, v2, v1, u0, g, ax) in enumerate(zip(
+                tree_flatten(runs[2][0])[0], tree_flatten(runs[1][0])[0],
+                tree_flatten(runs[2][1].velocity)[0],
+                tree_flatten(runs[1][1].velocity)[0], before_v,
+                tree_flatten(grads)[0], one.hints)):
+            dp, dv = (x2 - x1).abs(), (v2 - v1).abs()
+            worst = [max(worst[0], float(dp.max())),
+                     max(worst[1], float(dv.max()))]
+            total += x1.numel()     # over the steps
+            if float(dp.max()) <= 1e-5 and float(dv.max()) <= 1e-5:
+                continue
+            shape = tuple(x1.shape)
+            c = leaf_cut(shape, ax, one.ex_cfg, W)
+            lane_a, lane_gap = [], []
+            for lane in range(W):
+                a = velocity_accumulate(u0[lane], g[lane], momentum=mom,
+                                        lr=H_LR).abs()
+                rows = a.reshape(c.S, c.rest) if c.ax is None else \
+                    a.movedim(c.ax, 0).reshape(c.S, c.rest)
+                top = rows.topk(c.k_row + 1, dim=1).values
+                tk, tk1 = top[:, c.k_row - 1:c.k_row], top[:, c.k_row:]
+                gap = (torch.maximum(tk - rows, rows - tk1).clamp(min=0)
+                       / torch.where(tk > 0, tk, 1.0))
+                moved = shape if c.ax is None else \
+                    (shape[c.ax],) + shape[:c.ax] + shape[c.ax + 1:]
+                gap = gap.reshape(moved)
+                lane_gap.append(gap if c.ax is None else gap.movedim(0, c.ax))
+                lane_a.append(a)
+            what = f"step {i} {'/'.join(paths[j])}"
+            excused += swaps(dp, lane_a, lane_gap, 1.0 / W, what)
+            for lane in range(W):
+                swaps(dv[lane], [lane_a[lane]], [lane_gap[lane]],
+                      1.0 / mom - 1.0, f"{what} velocity lane {lane}")
+        params, state = runs[1][0], runs[1][1]
+        del runs, grads, before_v
+        torch.cuda.empty_cache()
+    log(f"  M1 gates (float32 compute, {M_STEPS} steps each from model size "
+        f"1's state): losses rtol 1e-4; parameters max |diff| "
+        f"{worst[0]:.3g}, velocities {worst[1]:.3g}; {excused} parameter "
+        f"updates outside atol 1e-5, each a support swap within "
+        f"{tie[0]:.3g} (relative) of its row's boundary, of {total} "
+        f"updates")
+    if excused > total // 10_000:
+        raise AssertionError(f"M1: {excused} support swaps")
+
+
+def phase_m1b(torch):
+    """The rows at model size 2 against their plain versions: one step of
+    the reduced chatglm3-6b and qwen3-moe-235b-a22b (float32) on
+    LaneMesh(2, model=2), the card against the CPU under
+    ``_train_gates``: the blockwise step launches rows 1-4b, the card's
+    blockwise exchange fed the CPU's gradients gives the CPU's (plain
+    versions') parameters and velocities bit for bit, and the exact step
+    holds H2a's gate."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    for arch in ("chatglm3-6b", "qwen3-moe-235b-a22b"):
+        cfg = dataclasses.replace(get_arch(arch).reduced(),
+                                  compute_dtype="float32")
+        _train_gates(torch, cfg, f"M1b {cfg.name} model=2", model=2)
+
+
+def _m2_problem(torch, mesh):
+    """M2's problem on ``mesh`` (model size 2): chatglm3-6b at full width,
+    1 layer, allgather-blockwise, 3 steps from the seed-0 parameters (a
+    rank keeps its shards).  Returns (losses, digests of the local shards
+    of the parameters and the velocity, resident and reckoned bytes)."""
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import sharding
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import abstract_params, init_params
+
+    cfg = _h_cfg(1)
+    step = build_train_step(cfg, mesh, _h_exchange("allgather"), lr=H_LR,
+                            remat=False)
+    params = init_params(cfg, seed=0, device="cuda")
+    specs = sharding.param_specs(cfg, abstract_params(cfg), 2)
+    if not mesh.model.lanes:
+        params = sharding.shard_params(params, specs, mesh.model.rank, 2)
+        torch.cuda.empty_cache()
+    state = step.init_state(params)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    reckoned = sum(x.numel() * x.element_size()
+                   for x in tree_leaves(params) + tree_leaves(state.velocity)
+                   + tree_leaves(state.m_shard) + tree_leaves(state.v_shard))
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
+                         batch_size=4 * mesh.size, seed=0, device="cuda")
+    losses = []
+    for i in range(3):
+        params, state, loss = step(params, state, stream.batch(i))
+        losses.append(float(loss))
+    return (losses, _digests(torch, tree_leaves(params)
+                             + tree_leaves(state.velocity)),
+            resident, reckoned, params, state, specs)
+
+
+def m2_rank(rank: int, world: int, init_method: str, out: str) -> None:
+    """One rank of M2 (run by ``phase_m2`` in a process of its own):
+    M2's problem over a (2, 2) ProcessMesh; writes JSON."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch.mesh import init_process_mesh
+
+    mesh = init_process_mesh(rank, world, init_method, "cuda", model=2)
+    t0 = time.perf_counter()
+    losses, digests, resident, reckoned, *_ = _m2_problem(torch, mesh)
+    torch.cuda.synchronize()
+    Path(out).write_text(json.dumps(dict(
+        losses=losses, digests=digests, seconds=time.perf_counter() - t0,
+        resident=resident, reckoned=reckoned,
+        peak=torch.cuda.max_memory_allocated(), staged=mesh.staged,
+        cell=[mesh.rank, mesh.model.rank])))
+    mesh.close()
+    torch.distributed.destroy_process_group()
+
+
+def phase_m2(torch):
+    """Four processes on the one card, a (2 data, 2 model) ProcessMesh
+    over gloo (staged operands), 3 allgather steps of chatglm3-6b at full
+    width, 1 layer: each rank's shards of the parameters and of its
+    lane's velocity bit-equal to an in-process LaneMesh(2, model=2) run's,
+    the losses equal, and each rank's resident bytes after loading its
+    shards and zero state within 1% of their reckoned bytes."""
+    import tempfile
+
+    from repro_torch.core.paramspace import tree_flatten
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import LaneMesh
+
+    world = 4
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+             " chip_smoke.m2_rank(int(sys.argv[2]), int(sys.argv[3]), "
+             "sys.argv[4], sys.argv[5])", str(ROOT), str(r), str(world),
+             f"file://{tmp}/rendezvous", f"{tmp}/rank{r}.json"],
+            cwd=ROOT, env=_child_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=400)[0])
+        finally:
+            for proc in procs:
+                proc.kill()
+        for r, (proc, text) in enumerate(zip(procs, outs)):
+            if proc.returncode != 0:
+                for line in text.strip().splitlines()[-15:]:
+                    log(f"  M2 rank {r} | {line}")
+                raise AssertionError(f"M2: rank {r} exited {proc.returncode}")
+        ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+                 for r in range(world)]
+    log(f"  M2: {world} ranks in {time.perf_counter() - t0:.1f} s (process "
+        f"start-up included), staged {[r['staged'] for r in ranks]}; train "
+        f"{[round(r['seconds'], 2) for r in ranks]} s; peak "
+        f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB a rank")
+    for r in ranks:
+        log(f"  M2 rank cell {r['cell']}: resident {r['resident']} bytes "
+            f"after its shards and zero state, reckoned {r['reckoned']} "
+            f"({r['resident'] / r['reckoned']:.4f})")
+        if abs(r["resident"] / r["reckoned"] - 1) > 0.01:
+            raise AssertionError(f"M2: rank {r['cell']} holds "
+                                 f"{r['resident']} bytes, not its shards' "
+                                 f"{r['reckoned']}")
+    torch.cuda.reset_peak_memory_stats()
+    losses, _, resident, reckoned, params, state, specs = _m2_problem(
+        torch, LaneMesh(2, "cuda", model=2))
+    log(f"  M2 lanes: losses {losses}; resident {resident} bytes (whole "
+        f"leaves); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    spec_leaves = tree_flatten(specs)[0]
+    p_leaves = tree_flatten(params)[0]
+    v_leaves = tree_flatten(state.velocity)[0]
+    for r, got in enumerate(ranks):
+        d, m = got["cell"]
+        want = _digests(torch, [
+            sharding.shard_leaf(x, s, m, 2) for x, s in
+            zip(p_leaves, spec_leaves)] + [
+            sharding.shard_leaf(v[d:d + 1], (None,) + s, m, 2)
+            for v, s in zip(v_leaves, spec_leaves)])
+        if got["digests"] != want or got["losses"] != losses:
+            raise AssertionError(f"M2: rank {r} (cell {got['cell']}) differs "
+                                 f"from the lanes: losses {got['losses']} vs "
+                                 f"{losses}")
+    log("  M2: every rank's shards of the parameters and of its lane's "
+        "velocity bit-equal to the LaneMesh(2, model=2) run's (SHA-256 of "
+        "every leaf), losses equal")
+    log("  M2 over NCCL with one rank a card, and qwen3-moe-235b-a22b's "
+        "full-width one-layer step at model size 4: unverified (one card)")
+
+
+def _m_generate(torch, cfg, label, model):
+    """``cfg`` on LaneMesh(1, model=model): prefill I1's prompt (B 16 x
+    1,024) through ``build_prefill_step`` and 64 greedy decode steps
+    through ``build_serve_step``: prefill ms and decode ms a step (median,
+    CUDA events), peak memory; finite logits, ids in range."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import init_params, prefill
+
+    mesh = LaneMesh(1, "cuda", model=model)
+    pre = build_prefill_step(cfg, mesh, shape=InputShape(
+        "p", I_PROMPT, I_BATCH, "prefill"))
+    srv = build_serve_step(cfg, mesh, shape=InputShape(
+        "d", I_PROMPT + I_GEN, I_BATCH, "decode"))
+    params = pre.local_params(init_params(cfg, seed=0, device="cuda"))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (I_BATCH, I_PROMPT)).astype(np.int32)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pre_ms = []
+    for _ in range(2):      # the first call warms the matmuls up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits, caches, _ = prefill(params, prompt, cfg,
+                                    max_len=I_PROMPT + I_GEN, tp=mesh.model)
+        ev[1].record()
+        torch.cuda.synchronize()
+        pre_ms.append(ev[0].elapsed_time(ev[1]))
+    tokens = [logits[:, -1].argmax(-1)]
+    finite = [torch.isfinite(logits).all()]
+    events = []
+    for t in range(I_GEN - 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits, caches = srv(params, caches, tokens[-1][:, None].to(
+            torch.int32), I_PROMPT + t)
+        ev[1].record()
+        events.append(ev)
+        tokens.append(logits[:, 0].argmax(-1))
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    out = torch.stack(tokens, dim=1).cpu()
+    log(f"  {label} model={model}: prefill {pre_ms[1]:.3f} ms (first call "
+        f"{pre_ms[0]:.3f}); decode {statistics.median(step_ms):.3f} ms a "
+        f"step (median of steps 1-{I_GEN - 1}, CUDA events); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not all(bool(f) for f in finite) or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{label} model={model}: non-finite logits or "
+                             f"ids out of range")
+    return statistics.median(step_ms)
+
+
+def phase_m3(torch, card):
+    """Prefill and decode at model size 2: chatglm3-6b and qwen3-moe-235b-
+    a22b at their published widths (2 layers) with I1's prompt, each
+    beside model size 1 ([card] numbers); then the reduced ones, card
+    against CPU at model size 2 under I3's gates (float32 and bf16)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.steps import _local_params
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.models import init_params
+
+    for arch in ("chatglm3-6b", "qwen3-moe-235b-a22b"):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=2)
+        ms = {m: _m_generate(torch, cfg, f"M3 {arch}", m) for m in (2, 1)}
+        torch.cuda.empty_cache()
+        log(f"  M3 {arch} [{card}]: decode {ms[2]:.3f} ms a step at model "
+            f"size 2, {ms[1]:.3f} at 1 ({ms[2] / ms[1]:.3f}x)")
+    for arch in ("chatglm3-6b", "qwen3-moe-235b-a22b"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_arch(arch).reduced(),
+                                      compute_dtype=dtype)
+            label = f"M3 {cfg.name} {dtype} model=2"
+            prompt = np.random.default_rng(3).integers(
+                0, cfg.vocab_size, (I3_BATCH, I3_PROMPT)).astype(np.int32)
+            params = init_params(cfg, seed=0, device="cpu")
+            runs = []
+            for dev in ("cpu", "cuda"):
+                mesh = LaneMesh(1, dev, model=2)
+                runs.append(_greedy_run(
+                    torch, _local_params(params_from_numpy(params, dev), cfg,
+                                         mesh), prompt, cfg, dev,
+                    tp=mesh.model))
+            agreed, worst = _greedy_compare(label, *runs, I3_MARGIN[dtype],
+                                            logits_gate=dtype == "float32")
+            log(f"  {label}: {agreed} of {I3_BATCH * (I3_STEPS + 1)} greedy "
+                f"tokens equal before the sequences' first disagreements; "
+                f"logits max |card - CPU| {worst:.3e} over them")
+
+
+def phase_m4():
+    """``launch.train --devices 8`` (the reference's (4, 2) mesh) and
+    ``launch.serve --role decode --devices 4`` on the card, both exit 0
+    and print their meshes."""
+    out = _run_launcher("M4 train", "repro_torch.launch.train",
+                        ["--devices", "8", "--steps", "3"], _child_env())
+    if "mesh={'data': 4, 'model': 2}" not in out:
+        raise AssertionError("M4: the train launcher did not build (4, 2)")
+    out = _run_launcher("M4 serve", "repro_torch.launch.serve",
+                        ["--role", "decode", "--devices", "4"], _child_env())
+    if "mesh={'data': 1, 'model': 4}" not in out:
+        raise AssertionError("M4: the decode launcher's mesh is not (1, 4)")
+    _check_decode_rows("M4 serve", out, "chatglm3-6b")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4658,7 +5140,9 @@ def main() -> int:
                       ("k", lambda: phase_k(torch, results,
                                             smi.stdout.strip(), rate)),
                       ("l", lambda: phase_l(torch, results,
-                                            smi.stdout.strip(), rate))):
+                                            smi.stdout.strip(), rate)),
+                      ("m", lambda: phase_m(torch, results,
+                                            smi.stdout.strip()))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()
         try:

@@ -91,12 +91,19 @@ class ExchangeState(NamedTuple):
 
 
 def init_state(params, cfg: ExchangeConfig, n_workers: int, *,
-               lanes: int = 1, shard_axes=None) -> ExchangeState:
+               lanes: int = 1, shard_axes=None, model=None) -> ExchangeState:
     """Zero state for ``lanes`` of ``n_workers`` workers, on the
-    parameters' device."""
+    parameters' device.  On a rank of a model axis (``model``, the mesh's
+    :class:`~repro_torch.launch.mesh.ModelAxis`) ``params`` are the rank's
+    shards and the shardedps M and v hold the rank's rows."""
     leaves, paths = tree_flatten(params)
     if shard_axes is None:
         shard_axes = [None] * len(leaves)
+
+    def state_size(shape, ax):
+        full = _full_shape(shape, ax, model)
+        size = shardedps_state_size(full, ax, n_workers)
+        return size // model.size if _row_sharded(full, ax, model) else size
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros((lanes,) + shape, dtype=dtype,
@@ -104,7 +111,7 @@ def init_state(params, cfg: ExchangeConfig, n_workers: int, *,
 
     vel = [zeros(*p.shape) for p in leaves]
     if cfg.mode == "shardedps":
-        m = [zeros(shardedps_state_size(tuple(p.shape), ax, n_workers))
+        m = [zeros(state_size(tuple(p.shape), ax))
              for p, ax in zip(leaves, shard_axes)]
         v = [torch.zeros_like(x) for x in m]
         ovf = zeros(dtype=torch.int32)
@@ -119,6 +126,62 @@ def init_state(params, cfg: ExchangeConfig, n_workers: int, *,
 
 def _wire(dtype: str) -> torch.dtype:
     return getattr(torch, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the model axis on ranks
+#
+# A hinted leaf is sharded over the "model" axis on its hinted dim, and the
+# rows of its row view are the hinted dim's (times folded dims after it), so
+# a shard's rows are one block of them: a model shard's exchange is the
+# exchange of its rows, with the whole leaf's k_row and cut.  Only a leaf cut
+# whole (allgather's flat branch, shardedps' one-row view of a vector) is
+# gathered over the model axis first, and every shard then runs it whole.
+# On lanes every leaf is whole and the exchange is the one of model size 1.
+# ---------------------------------------------------------------------------
+
+def _on_rank(model) -> bool:
+    return model is not None and not model.lanes and model.size > 1
+
+
+def _full_shape(shape, ax, model):
+    """The whole leaf's shape from a rank's shard of it."""
+    shape = tuple(int(d) for d in shape)
+    if ax is None or not _on_rank(model):
+        return shape
+    return shape[:ax] + (shape[ax] * model.size,) + shape[ax + 1:]
+
+
+def _row_sharded(full, ax, model) -> bool:
+    """Whether a rank holds a block of the leaf's rows (else the leaf is
+    replicated or cut whole)."""
+    return _on_rank(model) and ax is not None and len(full) > 1
+
+
+def _gather_model(x, dim, model):
+    """The model shards' pieces of ``x`` concatenated along ``dim``."""
+    return torch.cat(list(model.all_gather(x)), dim)
+
+
+def _own(x, dim, model):
+    """This rank's piece of a whole tensor along ``dim``."""
+    return x.chunk(model.size, dim)[model.rank]
+
+
+def _rows_quantizer(spec, model):
+    """(the spec to select with, the quantization of the selected rows):
+    on a rank of the model axis the values of every shard's rows are
+    quantized together, with ONE scale over the whole leaf's rows, as the
+    reference's (and this rank keeps its rows)."""
+    if not _on_rank(model) or spec.quantize == "none":
+        return spec, lambda vals: vals
+
+    def quantize(vals):
+        whole = engine_lib._maybe_quantize_rows(
+            _gather_model(vals, 0, model), spec.quantize)
+        return _own(whole, 0, model)
+
+    return dataclasses.replace(spec, quantize="none"), quantize
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +211,8 @@ def dense_momentum_exchange(state, grads, *, cfg, lr, mesh):
 # the paper's per-tensor threshold.
 # ---------------------------------------------------------------------------
 
-def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec):
+def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec,
+                           quantize=None):
     """SAMomentum + top-k + sparse all-gather for one leaf, ``u`` and ``g``
     ``(L, *shape)``, cut as ``cut`` (:func:`leaf_cut`).  Each lane runs the
     reference's per-device steps on its worker's tensor (so the transients
@@ -159,6 +223,7 @@ def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec):
 
     L, shape = u.shape[0], tuple(u.shape[1:])
     W = mesh.size
+    quantize = quantize or (lambda vals: vals)
     if cut.flat:
         vals, idx = [], []
         for lane in range(L):
@@ -186,7 +251,7 @@ def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec):
             momentum=cfg.momentum, lr=lr, k=k_row, spec=spec)
         um.copy_(u_new.view(um.shape))
         del u_new
-        vals.append(v_l.to(wdt))
+        vals.append(quantize(v_l).to(wdt))
         idx.append(i_l)
     gvals = mesh.gather(torch.stack(vals))                   # (W, S, k_row)
     gidx = mesh.gather(torch.stack(idx))
@@ -206,14 +271,30 @@ def allgather_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None):
     optional per-leaf list of hinted dim indices (see above).
     """
     spec = cfg.spec()
+    model = mesh.model
     u_leaves, paths = tree_flatten(state.velocity)
     if shard_axes is None:
         shard_axes = [None] * len(u_leaves)
     upd = []
     for u, g, ax in zip(u_leaves, tree_leaves(grads), shard_axes):
-        cut = leaf_cut(u.shape[1:], ax, cfg, mesh.size)
-        upd.append(_leaf_allgather_hinted(
-            u, g, cut=cut, cfg=cfg, lr=lr, mesh=mesh, spec=spec))
+        full = _full_shape(u.shape[1:], ax, model)
+        cut = leaf_cut(full, ax, cfg, mesh.size)
+        if not _on_rank(model) or ax is None:
+            upd.append(_leaf_allgather_hinted(
+                u, g, cut=cut, cfg=cfg, lr=lr, mesh=mesh, spec=spec))
+        elif cut.flat:
+            # a vector cut whole: every shard selects over all of it
+            uf = _gather_model(u, ax + 1, model)
+            up = _leaf_allgather_hinted(
+                uf, _gather_model(g, ax + 1, model), cut=cut, cfg=cfg,
+                lr=lr, mesh=mesh, spec=spec)
+            u.copy_(_own(uf, ax + 1, model))
+            upd.append(_own(up, ax, model).contiguous())
+        else:
+            sel, quantize = _rows_quantizer(spec, model)
+            upd.append(_leaf_allgather_hinted(
+                u, g, cut=cut._replace(S=cut.S // model.size), cfg=cfg,
+                lr=lr, mesh=mesh, spec=sel, quantize=quantize))
     return tree_unflatten(paths, upd), state
 
 
@@ -296,7 +377,8 @@ def leaf_cut(shape, shard_axis, cfg: ExchangeConfig,
     return LeafCut(False, S, rest, ax, k_row, cap, shard_rest, k2)
 
 
-def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec):
+def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
+                           quantize=None):
     """Row-wise sharded-PS dual-way exchange for one leaf.
 
     View: (S, rest) rows per worker.  Worker w owns columns
@@ -324,6 +406,7 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec):
     shard_rest, cap, k2 = cut.shard_rest, cut.cap, cut.k2
     wdt = _wire(cfg.wire_dtype)
     dev = u.device
+    quantize = quantize or (lambda vals: vals)
     rows_of = ((lambda x: x.reshape(1, rest)) if ax is None
                else (lambda x: x.movedim(ax, 0)))
     send_v, send_i, ovf = [], [], []
@@ -334,6 +417,7 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec):
             rows_of(g[lane]).reshape(S, rest).to(torch.float32).contiguous(),
             momentum=cfg.momentum, lr=lr)
         vals, idx = engine_lib.select_rows(uacc, k_row, spec)
+        vals = quantize(vals)
         # ---- bucket by owner, per row ----
         idx = idx.to(torch.int64)
         order = torch.argsort(idx // shard_rest, dim=1, stable=True)
@@ -381,6 +465,7 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec):
         m_l = m_sh[lane].view(S, shard_rest)
         v_l = v_sh[lane].view(S, shard_rest)
         d_v, d_i = engine_lib.select_rows(m_l - v_l, k2, spec)
+        d_v = quantize(d_v)
         ops.scatter_add_rows(v_l, None, d_i, d_v)
         dvals.append(d_v.to(wdt))
         didx.append(d_i + me[lane])
@@ -400,22 +485,46 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec):
 
 def shardedps_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None):
     """Dual-way sparse exchange against a parameter server sharded over the
-    workers: per-leaf dispatch to the row-wise implementation above."""
+    workers: per-leaf dispatch to the row-wise implementation above.  On a
+    rank of the model axis the overflow counts every shard's rows, as the
+    reference's count spans the whole leaf."""
     spec = cfg.spec()
+    model = mesh.model
     u_leaves, paths = tree_flatten(state.velocity)
     m_leaves = tree_leaves(state.m_shard)
     v_leaves = tree_leaves(state.v_shard)
     if shard_axes is None:
         shard_axes = [None] * len(u_leaves)
     upd = []
-    step_ovf = 0
+    step_ovf, rows_ovf = 0, 0
     for u, m_sh, v_sh, g, ax in zip(u_leaves, m_leaves, v_leaves,
                                     tree_leaves(grads), shard_axes):
-        up, ovf = _leaf_shardedps_hinted(
-            u, g, m_sh, v_sh, cut=leaf_cut(u.shape[1:], ax, cfg, mesh.size),
-            cfg=cfg, lr=lr, mesh=mesh, spec=spec)
+        full = _full_shape(u.shape[1:], ax, model)
+        cut = leaf_cut(full, ax, cfg, mesh.size)
+        if _row_sharded(full, ax, model):
+            sel, quantize = _rows_quantizer(spec, model)
+            up, ovf = _leaf_shardedps_hinted(
+                u, g, m_sh, v_sh, cut=cut._replace(S=cut.S // model.size),
+                cfg=cfg, lr=lr, mesh=mesh, spec=sel, quantize=quantize)
+            rows_ovf = rows_ovf + ovf
+        elif _on_rank(model) and ax is not None:
+            # a vector cut whole: gathered, run whole on every shard
+            uf = _gather_model(u, ax + 1, model)
+            up, ovf = _leaf_shardedps_hinted(
+                uf, _gather_model(g, ax + 1, model), m_sh, v_sh, cut=cut,
+                cfg=cfg, lr=lr, mesh=mesh, spec=spec)
+            u.copy_(_own(uf, ax + 1, model))
+            up = _own(up, ax, model).contiguous()
+            step_ovf = step_ovf + ovf
+        else:
+            up, ovf = _leaf_shardedps_hinted(
+                u, g, m_sh, v_sh, cut=cut, cfg=cfg, lr=lr, mesh=mesh,
+                spec=spec)
+            step_ovf = step_ovf + ovf
         upd.append(up)
-        step_ovf = step_ovf + ovf
+    if isinstance(rows_ovf, torch.Tensor):   # every shard's rows counted
+        step_ovf = step_ovf + model.all_gather(rows_ovf).sum(0).to(
+            torch.int32)
     overflow = state.overflow
     if isinstance(overflow, torch.Tensor):
         overflow += step_ovf

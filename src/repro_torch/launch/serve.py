@@ -28,7 +28,10 @@ Roles:
   seeded prompt of ``--batch`` x ``--prompt-len`` tokens, then decodes
   ``--gen - 1`` tokens against its KV, latent or SSM caches, greedy
   or sampled at ``--temperature``, and prints the generated ids.  No
-  cluster; the ``"model"`` axis has size 1.
+  cluster.  It prints the reference's ``(1, --devices)`` mesh and, as the
+  reference's plain-jit prefill and decode do under it, computes
+  unsharded; the sharded serving path is ``launch.steps``'
+  ``build_prefill_step`` and ``build_serve_step``.
 
       PYTHONPATH=src python -m repro_torch.launch.serve --role decode \
           --device cpu
@@ -224,8 +227,8 @@ def run_decode(args) -> int:
 
     cfg = get_arch(args.arch).reduced()
     device = resolve_device(args.device)
-    print(f"[serve] arch={cfg.name} mesh={ {'data': 1, 'model': 1} } "
-          f"device={device}")
+    mesh = {"data": 1, "model": args.devices}
+    print(f"[serve] arch={cfg.name} mesh={mesh} device={device}")
     params = init_params(cfg, seed=0, device=device)
     gen = torch.Generator(device=device).manual_seed(1)
     max_len = args.prompt_len + args.gen
@@ -318,8 +321,10 @@ def main(argv=None):
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--gen", type=int, default=16)
     p.add_argument("--devices", type=int, default=4,
-                   help="accepted for the reference's command line; no "
-                        "effect: the port's model axis has size 1")
+                   help="decode role: the model axis of the printed (1, N) "
+                        "mesh; as the reference's plain-jit steps under it, "
+                        "the demo computes unsharded (the sharded serving "
+                        "path is launch.steps.build_serve_step)")
     p.add_argument("--temperature", type=float, default=0.0)
     args = p.parse_args(argv)
     if args.log_level:

@@ -4,10 +4,10 @@ axes (PyTorch port of ``repro.launch.sharding``).
 
 A spec is a tuple with one entry per dim: ``"model"``, the data axes
 (one name, or a tuple of names), or None, as the reference's
-``PartitionSpec`` reads.  The port runs the ``"model"`` axis at size 1
-(tensor parallelism is not ported); the rules still decide the exchange's
-per-leaf hints.  Rules are name+shape based so one function serves all 10
-architectures:
+``PartitionSpec`` reads.  At model size M a ``"model"`` dim holds M even
+pieces, piece m on model shard m (:func:`shard_leaf`); the rules also
+decide the exchange's per-leaf hints.  Rules are name+shape based so one
+function serves all 10 architectures:
 
 * attn/MLP in-projections  (d, H*hd|ff)  -> (None, "model")
 * out/down projections     (ff|H*hd, d)  -> ("model", None)
@@ -18,10 +18,13 @@ architectures:
 
 ``shard_axis_hints`` returns, per parameter leaf, the index of the dim
 sharded over "model" (or None).  The DGS exchange selects along the
-*unsharded* dims only, per slice of the hinted one.  At ``model_size`` 1
-every weight, bias and embedding gets a hint; only the norm scales do not.
+*unsharded* dims only, per slice of the hinted one, so each model shard
+selects on its own rows.  At ``model_size`` 1 every weight, bias and
+embedding gets a hint; only the norm scales do not.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.paramspace import tree_flatten, tree_unflatten
 from repro_torch.models.config import ModelConfig
@@ -117,6 +120,38 @@ def shard_axis_hints(cfg: ModelConfig, params_shape, model_size: int):
                           n_kv_heads=cfg.n_kv_heads)
         hints.append(spec.index("model") if "model" in spec else None)
     return hints
+
+
+def shard_leaf(full, spec, m: int, M: int):
+    """Model shard ``m`` of ``M`` of a leaf under its spec: the leaf itself
+    when replicated, else its m-th even piece along the ``"model"`` dim (a
+    view; numpy arrays and tensors alike)."""
+    if M == 1 or "model" not in spec:
+        return full
+    ax = spec.index("model")
+    c = full.shape[ax] // M
+    index = (slice(None),) * ax + (slice(m * c, (m + 1) * c),)
+    return full[index]
+
+
+def unshard_leaf(shards, spec):
+    """The whole leaf from its M shards (``shard_leaf``'s inverse)."""
+    if len(shards) == 1 or "model" not in spec:
+        return shards[0]
+    return torch.cat(list(shards), spec.index("model"))
+
+
+def shard_params(params, specs, m: int, M: int):
+    """Model shard ``m`` of a parameter tree: each ``"model"`` leaf's
+    piece copied into storage of its own (so the whole leaf can go),
+    replicated leaves as they are."""
+    leaves, paths = tree_flatten(params)
+    spec_leaves = tree_flatten(specs)[0]
+    return tree_unflatten(paths, [
+        leaf if "model" not in spec or M == 1
+        else shard_leaf(leaf, spec, m, M).clone(
+            memory_format=torch.contiguous_format)
+        for leaf, spec in zip(leaves, spec_leaves)])
 
 
 def _axes(data_axes):

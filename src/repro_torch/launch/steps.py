@@ -13,10 +13,19 @@ are computed one lane after another, each on its ``B/W`` rows of the
 batch; on a :class:`~repro_torch.launch.mesh.ProcessMesh` each process
 computes its own rank's.
 
-The prefill and serve steps need no collective: the ``"model"`` axis has
-size 1, and a worker's rows of the batch and the caches (``batch_specs``,
-``cache_specs``) are served on their own.  A step computes on the rows it
-is given.
+At model size M > 1 (``mesh.model``) every leaf of a ``"model"`` spec
+(``sharding.param_specs`` at M) is held in M pieces: a rank of a
+``ProcessMesh`` holds its piece of the parameters, the velocity and the
+shardedps M and v; a ``LaneMesh`` keeps each leaf whole and runs each
+shard's work on a copy of its piece.  The loss and gradients run through
+the sharded forward (``models.tensor_parallel``), the exchange on each
+shard's rows (``core.distributed``), with the hints at M, as the
+reference's.
+
+The prefill and serve steps take the local shards' parameter trees
+(:meth:`PrefillStep.local_params`) at M > 1 and return each shard's
+caches; the logits are whole.  A step computes on the rows of the batch it
+is given (``batch_specs``).
 """
 from __future__ import annotations
 
@@ -34,17 +43,27 @@ from repro_torch.models.model import (abstract_params, decode_step, loss_fn,
                                       prefill)
 
 from . import sharding as shard_rules
+from .mesh import model_axis_size
 
-# the port's meshes have one data axis (its workers) and no model axis
+# the port's meshes have one data axis (its workers) beside "model"
 DATA_AXES = ("data",)
 
 
 def init_exchange_state(params, ex_cfg: ExchangeConfig, mesh,
                         shard_axes=None):
     """Zero exchange state of ``mesh``'s lanes: every leaf with the lanes'
-    leading dim."""
+    leading dim (a rank's: its shards')."""
     return init_state(params, ex_cfg, mesh.size, lanes=len(mesh.lanes),
-                      shard_axes=shard_axes)
+                      shard_axes=shard_axes, model=mesh.model)
+
+
+def _local_params(params, cfg, mesh):
+    """The local shards' trees of whole ``params`` (contiguous copies of
+    the pieces, so each shard computes at its own shapes)."""
+    tp = mesh.model
+    specs = shard_rules.param_specs(cfg, abstract_params(cfg), tp.size)
+    return [shard_rules.shard_params(params, specs, m, tp.size)
+            for m in tp.shards]
 
 
 @dataclasses.dataclass
@@ -69,7 +88,7 @@ class TrainStep:
         """Each lane's loss and gradients on its rows of ``batch`` (the
         global batch, split evenly over the W workers).  Returns (grads,
         the lanes' losses ``(L,)``), every gradient leaf ``(L, *shape)``
-        float32."""
+        float32 (a rank's: its shard's)."""
         W = self.mesh.size
         B = batch["tokens"].shape[0]
         if B % W:
@@ -79,16 +98,52 @@ class TrainStep:
         lanes = len(self.mesh.lanes)
         grads = [torch.empty((lanes,) + tuple(p.shape), dtype=torch.float32,
                              device=p.device) for p in leaves]
+        tp = self.mesh.model
+        if tp.size > 1:
+            live, trees = self._live_shards(leaves, paths)
         losses = []
         for i, w in enumerate(self.mesh.lanes):
             part = {key: val[w * b:(w + 1) * b] for key, val in batch.items()}
-            live = [p.detach().requires_grad_() for p in leaves]
-            loss = loss_fn(tree_unflatten(paths, live), part, self.cfg,
-                           remat=self.remat)[0]
-            for dst, g in zip(grads, torch.autograd.grad(loss, live)):
+            if tp.size > 1:
+                loss = loss_fn(trees, part, self.cfg, remat=self.remat,
+                               tp=tp)[0]
+                gs = torch.autograd.grad(loss, [t for *_, t in live])
+                for (li, index, _), g in zip(live, gs):
+                    grads[li][i][index].copy_(g)
+                losses.append(loss.detach())
+                continue
+            live_leaves = [p.detach().requires_grad_() for p in leaves]
+            loss = loss_fn(tree_unflatten(paths, live_leaves), part,
+                           self.cfg, remat=self.remat)[0]
+            for dst, g in zip(grads, torch.autograd.grad(loss, live_leaves)):
                 dst[i].copy_(g)
             losses.append(loss.detach())
         return tree_unflatten(paths, grads), torch.stack(losses)
+
+    def _live_shards(self, leaves, paths):
+        """(live, the local shards' trees) for the sharded loss: ``live``
+        lists (leaf index, the index of its gradient in the leaf's,
+        tensor), a replicated leaf once, a sharded one per local shard --
+        on lanes a copy of the shard's piece, on a rank the leaf itself."""
+        tp = self.mesh.model
+        cols, live = [], []
+        for li, (p, ax) in enumerate(zip(leaves, self.hints)):
+            if ax is None or not tp.lanes:
+                t = p.detach().requires_grad_()
+                live.append((li, (), t))
+                cols.append([t] * len(tp.shards))
+                continue
+            c = p.shape[ax] // tp.size
+            col = []
+            for m in tp.shards:
+                index = (slice(None),) * ax + (slice(m * c, (m + 1) * c),)
+                t = p.detach()[index].contiguous().requires_grad_()
+                live.append((li, index, t))
+                col.append(t)
+            cols.append(col)
+        trees = [tree_unflatten(paths, [col[j] for col in cols])
+                 for j in range(len(tp.shards))]
+        return live, trees
 
     def exchange(self, ex_state, grads):
         return exchange(ex_state, grads, cfg=self.ex_cfg, lr=self.lr,
@@ -110,13 +165,28 @@ class TrainStep:
         return params, ex_state, self.mesh.mean(losses)
 
 
+def whole_params(params, cfg: mcfg.ModelConfig, mesh):
+    """The whole parameter tree on every rank of a model axis (its shards
+    gathered over the model group); ``params`` itself on lanes and at
+    model size 1."""
+    tp = mesh.model
+    if tp.lanes or tp.size == 1:
+        return params
+    leaves, paths = tree_flatten(params)
+    specs = tree_flatten(shard_rules.param_specs(cfg, abstract_params(cfg),
+                                                 tp.size))[0]
+    return tree_unflatten(paths, [
+        shard_rules.unshard_leaf(list(tp.all_gather(p)), spec)
+        if "model" in spec else p for p, spec in zip(leaves, specs)])
+
+
 def build_train_step(cfg: mcfg.ModelConfig, mesh, ex_cfg: ExchangeConfig,
                      *, lr: float = 1e-2, remat: bool = True) -> TrainStep:
     if ex_cfg.engine != "auto":
         from repro_torch.core.engine import get_engine
         get_engine(ex_cfg.engine)  # fail fast at build time
-    # the "model" axis has size 1: tensor parallelism is not ported
-    hints = shard_rules.shard_axis_hints(cfg, abstract_params(cfg), 1)
+    hints = shard_rules.shard_axis_hints(cfg, abstract_params(cfg),
+                                         model_axis_size(mesh))
     return TrainStep(cfg=cfg, mesh=mesh, ex_cfg=ex_cfg, lr=lr, remat=remat,
                      hints=hints)
 
@@ -124,15 +194,26 @@ def build_train_step(cfg: mcfg.ModelConfig, mesh, ex_cfg: ExchangeConfig,
 @dataclasses.dataclass
 class PrefillStep:
     """``step(params, batch) -> (last-position logits, caches)``;
-    ``batch_specs`` is the batch's layout over the data axes."""
+    ``batch_specs`` is the batch's layout over the data axes.  At model
+    size > 1 ``params`` is :meth:`local_params`' list and the caches one
+    tree per local shard."""
 
     cfg: mcfg.ModelConfig
+    mesh: object
     batch_specs: dict
+
+    def local_params(self, params):
+        """The local shards' trees of whole ``params`` (``params`` itself
+        at model size 1)."""
+        if self.mesh.model.size == 1:
+            return params
+        return _local_params(params, self.cfg, self.mesh)
 
     def __call__(self, params, batch):
         logits, caches, _ = prefill(
             params, batch["tokens"], self.cfg,
-            frontend_embeds=batch.get("frontend_embeds"))
+            frontend_embeds=batch.get("frontend_embeds"),
+            tp=self.mesh.model)
         return logits, caches
 
 
@@ -140,28 +221,34 @@ class PrefillStep:
 class ServeStep:
     """``step(params, caches, token, pos) -> (logits, caches)``: one
     ``decode_step``, the caches updated in place (the reference donates
-    them).  ``cache_specs`` is the caches' layout over the data axes."""
+    them).  ``cache_specs`` is the caches' layout as the reference's rule
+    gives it; at model size > 1 the port's shard holds its KV heads (or
+    the KV heads its query heads read), the whole MLA latent and its heads
+    of the SSM state (``tensor_parallel.init_caches``)."""
 
     cfg: mcfg.ModelConfig
+    mesh: object
     long_mode: bool
     cache_specs: dict
 
+    local_params = PrefillStep.local_params
+
     def __call__(self, params, caches, token, pos):
         return decode_step(params, caches, token, pos, self.cfg,
-                           long_mode=self.long_mode)
+                           long_mode=self.long_mode, tp=self.mesh.model)
 
 
 def build_prefill_step(cfg: mcfg.ModelConfig, mesh, *, shape) -> PrefillStep:
-    return PrefillStep(cfg=cfg, batch_specs=shard_rules.batch_specs(
+    return PrefillStep(cfg=cfg, mesh=mesh, batch_specs=shard_rules.batch_specs(
         cfg, input_specs(cfg, shape), DATA_AXES))
 
 
 def build_serve_step(cfg: mcfg.ModelConfig, mesh, *, shape) -> ServeStep:
-    # the "model" axis has size 1: tensor parallelism is not ported
     cspecs = shard_rules.cache_specs(
-        cfg, input_specs(cfg, shape)["caches"], DATA_AXES, 1,
-        batch=shape.global_batch, n_data=mesh.size)
-    return ServeStep(cfg=cfg, long_mode=shape.long, cache_specs=cspecs)
+        cfg, input_specs(cfg, shape)["caches"], DATA_AXES,
+        model_axis_size(mesh), batch=shape.global_batch, n_data=mesh.size)
+    return ServeStep(cfg=cfg, mesh=mesh, long_mode=shape.long,
+                     cache_specs=cspecs)
 
 
 def build_step(cfg, mesh, shape, *, ex_cfg: ExchangeConfig | None = None,

@@ -7,11 +7,14 @@ embeddings):
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --devices 4 --steps 3 --batch 4 --seq 32 --arch mamba2-780m
 
-``--devices N`` is the number of workers, N lanes of one process on
-``--device`` (None = the card).  Under ``torchrun`` (``WORLD_SIZE`` set) it
-runs one worker per process instead, over ``torch.distributed``:
+``--devices N`` is the number of mesh cells, as the reference's: an even
+N above 1 is a ``(N/2 data, 2 model)`` mesh, else ``(N, 1)``; the cells
+are lanes of one process on ``--device`` (None = the card).  Under
+``torchrun`` (``WORLD_SIZE`` set) it runs one cell per process instead,
+over ``torch.distributed``, ``--model-par`` (default: the same rule on
+``WORLD_SIZE``) shards each data worker:
 
-    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --device cpu --steps 3 --batch 4 --seq 32
 
 With a card for every rank of a host the ranks talk over NCCL
@@ -45,8 +48,12 @@ def parse_args(argv=None):
                     help="accepted for the reference's command line; the "
                          "launcher always trains the reduced variant")
     ap.add_argument("--devices", type=int, default=8,
-                    help="workers, as lanes of this process (ignored under "
-                         "torchrun: one worker per process)")
+                    help="mesh cells, as lanes of this process: (N/2, 2) "
+                         "when N is even and above 1, else (N, 1) (ignored "
+                         "under torchrun: one cell per process)")
+    ap.add_argument("--model-par", type=int, default=None,
+                    help="under torchrun: model shards per data worker "
+                         "(default: 2 when WORLD_SIZE is even and above 1)")
     ap.add_argument("--device", default=None,
                     help="cpu or cuda (default: the card)")
     ap.add_argument("--batch", type=int, default=16)
@@ -72,8 +79,9 @@ def main(argv=None):
     from repro_torch.data.synthetic import TokenStream, seeded_generator
     from repro_torch.device import resolve_device
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch.steps import build_train_step
-    from repro_torch.models.model import init_params
+    from repro_torch.launch.steps import build_train_step, whole_params
+    from repro_torch.launch.sharding import param_specs, shard_params
+    from repro_torch.models.model import abstract_params, init_params
 
     log = telemetry.get_logger("train")
     if args.log_level:
@@ -84,16 +92,19 @@ def main(argv=None):
     cfg = get_arch(args.arch).reduced()
     device = resolve_device(args.device)
     if "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        model_par = args.model_par or _model_par(world)
         mesh = mesh_lib.init_process_mesh(
-            int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), "env://",
-            device)
+            int(os.environ["RANK"]), world, "env://", device,
+            model=model_par)
         device = mesh.device
-        if mesh.rank != 0:
+        if int(os.environ["RANK"]) != 0:
             telemetry.set_level("warning")
     else:
-        mesh = mesh_lib.LaneMesh(args.devices, device)
-    W = mesh.size
-    log.info(f"[train] arch={cfg.name} mesh={ {'data': W, 'model': 1} } "
+        model_par = _model_par(args.devices)
+        mesh = mesh_lib.LaneMesh(args.devices // model_par, device,
+                                 model=model_par)
+    log.info(f"[train] arch={cfg.name} mesh={mesh.shape} "
              f"mode={args.mode} density={args.density} engine={args.engine} "
              f"quantize={args.quantize}")
 
@@ -103,6 +114,11 @@ def main(argv=None):
                             sampled_threshold_above=args.sampled_above)
     step = build_train_step(cfg, mesh, ex_cfg, lr=args.lr, remat=False)
     params = init_params(cfg, seed=0, device=device)
+    if not mesh.model.lanes:
+        # a rank keeps its model shard of every leaf
+        params = shard_params(params, param_specs(cfg, abstract_params(cfg),
+                                                  model_par),
+                              mesh.model.rank, model_par)
     ex_state = step.init_state(params)
     stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=args.seq,
                          batch_size=args.batch, seed=0, device=device)
@@ -123,14 +139,23 @@ def main(argv=None):
             params, ex_state, loss = step(params, ex_state, batch(i))
             if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
                 log.info(f"  step {i:4d} loss={float(loss):.4f}")
-        if args.checkpoint and getattr(mesh, "rank", 0) == 0:
-            save_checkpoint(args.checkpoint, params, step=args.steps)
-            log.info(f"[train] saved {args.checkpoint}")
+        if args.checkpoint:
+            params = whole_params(params, cfg, mesh)
+            if int(os.environ.get("RANK", 0)) == 0:
+                save_checkpoint(args.checkpoint, params, step=args.steps)
+                log.info(f"[train] saved {args.checkpoint}")
     finally:
         if "WORLD_SIZE" in os.environ:
             import torch.distributed as dist
+            mesh.close()
             dist.destroy_process_group()
     log.info("[train] done")
+
+
+def _model_par(n: int) -> int:
+    """The reference's rule: two model shards when ``n`` is even and
+    above 1."""
+    return 2 if n % 2 == 0 and n > 1 else 1
 
 
 if __name__ == "__main__":

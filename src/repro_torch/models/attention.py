@@ -82,11 +82,25 @@ def gqa_forward(params, x, positions, cfg: ModelConfig, *,
     layer's :class:`KVCache` when ``return_kv``)."""
     B, S, _ = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    G = H // KH
     q = linear(params["wq"], x).reshape(B, S, H, hd)
     k = linear(params["wk"], x).reshape(B, S, KH, hd)
     v = linear(params["wv"], x).reshape(B, S, KH, hd)
     q, k = _apply_positions(cfg, q, k, positions, layer_kind=layer_kind)
+    out = gqa_attend(q, k, v, cfg, layer_kind=layer_kind, chunk_q=chunk_q)
+    out = linear(params["wo"], out.to(x.dtype))
+    if not return_kv:
+        return out
+    return out, gqa_cache_of(k, v, cfg, layer_kind=layer_kind)
+
+
+def gqa_attend(q, k, v, cfg: ModelConfig, *, layer_kind: str = "attn",
+               chunk_q: int = 512):
+    """Chunked attention of rotated queries (B,S,H,hd) over K/V
+    (B,S,KH,hd), any H a multiple of KH (a model shard's heads): the heads'
+    outputs (B,S,H*hd) float32."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
     windowed = layer_kind == "attn_local" or cfg.attention == "sliding"
     window = cfg.window if windowed else None
 
@@ -97,10 +111,10 @@ def gqa_forward(params, x, positions, cfg: ModelConfig, *,
     kt = k.to(torch.float32).permute(0, 2, 3, 1)[:, :, None]   # (B,KH,1,hd,S)
     vf = v.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]   # (B,KH,1,S,hd)
     qg = q.reshape(B, S, KH, G, hd).permute(0, 2, 3, 1, 4)    # (B,KH,G,S,hd)
-    kv_pos = torch.arange(S, device=x.device)
+    kv_pos = torch.arange(S, device=q.device)
     outs = []
     for start_q in range(0, S, C):
-        q_pos = start_q + torch.arange(C, device=x.device)
+        q_pos = start_q + torch.arange(C, device=q.device)
         ks, vs, kp = kt, vf, kv_pos
         if window is not None and window + C < S:
             # slice K/V to [chunk_start - window, chunk_start + C)
@@ -108,7 +122,7 @@ def gqa_forward(params, x, positions, cfg: ModelConfig, *,
             start = min(max(start_q - window, 0), S - kw)
             ks = kt[..., start:start + kw]
             vs = vf[..., start:start + kw, :]
-            kp = start + torch.arange(kw, device=x.device)
+            kp = start + torch.arange(kw, device=q.device)
         mask = kp[None, :] <= q_pos[:, None]
         if window is not None:
             mask &= kp[None, :] > q_pos[:, None] - window
@@ -117,10 +131,14 @@ def gqa_forward(params, x, positions, cfg: ModelConfig, *,
         p = torch.softmax(s, dim=-1)
         # the reference rounds p to the compute dtype before the PV matmul
         outs.append(p.to(v.dtype).to(torch.float32) @ vs)  # (B,KH,G,C,hd)
-    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
-    out = linear(params["wo"], out.to(x.dtype))
-    if not return_kv:
-        return out
+    return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
+
+
+def gqa_cache_of(k, v, cfg: ModelConfig, *, layer_kind: str = "attn"):
+    """The layer's :class:`KVCache` from its rotated K and V (B,S,KH,hd):
+    the last ``window`` positions of a windowed layer, ring-aligned."""
+    S = k.shape[1]
+    windowed = layer_kind == "attn_local" or cfg.attention == "sliding"
     L = min(cfg.window, S) if windowed else S
     kc, vc = k[:, S - L:], v[:, S - L:]
     if windowed and L < S:
@@ -128,7 +146,7 @@ def gqa_forward(params, x, positions, cfg: ModelConfig, *,
         # p % L
         shift = (S - L) % L
         kc, vc = torch.roll(kc, shift, dims=1), torch.roll(vc, shift, dims=1)
-    return out, KVCache(k=kc.to(cfg.cdtype), v=vc.to(cfg.cdtype))
+    return KVCache(k=kc.to(cfg.cdtype), v=vc.to(cfg.cdtype))
 
 
 class KVCache(NamedTuple):
@@ -165,7 +183,6 @@ def gqa_decode(params, cache: KVCache, x, pos, cfg: ModelConfig, *,
     pos = operator.index(pos)
     B = x.shape[0]
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    G = H // KH
     L = cache.k.shape[1]
     windowed = _is_windowed(cfg, layer_kind, long_mode)
     if pos < 0 or (not windowed and pos >= L):
@@ -174,14 +191,35 @@ def gqa_decode(params, cache: KVCache, x, pos, cfg: ModelConfig, *,
     q = linear(params["wq"], x).reshape(B, 1, H, hd)
     k = linear(params["wk"], x).reshape(B, 1, KH, hd)
     v = linear(params["wv"], x).reshape(B, 1, KH, hd)
-    rpos = mrope_text_position(cfg, pos) if cfg.rope == "mrope" else pos
-    positions = torch.full((B, 1), rpos, dtype=torch.int32, device=x.device)
-    q, k = _apply_positions(cfg, q, k, positions, layer_kind=layer_kind)
+    q, k = gqa_decode_positions(cfg, q, k, pos, layer_kind=layer_kind)
+    o = gqa_decode_attend(q, k, v, cache, pos, cfg, layer_kind=layer_kind,
+                          long_mode=long_mode)
+    return linear(params["wo"], o.to(x.dtype)), cache
 
+
+def gqa_decode_positions(cfg: ModelConfig, q, k, pos: int, *,
+                         layer_kind: str):
+    """Decode's rotation of the one token's q (B,1,H,hd) and k."""
+    B = q.shape[0]
+    rpos = mrope_text_position(cfg, pos) if cfg.rope == "mrope" else pos
+    positions = torch.full((B, 1), rpos, dtype=torch.int32, device=q.device)
+    return _apply_positions(cfg, q, k, positions, layer_kind=layer_kind)
+
+
+def gqa_decode_attend(q, k, v, cache: KVCache, pos: int, cfg: ModelConfig,
+                      *, layer_kind: str = "attn", long_mode: bool = False):
+    """Write the token's rotated k and v (B,1,KH,hd) into ``cache`` and
+    attend its queries (B,1,H,hd), any H a multiple of KH: (B,1,H*hd) in
+    float32."""
+    B, _, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    L = cache.k.shape[1]
+    windowed = _is_windowed(cfg, layer_kind, long_mode)
     slot = pos % L if windowed else pos
     cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
     cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
-    idx = torch.arange(L, device=x.device)
+    idx = torch.arange(L, device=q.device)
     if windowed:
         # slot i holds absolute position pos - ((slot - i) mod L)
         age = torch.remainder(slot - idx, L)
@@ -198,8 +236,7 @@ def gqa_decode(params, cache: KVCache, x, pos, cfg: ModelConfig, *,
     p = torch.softmax(s, dim=-1)
     vf = cache.v.transpose(1, 2).to(torch.float32,
                                     memory_format=torch.contiguous_format)
-    o = (p @ vf).reshape(B, 1, H * hd).to(x.dtype)            # (B,KH,G,hd)
-    return linear(params["wo"], o), cache
+    return (p @ vf).reshape(B, 1, H * hd)                     # (B,KH,G,hd)
 
 
 # ---------------------------------------------------------------- MLA --
@@ -227,28 +264,45 @@ def _mla_qkv(params, x, positions, cfg: ModelConfig):
     """(q_nope (B,S,H,dn), q_rope (B,S,H,dr), c_kv (B,S,rank), k_rope
     (B,S,1,dr)); RoPE at the full ``dr`` on the queries and on the one
     shared key."""
-    m = cfg.mla
-    B, S, _ = x.shape
-    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
-    q = linear(params["wq_b"], rmsnorm(params["q_norm"],
-                                       linear(params["wq_a"], x)))
-    q = q.reshape(B, S, cfg.n_heads, dn + dr)
-    q_nope, q_rope = q[..., :dn], q[..., dn:]
-    kv_a = linear(params["wkv_a"], x)
-    c_kv = rmsnorm(params["kv_norm"], kv_a[..., :m.kv_lora_rank])
-    k_rope = kv_a[..., m.kv_lora_rank:].reshape(B, S, 1, dr)
-    q_rope, k_rope = rope_lib.standard_rope(q_rope, k_rope, positions,
-                                            theta=cfg.rope_theta)
+    q_lat, c_kv, k_rope = mla_latents(params, x, cfg)
+    q_nope, q_rope, k_rope = mla_heads(params, q_lat, k_rope, positions, cfg)
     return q_nope, q_rope, c_kv, k_rope
 
 
+def mla_latents(params, x, cfg: ModelConfig):
+    """The head-independent part of MLA: (the normed query latent
+    (B,S,q_rank), the normed KV latent c_kv (B,S,rank), the unrotated rope
+    key (B,S,1,dr))."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q_lat = rmsnorm(params["q_norm"], linear(params["wq_a"], x))
+    kv_a = linear(params["wkv_a"], x)
+    c_kv = rmsnorm(params["kv_norm"], kv_a[..., :m.kv_lora_rank])
+    k_rope = kv_a[..., m.kv_lora_rank:].reshape(B, S, 1, m.qk_rope_head_dim)
+    return q_lat, c_kv, k_rope
+
+
+def mla_heads(params, q_lat, k_rope, positions, cfg: ModelConfig):
+    """The heads of ``params["wq_b"]`` (all, or a model shard's) from the
+    query latent: (q_nope, q_rope, k_rope), the two rope parts rotated."""
+    m = cfg.mla
+    B, S, _ = q_lat.shape
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    q = linear(params["wq_b"], q_lat)
+    q = q.reshape(B, S, q.shape[-1] // (dn + dr), dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope, k_rope = rope_lib.standard_rope(q_rope, k_rope, positions,
+                                            theta=cfg.rope_theta)
+    return q_nope, q_rope, k_rope
+
+
 def _mla_expand_kv(params, c_kv, cfg: ModelConfig):
-    """The latents through ``wkv_b``: (k_nope (..., H, dn), v (..., H,
-    dv)) in the latents' dtype."""
+    """The latents through ``wkv_b`` (all heads, or a model shard's):
+    (k_nope (..., H, dn), v (..., H, dv)) in the latents' dtype."""
     m = cfg.mla
     kv = linear(params["wkv_b"], c_kv)
-    kv = kv.reshape(*c_kv.shape[:-1], cfg.n_heads,
-                    m.qk_nope_head_dim + m.v_head_dim)
+    dh = m.qk_nope_head_dim + m.v_head_dim
+    kv = kv.reshape(*c_kv.shape[:-1], kv.shape[-1] // dh, dh)
     return kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
 
 
@@ -257,12 +311,23 @@ def mla_forward(params, x, positions, cfg: ModelConfig, *,
     """Training/prefill MLA, query-block chunked. x: (B,S,d) -> (B,S,d)
     (and the layer's :class:`MLACache` when ``return_kv``).  Scores scale
     by ``(dn + dr) ** -0.5``."""
-    B, S, _ = x.shape
-    m = cfg.mla
-    H = cfg.n_heads
-    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
     k_nope, v = _mla_expand_kv(params, c_kv, cfg)   # (B,S,H,dn), (B,S,H,dv)
+    out = mla_attend(q_nope, q_rope, k_nope, k_rope, v, cfg, chunk_q=chunk_q)
+    out = linear(params["wo"], out.to(x.dtype))
+    if not return_kv:
+        return out
+    return out, MLACache(c_kv=c_kv.to(cfg.cdtype),
+                         k_rope=k_rope[:, :, 0].to(cfg.cdtype))
+
+
+def mla_attend(q_nope, q_rope, k_nope, k_rope, v, cfg: ModelConfig, *,
+               chunk_q: int = 512):
+    """Chunked causal MLA attention of H heads (all, or a model shard's):
+    (B,S,H*dv) float32."""
+    B, S, H, dn = q_nope.shape
+    m = cfg.mla
+    dr, dv = m.qk_rope_head_dim, m.v_head_dim
     scale = (dn + dr) ** -0.5
     C = min(chunk_q, S)
     while S % C:
@@ -272,22 +337,17 @@ def mla_forward(params, x, positions, cfg: ModelConfig, *,
     vf = v.to(torch.float32).transpose(1, 2)                 # (B,H,S,dv)
     qn = q_nope.to(torch.float32).transpose(1, 2)            # (B,H,S,dn)
     qr = q_rope.to(torch.float32).transpose(1, 2)            # (B,H,S,dr)
-    kv_pos = torch.arange(S, device=x.device)
+    kv_pos = torch.arange(S, device=q_nope.device)
     outs = []
     for start in range(0, S, C):
-        q_pos = start + torch.arange(C, device=x.device)
+        q_pos = start + torch.arange(C, device=q_nope.device)
         s = (qn[:, :, start:start + C] @ knt
              + qr[:, :, start:start + C] @ krt) * scale      # (B,H,C,S)
         s = torch.where(kv_pos[None, :] <= q_pos[:, None], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         # the reference rounds p to the compute dtype before the PV matmul
         outs.append(p.to(v.dtype).to(torch.float32) @ vf)   # (B,H,C,dv)
-    out = torch.cat(outs, dim=2).transpose(1, 2).reshape(B, S, H * dv)
-    out = linear(params["wo"], out.to(x.dtype))
-    if not return_kv:
-        return out
-    return out, MLACache(c_kv=c_kv.to(cfg.cdtype),
-                         k_rope=k_rope[:, :, 0].to(cfg.cdtype))
+    return torch.cat(outs, dim=2).transpose(1, 2).reshape(B, S, H * dv)
 
 
 class MLACache(NamedTuple):
@@ -316,18 +376,34 @@ def mla_decode(params, cache: MLACache, x, pos, cfg: ModelConfig, **_):
     raises."""
     pos = operator.index(pos)
     B = x.shape[0]
-    m = cfg.mla
-    H = cfg.n_heads
-    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     L = cache.c_kv.shape[1]
     if not 0 <= pos < L:
         raise IndexError(f"decode position {pos} outside the linear cache's "
                          f"{L} slots")
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
+    mla_cache_write(cache, c_kv, k_rope, pos)
+    o = mla_decode_attend(params, cache, q_nope, q_rope, pos, cfg)
+    return linear(params["wo"], o.to(x.dtype)), cache
+
+
+def mla_cache_write(cache: MLACache, c_kv, k_rope, pos: int):
+    """The token's latent (B,1,rank) and rotated rope key (B,1,1,dr) into
+    slot ``pos``."""
     cache.c_kv[:, pos] = c_kv[:, 0].to(cache.c_kv.dtype)
     cache.k_rope[:, pos] = k_rope[:, 0, 0].to(cache.k_rope.dtype)
-    valid = torch.arange(L, device=x.device) <= pos
+
+
+def mla_decode_attend(params, cache: MLACache, q_nope, q_rope, pos: int,
+                      cfg: ModelConfig):
+    """The token's queries (B,1,H,dn|dr) of the heads of
+    ``params["wkv_b"]`` (all, or a model shard's) against the cache:
+    (B,1,H*dv) float32, absorbed or expanded as ``cfg.mla.absorb``."""
+    B, _, H, dn = q_nope.shape
+    m = cfg.mla
+    dr, dv = m.qk_rope_head_dim, m.v_head_dim
+    L = cache.c_kv.shape[1]
+    valid = torch.arange(L, device=q_nope.device) <= pos
     scale = (dn + dr) ** -0.5
     qn = q_nope[:, 0].to(torch.float32)                      # (B,H,dn)
     qr = q_rope[:, 0].to(torch.float32)                      # (B,H,dr)
@@ -357,5 +433,4 @@ def mla_decode(params, cache: MLACache, x, pos, cfg: ModelConfig, **_):
                                   memory_format=torch.contiguous_format)
         del v
         o = (p[:, :, None] @ vf)[:, :, 0]                       # (B,H,dv)
-    o = o.reshape(B, 1, H * dv).to(x.dtype)
-    return linear(params["wo"], o), cache
+    return o.reshape(B, 1, H * dv)

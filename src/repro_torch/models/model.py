@@ -295,12 +295,21 @@ def forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
     return (logits, caches) if want_cache else logits
 
 
-def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
+def _sharded(tp) -> bool:
+    return tp is not None and tp.size > 1
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False,
+            tp=None):
     """batch: {"tokens": (B,S), optional "frontend_embeds" (B, n, d)}.
     Next-token cross entropy (+ the MoE's aux losses, weighted by
     ``router_aux_weight``).  Returns (loss, metrics): ``nll``,
     ``load_balance`` and ``router_z`` (zeros for the dense family), as the
-    reference's."""
+    reference's.  Over a model axis ``tp`` of size > 1, ``params`` is the
+    list of the local shards' trees (``models.tensor_parallel``)."""
+    if _sharded(tp):
+        from . import tensor_parallel
+        return tensor_parallel.loss_fn(params, batch, cfg, tp, remat=remat)
     tokens = batch["tokens"]
     logits, aux, _ = _forward(params, tokens, cfg,
                               frontend_embeds=batch.get("frontend_embeds"),
@@ -322,7 +331,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
 # ------------------------------------------------------------ serve paths --
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
-                long_mode: bool = False, device=None):
+                long_mode: bool = False, device=None, tp=None):
     """Zero caches, one a block of the unit pattern, each leaf stacked
     over the units on ``device`` (None = the card; ``"meta"`` for shapes
     only): a :class:`~repro_torch.models.attention.KVCache` ``(n_units,
@@ -330,8 +339,14 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
     mamba block ``{"ssm": SSMCache}`` and, where the shared attention
     follows, ``"shared": KVCache``.  The reference broadcasts one unit's
     zeros; these are allocated whole, since decode writes them in
-    place."""
+    place.  Over a model axis ``tp`` of size > 1: one tree per local
+    shard."""
     device = resolve_device(device)
+    if _sharded(tp):
+        from . import tensor_parallel
+        return tensor_parallel.init_caches(cfg, batch, seq_len, tp,
+                                           long_mode=long_mode,
+                                           device=device)
     pattern, n_units = cfg.unit_pattern()
     lead = (n_units,)
 
@@ -355,12 +370,18 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
 
 
 def decode_step(params, caches, token, pos, cfg: ModelConfig, *,
-                long_mode: bool = False):
+                long_mode: bool = False, tp=None):
     """The serve step: one new token per sequence against the caches.
 
     token: (B, 1) int; pos: the current position, a Python int.  Writes
     each layer's K/V, latents or SSM state into ``caches`` in place and
-    returns (logits (B, 1, V) float32, caches)."""
+    returns (logits (B, 1, V) float32, caches).  Over a model axis ``tp``
+    of size > 1, ``params`` and ``caches`` are lists of the local shards'
+    trees."""
+    if _sharded(tp):
+        from . import tensor_parallel
+        return tensor_parallel.decode_step(params, caches, token, pos, cfg,
+                                           tp, long_mode=long_mode)
     pattern, n_units = cfg.unit_pattern()
     B = token.shape[0]
     h = embed(params["embed"], token).to(cfg.cdtype)
@@ -399,14 +420,21 @@ def decode_step(params, caches, token, pos, cfg: ModelConfig, *,
 
 
 def prefill(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
-            max_len: int | None = None):
+            max_len: int | None = None, tp=None):
     """Forward pass + cache construction for the decode that follows.
 
     Returns (last-position logits (B,1,V), caches, aux).  The caches are
     each block's post-rope K/V, MLA latents or final SSM state from the
     forward pass, so ``decode_step`` continues exactly; ``max_len`` pads
     the linear caches with decode headroom.  ``aux`` holds the MoE's
-    router losses (zeros for the dense family)."""
+    router losses (zeros for the dense family).  Over a model axis ``tp``
+    of size > 1, ``params`` is the list of the local shards' trees and the
+    caches are one tree per shard."""
+    if _sharded(tp):
+        from . import tensor_parallel
+        return tensor_parallel.prefill(params, tokens, cfg, tp,
+                                       frontend_embeds=frontend_embeds,
+                                       max_len=max_len)
     logits, aux, caches = _forward(params, tokens, cfg,
                                    frontend_embeds=frontend_embeds,
                                    want_cache=True)

@@ -82,15 +82,18 @@ def router_probs(p, x, cfg: ModelConfig):
     return top_p, ids, {"load_balance": lb, "router_z": z}
 
 
-def moe_forward_dense(p, x, cfg: ModelConfig):
-    """Exact dense-dispatch MoE. x: (B, S, D)."""
+def moe_forward_dense(p, x, cfg: ModelConfig, *, experts=None):
+    """Exact dense-dispatch MoE. x: (B, S, D).  ``experts(h)`` maps (E, T,
+    D) to the experts' outputs (default: ``p``'s experts on one device;
+    under expert parallelism, the shards' experts gathered)."""
+    experts = experts or (lambda h: _expert_ffn(p, h, cfg))
     e = cfg.moe
     B, S, D = x.shape
     xf = x.reshape(-1, D)
     T = xf.shape[0]
     top_p, ids, aux = router_probs(p, xf, cfg)
     # every expert on every token: (E, T, D)
-    out_all = _expert_ffn(p, xf[None].expand(e.n_experts, T, D), cfg)
+    out_all = experts(xf[None].expand(e.n_experts, T, D))
     rows = torch.arange(T, device=x.device)[:, None].expand_as(ids)
     w = torch.zeros((T, e.n_experts), dtype=torch.float32,
                     device=x.device).index_put_((rows, ids), top_p,
@@ -146,8 +149,10 @@ def combine(contrib, order, n_tokens: int):
     return out
 
 
-def moe_forward_capacity(p, x, cfg: ModelConfig):
-    """Sort-based static-capacity MoE. x: (B, S, D)."""
+def moe_forward_capacity(p, x, cfg: ModelConfig, *, experts=None):
+    """Sort-based static-capacity MoE. x: (B, S, D); ``experts`` as in
+    :func:`moe_forward_dense`, on the (E, C, D) slots."""
+    experts = experts or (lambda h: _expert_ffn(p, h, cfg))
     e = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -163,7 +168,7 @@ def moe_forward_capacity(p, x, cfg: ModelConfig):
     tok_table[slot] = t_s
     xpad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
     buf = xpad[tok_table[:E * C]]
-    out_buf = _expert_ffn(p, buf.reshape(E, C, D), cfg).reshape(E * C, D)
+    out_buf = experts(buf.reshape(E, C, D)).reshape(E * C, D)
     # combine back: gather slot outputs, weight, sum over the K choices
     contrib = torch.where(keep[:, None],
                           out_buf[torch.clamp(slot, max=E * C - 1)], 0.0) \
@@ -172,7 +177,7 @@ def moe_forward_capacity(p, x, cfg: ModelConfig):
     return out.reshape(B, S, D).to(x.dtype), aux
 
 
-def moe_forward(p, x, cfg: ModelConfig):
+def moe_forward(p, x, cfg: ModelConfig, *, experts=None):
     if cfg.moe.impl == "dense":
-        return moe_forward_dense(p, x, cfg)
-    return moe_forward_capacity(p, x, cfg)
+        return moe_forward_dense(p, x, cfg, experts=experts)
+    return moe_forward_capacity(p, x, cfg, experts=experts)

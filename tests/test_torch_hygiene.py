@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``repro_torch``, nor ``chip_smoke.py``
-nor the port's example, imports ``jax`` or the JAX package ``repro``."""
+nor the port's examples, imports ``jax`` or the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -10,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "train_lm_mesh_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

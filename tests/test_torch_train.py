@@ -173,7 +173,9 @@ def test_train_steps_match_reference(ref):
     one on a lane: a *support swap*.  It moves that coordinate's update by
     that lane's share of the mean, ``a / W`` with ``a = |m * u + lr * g|``
     on the lane, whether or not another lane selects it too, and that
-    lane's velocity by ``a``.  A coordinate outside the atol must be one:
+    lane's velocity by ``a (1/m - 1)``: SAMomentum keeps a sent
+    coordinate's accumulation and divides an unsent one's by m.  A
+    coordinate outside the atol must be one:
     the difference is one lane's share (to 1e-3 relative), and that lane
     lay within ``TIE`` (relative) of its row's selection boundary, where
     the reference's accumulation differs by rounding alone (measured on
@@ -216,15 +218,15 @@ def _swaps(diff, lanes, scale, what):
     return int(bad.sum())
 
 
-def _steps_match_reference(ref, arch, steps=STEPS):
-    """Hold the port's steps on a ``LaneMesh(4)`` to the reference's
-    under the support-swap rule; returns the leaves' paths and how many
-    parameters each excused over the steps."""
+def _steps_match_reference(ref, arch, steps=STEPS, mesh=None):
+    """Hold the port's steps on ``mesh`` (default a ``LaneMesh(4)``) to
+    the reference's under the support-swap rule; returns the leaves' paths
+    and how many parameters each excused over the steps."""
     cfg = dataclasses.replace(get_arch(arch).reduced(),
                               compute_dtype="float32")
     ex_cfg = ExchangeConfig(mode="allgather", density=0.05, momentum=0.9,
                             engine="exact")
-    step = build_train_step(cfg, LaneMesh(4, "cpu"), ex_cfg, lr=LR,
+    step = build_train_step(cfg, mesh or LaneMesh(4, "cpu"), ex_cfg, lr=LR,
                             remat=False)
     W = step.mesh.size
     batches = [{"tokens": torch.from_numpy(ref["tokens"][i])}
@@ -261,12 +263,14 @@ def _steps_match_reference(ref, arch, steps=STEPS):
             name = f"step {i} {'/'.join(path)}"
             diff = ((x - want[i][j]) - (want[i + 1][j] - want[i][j])).abs()
             excused[path] += _swaps(diff.numpy(), lanes[j], W, name)
-            # on its lane a swap resets the velocity in one run only
+            # on its lane a swap keeps the accumulation a in one run and
+            # divides it by m in the other
             vdiff = (v - torch.from_numpy(
                 ref[f"v{i + 1}/" + "/".join(path)])).abs().numpy()
+            m = ex_cfg.momentum
             for lane in range(W):
                 _swaps(vdiff[lane], (lanes[j][0][lane], lanes[j][1][lane]),
-                       1.0, f"{name} velocity lane {lane}")
+                       m / (1.0 - m), f"{name} velocity lane {lane}")
     total = sum(x.numel() for x in want[0])
     print(f"support swaps outside the atol: {sum(excused.values())} of "
           f"{total} parameters over {steps} steps: "
