@@ -245,8 +245,33 @@ exits nonzero and prints no result line):
   ``launch.train --devices 8`` and ``launch.serve --role decode
   --devices 4``; both exit 0 and name their meshes.
 
-The kernel rows carry ``launches_m_per_step`` (M1 at model size 2) beside
-their other counts.  The last two lines are the kernel table and the
+* n -- the model axis at the production meshes' model size 16, the
+  examples, the roofline and the dry run.  N1 trains mamba2-780m and
+  minicpm3-4b at their published widths and vocabularies (2 layers each;
+  16 divides neither 50,280 nor 73,448, so the embedding goes on d and
+  the head is whole; minicpm3's 40 MLA heads do not split over 16 either)
+  on ``LaneMesh(2, model=16)`` and ``LaneMesh(2, model=1)``, 2 blockwise
+  allgather steps each (the split, peak, launches; rows 1-4a must launch
+  at 16), then M1's float32 gates at 16 against 1 (the model-1 step cut
+  as the model-16 one); prefill of I1's prompt and 64 greedy tokens on
+  ``LaneMesh(1, model=16)`` against ``(1, model=1)`` under I3's gates, ms
+  a step and peak of each; and ``_train_gates`` at model 16 on reduced
+  models of the same layout (rows 1-4b bit-equal to their plain
+  versions).  N2 runs ``examples/federated_noniid_torch.py``,
+  ``serve_decode_torch.py`` and ``bandwidth_study_torch.py --quick`` on
+  the card at once: each exits 0 (federated's bytes are its frames',
+  serve_decode's replica and delta chain bit-identical to the server),
+  their launch counts printed.  N3 holds ``launch/dryrun.reckon`` of M2's
+  problem to the 2,946,615,296 bytes of M2's shards and to every M2
+  rank's measured resident bytes (within 1%), ``FlopCounterMode`` on the
+  meta device to its count on the card for H1's gradients, and prints
+  H1's step beside the roofline's three terms (``launch/roofline.py``,
+  whose H100 constants this script reads), ``model_flops / (step s x
+  peak)`` under 1.05.
+
+The kernel rows carry ``launches_m_per_step`` (M1 at model size 2),
+``launches_n1_per_step`` (N1 at 16) and ``launches_n2`` (the examples)
+beside their other counts.  The last two lines are the kernel table and the
 result, each one JSON object.
 """
 from __future__ import annotations
@@ -262,9 +287,6 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-# device memory rate by card, bytes/s (NVIDIA data sheets)
-HBM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12,
-            "H200": 4.8e12}
 
 
 NAN_BITS = 0x7FC00000      # the canonical float32 NaN
@@ -275,10 +297,11 @@ def log(*args):
 
 
 def card_rate(name: str) -> float:
-    for key in sorted(HBM_RATE, key=len, reverse=True):
-        if key in name:
-            return HBM_RATE[key]
-    raise RuntimeError(f"no memory rate known for {name!r}")
+    """The card's memory rate (``repro_torch.launch.roofline.HBM_RATE``;
+    ``scripts/chip_kernel_ab.py`` reads it here in every checkout)."""
+    from repro_torch.launch.roofline import hbm_rate
+
+    return hbm_rate(name)
 
 
 class Timer:
@@ -2739,30 +2762,13 @@ def _h_exchange(mode: str, **kw):
                           engine="blockwise", **kw)
 
 
-def _wire_bytes(step, params) -> int:
-    """The bytes one worker receives per step on a wire, from the static
-    k's of the exchange's own cut (``distributed.leaf_cut``): allgather
-    W * k * 8 (a float32 value and an int32 index an entry, k_row * S for a
-    leaf of S rows), shardedps S * (W * cap + W * k2) * 8, dense 4 * P."""
-    from repro_torch.core.distributed import leaf_cut
-    from repro_torch.core.paramspace import tree_leaves
-
-    ex, W, total = step.ex_cfg, step.mesh.size, 0
-    for p, ax in zip(tree_leaves(params), step.hints):
-        if ex.mode == "dense":
-            total += 4 * p.numel()
-            continue
-        c = leaf_cut(p.shape, ax, ex, W)
-        total += (W * c.S * c.k_row * 8 if ex.mode == "allgather"
-                  else c.S * (W * c.cap + W * c.k2) * 8)
-    return total
-
-
 def _h_run(torch, label, cfg, mesh, ex_cfg, stream, steps, card):
     """``steps`` train steps from the seed-0 parameters, each split into
     gradients, exchange and update by CUDA events.  Returns (params,
     state, losses, launches, step)."""
     from repro_torch import kernels
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.launch.roofline import wire_bytes
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.model import init_params
 
@@ -2805,11 +2811,12 @@ def _h_run(torch, label, cfg, mesh, ex_cfg, stream, steps, card):
         f"[{card}]")
     log(f"  {label}: launches per step "
         f"{ {k: v / steps for k, v in launches.items()} }")
+    shapes = [p.shape for p in tree_leaves(params)]
     log(f"  {label}: wire bytes per worker and step "
-        f"{_wire_bytes(step, params)} (static k's)")
+        f"{wire_bytes(step.ex_cfg, step.mesh.size, shapes, step.hints)} "
+        f"(static k's)")
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"{label}: non-finite loss {losses}")
-    from repro_torch.core.paramspace import tree_leaves
     for p in tree_leaves(params):
         if not bool(torch.isfinite(p).all()):
             raise AssertionError(f"{label}: non-finite parameter")
@@ -3277,7 +3284,6 @@ I2_CELLS = (("chatglm3-6b", "decode_32k", 2, None),
             ("gemma3-12b", "decode_32k", 6, 16))
 I3_BATCH, I3_PROMPT, I3_STEPS = 4, 60, 16
 I3_MARGIN = {"float32": 1e-3, "bfloat16": 5e-2}
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 
 
 def _cache_leaves(caches) -> list:
@@ -3311,6 +3317,7 @@ def _decode_bound(cfg, params, caches, batch, pos, long_mode, rate,
     those experts' are read and only the kept pairs multiplied (the work
     this run's data needs); the router multiplies in float32."""
     from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.launch.roofline import PEAK_FLOPS
     from repro_torch.models.attention import _is_windowed
 
     pattern, n_units = cfg.unit_pattern()
@@ -4020,7 +4027,8 @@ def phase_j3_train(torch, results):
 
 def _train_gates(torch, cfg, label, model: int = 1):
     """One train step of ``cfg`` (a reduced model, float32) on 4 lanes
-    (W = 4 data workers, or 4 / ``model`` each of ``model`` shards), batch
+    (W = 4 data workers, or 4 / ``model`` each of ``model`` shards, at
+    least one), batch
     16 x 128 (and a modality family's frontend embeddings),
     the card against the CPU from the same numpy weights and batch.  The
     blockwise allgather step end to end on the card launches rows 1-4b
@@ -4040,6 +4048,7 @@ def _train_gates(torch, cfg, label, model: int = 1):
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.model import init_params
 
+    W = max(1, H_W // model)
     leaves, paths = tree_flatten(init_params(cfg, seed=0, device="cpu"))
     leaves_np = [x.numpy() for x in leaves]
     tokens = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
@@ -4056,8 +4065,7 @@ def _train_gates(torch, cfg, label, model: int = 1):
     def setup(engine, dev):
         ex_cfg = ExchangeConfig(mode="allgather", density=H_DENSITY,
                                 momentum=H_MOMENTUM, engine=engine)
-        step = build_train_step(cfg, LaneMesh(H_W // model, dev,
-                                              model=model),
+        step = build_train_step(cfg, LaneMesh(W, dev, model=model),
                                 ex_cfg, lr=H_LR, remat=False)
         params = _h2_params(torch, paths, leaves_np, dev)
         batch = {"tokens": torch.from_numpy(tokens).to(dev)}
@@ -4117,7 +4125,7 @@ def _train_gates(torch, cfg, label, model: int = 1):
         diff = np.abs(after["cuda"][j] - after["cpu"][j])
         bad = diff > 1e-5
         gap = lanes[j][0][:, bad]
-        acc = lanes[j][1][:, bad] / (H_W // model)
+        acc = lanes[j][1][:, bad] / W
         share = np.abs(diff[bad] - acc) <= 1e-3 * acc + 1e-6
         ok = ((gap <= H_TIE) & share).any(0)
         if not ok.all():
@@ -4665,16 +4673,17 @@ M_PREDICTION = (
     "gates; M4 exit 0; phase M 60-140 s")
 
 
-def phase_m(torch, results, card):
+def phase_m(torch, results, card, ref):
     """The model axis: M1 chatglm3-6b at full width on LaneMesh(2,
     model=2) against model size 1; M2 four gloo ranks on the card against
-    the lanes; M3 prefill and decode at model size 2; M4 the launchers."""
+    the lanes (their resident bytes left in ``ref`` for phase N3); M3
+    prefill and decode at model size 2; M4 the launchers."""
     log(f"  M prediction: {M_PREDICTION}")
     phase_m1(torch, results, card)
     torch.cuda.empty_cache()
     phase_m1b(torch)
     torch.cuda.empty_cache()
-    phase_m2(torch)
+    phase_m2(torch, ref)
     torch.cuda.empty_cache()
     phase_m3(torch, card)
     torch.cuda.empty_cache()
@@ -4719,7 +4728,17 @@ def phase_m1(torch, results, card):
               stream)
 
 
-def _m1_gates(torch, cfg, stream):
+def _m1_gates(torch, cfg, stream, model: int = 2, W: int = 2,
+              n_steps: int = M_STEPS, label: str = "M1"):
+    """``n_steps`` steps of ``cfg`` (float32), each from model size 1's
+    state, on ``LaneMesh(W, model=model)`` and ``LaneMesh(W, model=1)``
+    under H2a's gates with ``M_TIE`` (phase M1's docstring).  The model-1
+    step cuts every leaf as the model-``model`` step does (its hints: at
+    16 an embedding whose vocabulary does not split is cut on d, at 1 on
+    V), so the gates hold the sharded forward and backward, not another
+    selection."""
+    import dataclasses
+
     from repro_torch.core.distributed import leaf_cut
     from repro_torch.core.engine import velocity_accumulate
     from repro_torch.core.paramspace import tree_flatten, tree_unflatten
@@ -4727,9 +4746,10 @@ def _m1_gates(torch, cfg, stream):
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.model import init_params
 
-    steps = {m: build_train_step(cfg, LaneMesh(2, "cuda", model=m),
+    steps = {m: build_train_step(cfg, LaneMesh(W, "cuda", model=m),
                                  _h_exchange("allgather"), lr=H_LR,
-                                 remat=False) for m in (1, 2)}
+                                 remat=False) for m in (model, 1)}
+    steps[1] = dataclasses.replace(steps[1], hints=steps[model].hints)
     one = steps[1]
     W, mom = one.mesh.size, H_MOMENTUM
     params = init_params(cfg, seed=0, device="cuda")
@@ -4763,26 +4783,26 @@ def _m1_gates(torch, cfg, stream):
                        [float(a[no][q] * share) for a in lane_a])
                       for q in range(min(4, int(no.sum())))]
             raise AssertionError(
-                f"M1: {what}: {int(no.sum())} of {n} coordinates outside "
+                f"{label}: {what}: {int(no.sum())} of {n} coordinates outside "
                 f"atol 1e-5 are no swap: (diff, the lanes' distances from "
                 f"the boundary, the lanes' shares) {detail}")
         return n
 
     tie = [0.0]
-    for i in range(M_STEPS):
+    for i in range(n_steps):
         batch = stream.batch(i)
         grads, _ = one.grads(params, batch)
         before_v = [x.clone() for x in tree_flatten(state.velocity)[0]]
         runs = {}
-        for m in (2, 1):
+        for m in (model, 1):
             p, st = clone(params), state._replace(
                 velocity=clone(state.velocity))
             p, st, loss = steps[m](p, st, batch)
             runs[m] = (p, st, float(loss))
-        np.testing.assert_allclose(runs[2][2], runs[1][2], rtol=1e-4)
+        np.testing.assert_allclose(runs[model][2], runs[1][2], rtol=1e-4)
         for j, (x2, x1, v2, v1, u0, g, ax) in enumerate(zip(
-                tree_flatten(runs[2][0])[0], tree_flatten(runs[1][0])[0],
-                tree_flatten(runs[2][1].velocity)[0],
+                tree_flatten(runs[model][0])[0], tree_flatten(runs[1][0])[0],
+                tree_flatten(runs[model][1].velocity)[0],
                 tree_flatten(runs[1][1].velocity)[0], before_v,
                 tree_flatten(grads)[0], one.hints)):
             dp, dv = (x2 - x1).abs(), (v2 - v1).abs()
@@ -4816,14 +4836,15 @@ def _m1_gates(torch, cfg, stream):
         params, state = runs[1][0], runs[1][1]
         del runs, grads, before_v
         torch.cuda.empty_cache()
-    log(f"  M1 gates (float32 compute, {M_STEPS} steps each from model size "
+    log(f"  {label} gates (float32 compute, model size {model} on {W} "
+        f"lanes, {n_steps} steps each from model size "
         f"1's state): losses rtol 1e-4; parameters max |diff| "
         f"{worst[0]:.3g}, velocities {worst[1]:.3g}; {excused} parameter "
         f"updates outside atol 1e-5, each a support swap within "
         f"{tie[0]:.3g} (relative) of its row's boundary, of {total} "
         f"updates")
     if excused > total // 10_000:
-        raise AssertionError(f"M1: {excused} support swaps")
+        raise AssertionError(f"{label}: {excused} support swaps")
 
 
 def phase_m1b(torch):
@@ -4902,7 +4923,7 @@ def m2_rank(rank: int, world: int, init_method: str, out: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def phase_m2(torch):
+def phase_m2(torch, ref):
     """Four processes on the one card, a (2 data, 2 model) ProcessMesh
     over gloo (staged operands), 3 allgather steps of chatglm3-6b at full
     width, 1 layer: each rank's shards of the parameters and of its
@@ -4953,6 +4974,7 @@ def phase_m2(torch):
             raise AssertionError(f"M2: rank {r['cell']} holds "
                                  f"{r['resident']} bytes, not its shards' "
                                  f"{r['reckoned']}")
+    ref["m2_resident"] = [r["resident"] for r in ranks]
     torch.cuda.reset_peak_memory_stats()
     losses, _, resident, reckoned, params, state, specs = _m2_problem(
         torch, LaneMesh(2, "cuda", model=2))
@@ -4979,11 +5001,13 @@ def phase_m2(torch):
         "full-width one-layer step at model size 4: unverified (one card)")
 
 
-def _m_generate(torch, cfg, label, model):
+def _m_generate(torch, cfg, label, model, keep: bool = False):
     """``cfg`` on LaneMesh(1, model=model): prefill I1's prompt (B 16 x
     1,024) through ``build_prefill_step`` and 64 greedy decode steps
     through ``build_serve_step``: prefill ms and decode ms a step (median,
-    CUDA events), peak memory; finite logits, ids in range."""
+    CUDA events), peak memory; finite logits, ids in range.  Returns the
+    median ms, and with ``keep`` each step's last-position logits (B, V)
+    float32 on the host."""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch.mesh import LaneMesh
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
@@ -5010,6 +5034,7 @@ def _m_generate(torch, cfg, label, model):
         pre_ms.append(ev[0].elapsed_time(ev[1]))
     tokens = [logits[:, -1].argmax(-1)]
     finite = [torch.isfinite(logits).all()]
+    seq = [logits[:, -1].float()] if keep else []
     events = []
     for t in range(I_GEN - 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -5020,6 +5045,8 @@ def _m_generate(torch, cfg, label, model):
         events.append(ev)
         tokens.append(logits[:, 0].argmax(-1))
         finite.append(torch.isfinite(logits).all())
+        if keep:
+            seq.append(logits[:, 0].float())
     torch.cuda.synchronize()
     step_ms = [a.elapsed_time(b) for a, b in events]
     out = torch.stack(tokens, dim=1).cpu()
@@ -5031,6 +5058,8 @@ def _m_generate(torch, cfg, label, model):
             or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"{label} model={model}: non-finite logits or "
                              f"ids out of range")
+    if keep:
+        return statistics.median(step_ms), [x.cpu() for x in seq]
     return statistics.median(step_ms)
 
 
@@ -5090,6 +5119,273 @@ def phase_m4():
     _check_decode_rows("M4 serve", out, "chatglm3-6b")
 
 
+# ---------------------------------------------------------------------------
+# phase N: the embedding on d at model size 16, the examples, the roofline
+# and the dry run
+# ---------------------------------------------------------------------------
+
+N_MODEL = 16        # the model size of the reference's production meshes
+N_W = 2             # N1's data lanes: at 16 shards memory allows 2
+N_STEPS = 2
+# (arch, layers of the published depth): their vocabularies (50,280;
+# 73,448) do not split over 16 shards, so the spec puts the embedding on d
+N1_FAMILIES = (("mamba2-780m", 2), ("minicpm3-4b", 2))
+N2_EXAMPLES = (("federated_noniid_torch.py", []),
+               ("serve_decode_torch.py", []),
+               ("bandwidth_study_torch.py", ["--quick"]))
+M2_RECKONED = 2_946_615_296     # phase M2's rank: its shards' bytes
+N_PREDICTION = (
+    "N1 mamba2-780m and minicpm3-4b (2 layers each, embedding on d, "
+    "minicpm3's 40 MLA heads gathered whole) on LaneMesh(2, model=16) "
+    "against model=1: a train step 1.5-4x model 1's ms (16 shards' small "
+    "GEMMs on lanes, host-bound), peak +10-40%; float32 within M1's gates "
+    "(swaps within M_TIE, at most 1 in 10,000); decode 3-10x model 1's ms "
+    "a step (16x the launches of a sharded block), prefill 1-3x; greedy "
+    "tokens under I3's bf16 gate; rows 1-4b bit-equal to their plain "
+    "versions at model 16. N2 the three examples exit 0 together in 15-40 "
+    "s, federated's bytes its frames', serve_decode's replica and chain "
+    "bit-identical; launches: federated rows 1 and 5 (int8 up), "
+    "serve_decode row 1, bandwidth rows 1, 5 and 6 (tern). N3 the dryrun "
+    "reckons M2's rank at exactly 2,946,615,296 bytes, every M2 rank "
+    "within 1% of it; FlopCounterMode on meta equals the card's count; "
+    "H1's step (~370 ms) against a compute term of ~12 ms and a memory "
+    "term of ~11 ms, model_flops over step x peak ~0.03; phase N 60-150 s")
+
+
+def phase_n(torch, results, card, ref):
+    """N1 the embedding split on d at model size 16 (mamba2-780m,
+    minicpm3-4b at their published widths); N2 the three examples on the
+    card; N3 the roofline and the dryrun against the card."""
+    log(f"  N prediction: {N_PREDICTION}")
+    phase_n1(torch, results, card)
+    torch.cuda.empty_cache()
+    phase_n2(results)
+    torch.cuda.empty_cache()
+    phase_n3(torch, card, ref)
+
+
+def _n1_small(arch):
+    """``arch`` reduced at d 1,024 and vocabulary 1,000 (which 16 does not
+    divide, so the embedding goes on d), float32; minicpm3 at 8 MLA heads,
+    which do not split over 16 either."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch).reduced(d_model=1024, vocab=1000)
+    if cfg.attention == "mla":
+        cfg = dataclasses.replace(cfg, n_heads=8)
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+def phase_n1(torch, results, card):
+    """Each of N1_FAMILIES at its published widths and vocabulary (2
+    layers): N_STEPS blockwise allgather train steps (bf16) on
+    LaneMesh(N_W, model=16) and on LaneMesh(N_W, model=1), the split, peak
+    and launches of each (rows 1-4a must launch at 16); then M1's float32
+    gates over N_STEPS steps at model 16 against 1; prefill of I1's
+    prompt and 64 greedy tokens on LaneMesh(1, model=16) and (1, model=1),
+    ms and peak of each, the model-16 run's logits and tokens held to the
+    model-1 run's under I3's gates; then ``_train_gates`` at model 16 on a
+    reduced model of the same layout (rows 1-4b on the card bit-equal to
+    their plain versions on the CPU)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.paramspace import tree_flatten
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.models.model import abstract_params
+
+    counts = {}
+    for arch, layers in N1_FAMILIES:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        specs = dict(zip(*reversed(tree_flatten(sharding.param_specs(
+            cfg, abstract_params(cfg), N_MODEL)))))
+        log(f"  N1 {arch}: vocabulary {cfg.vocab_size}, d {cfg.d_model}: "
+            f"embedding {specs[('embed', 'table')]}, lm_head "
+            f"{specs.get(('lm_head', 'w'), 'tied')} at model size "
+            f"{N_MODEL}")
+        if specs[("embed", "table")] != (None, "model"):
+            raise AssertionError(f"N1 {arch}: the embedding is not on d")
+        stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
+                             batch_size=H_BATCH, seed=0, device="cuda")
+        for model in (N_MODEL, 1):
+            label = f"N1 {arch} model={model}"
+            params, state, _, launches, _ = _h_run(
+                torch, label, cfg, LaneMesh(N_W, "cuda", model=model),
+                _h_exchange("allgather"), stream, N_STEPS, card)
+            del params, state
+            torch.cuda.empty_cache()
+            if model == N_MODEL:
+                counts[arch] = launches
+                idle = [k for k in H_ROWS if launches[k] == 0]
+                if idle:
+                    raise AssertionError(f"{label}: rows {idle} never "
+                                         f"launched")
+        _m1_gates(torch, dataclasses.replace(cfg, compute_dtype="float32"),
+                  stream, model=N_MODEL, W=N_W, n_steps=N_STEPS,
+                  label=f"N1 {arch}")
+        torch.cuda.empty_cache()
+        runs = {m: _m_generate(torch, cfg, f"N1 {arch}", m, keep=True)
+                for m in (N_MODEL, 1)}
+        torch.cuda.empty_cache()
+        label = f"N1 {arch} {cfg.compute_dtype} model={N_MODEL}"
+        agreed, worst = _greedy_compare(
+            label, runs[1][1], runs[N_MODEL][1], I3_MARGIN[cfg.compute_dtype],
+            logits_gate=cfg.compute_dtype == "float32")
+        log(f"  {label} [{card}]: decode {runs[N_MODEL][0]:.3f} ms a step at "
+            f"model size {N_MODEL}, {runs[1][0]:.3f} at 1 "
+            f"({runs[N_MODEL][0] / runs[1][0]:.3f}x); {agreed} of "
+            f"{I_BATCH * I_GEN} greedy tokens equal to model size 1's before "
+            f"the sequences' first disagreements, logits max |diff| "
+            f"{worst:.3e} over them")
+        del runs
+        _train_gates(torch, _n1_small(arch), f"N1 train {arch} reduced "
+                     f"model={N_MODEL}", model=N_MODEL)
+        torch.cuda.empty_cache()
+    for row in results:
+        row["launches_n1_per_step"] = {arch: c[row["name"]] / N_STEPS
+                                       for arch, c in counts.items()}
+
+
+def phase_n2(results):
+    """The three ``examples/*_torch.py`` on the card at their defaults
+    (the bandwidth study ``--quick``), as three processes at once: each
+    exits 0 (each checks itself: federated's measured bytes are its served
+    rounds' frames, serve_decode's replica and restored delta chain the
+    server's final arena bit for bit); their launch counters printed."""
+    import ast
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "examples" / name),
+                               *flags], cwd=ROOT, env=_child_env(),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for name, flags in N2_EXAMPLES]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=400)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    log(f"  N2: {len(procs)} examples at once, {time.perf_counter() - t0:.1f}"
+        f" s (process start-up included)")
+    launches = {}
+    for (name, _), proc, out in zip(N2_EXAMPLES, procs, outs):
+        for line in out.strip().splitlines()[-9:]:
+            log(f"  N2 {name} | {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"N2 {name}: exited {proc.returncode}")
+        counted = [line for line in out.splitlines()
+                   if line.startswith("kernel launches: ")]
+        if not counted:
+            raise AssertionError(f"N2 {name}: no launch counts printed")
+        launches[name] = ast.literal_eval(counted[-1].split(": ", 1)[1])
+    serve = outs[1]
+    for claim in ("final model bit-identical to server: True",
+                  "delta-chain restore bit-identical: True"):
+        if claim not in serve:
+            raise AssertionError(f"N2 serve_decode: no {claim!r}")
+    if "frames: " not in outs[0]:
+        raise AssertionError("N2 federated: no frame bytes printed")
+    if len([line for line in outs[2].splitlines()
+            if line.startswith("fig4/")]) != 8:
+        raise AssertionError("N2 bandwidth: not the study's 8 rows")
+    for name, counts in launches.items():
+        log(f"  N2 {name}: launches {counts}")
+    for row in results:
+        row["launches_n2"] = {name.split("_torch")[0]: counts[row["name"]]
+                              for name, counts in launches.items()}
+
+
+def phase_n3(torch, card, ref):
+    """The dryrun and the roofline against the card: ``dryrun.reckon`` of
+    M2's problem (chatglm3-6b, 1 layer, (2, 2), allgather-blockwise) must
+    give M2_RECKONED bytes of parameters, velocity and exchange state,
+    and every M2 rank's measured resident bytes must lie within 1% of it;
+    ``FlopCounterMode`` over H1's gradients on the meta device must count
+    what it counts over the real tensors on the card; H1's step (median of
+    steps 1-2, CUDA events) is printed beside the roofline's three terms,
+    and ``model_flops / (step s * peak)`` must read under 1.05."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core.paramspace import tree_leaves
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import LaneMesh, MeshShape
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import abstract_params, init_params
+
+    r = dryrun.reckon(_h_cfg(1), InputShape("m2", H_SEQ, 8, "train"),
+                      MeshShape(("data", "model"), (2, 2)),
+                      _h_exchange("allgather"), remat=False)
+    parts = r["parts"]
+    state = parts["params"] + parts["velocity"] + parts["exchange_state"]
+    log(f"  N3 dryrun of M2's problem: {parts} ({state} bytes of "
+        f"parameters, velocity and exchange state a rank)")
+    if state != M2_RECKONED:
+        raise AssertionError(f"N3: the dryrun reckons {state} bytes, M2's "
+                             f"shards hold {M2_RECKONED}")
+    if "m2_resident" not in ref:
+        raise AssertionError("N3: phase M2 left no ranks' resident bytes")
+    shares = [x / state for x in ref["m2_resident"]]
+    log(f"  N3: M2's ranks measured {ref['m2_resident']} resident bytes "
+        f"({[round(x, 5) for x in shares]} of the dryrun's) [{card}]")
+    if any(abs(x - 1) > 0.01 for x in shares):
+        raise AssertionError("N3: an M2 rank is not within 1% of the dryrun")
+
+    cfg = _h_cfg(H_LAYERS)
+    step = build_train_step(cfg, LaneMesh(H_W, "cuda"),
+                            _h_exchange("allgather"), lr=H_LR, remat=False)
+    params = init_params(cfg, seed=0, device="cuda")
+    state = step.init_state(params)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=H_SEQ,
+                         batch_size=H_BATCH, seed=0, device="cuda")
+    batch = stream.batch(0)
+    on_card = roofline.count_flops(lambda: step.grads(params, batch))
+    meta_batch = {k: v.to("meta") for k, v in batch.items()}
+    on_meta = roofline.count_flops(
+        lambda: step.grads(abstract_params(cfg), meta_batch))
+    log(f"  N3 FlopCounterMode over H1's gradients: {on_card} on the card, "
+        f"{on_meta} on the meta device")
+    if on_card != on_meta:
+        raise AssertionError("N3: the meta count differs from the card's")
+    ms = []
+    for i in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, state, _ = step(params, state, stream.batch(i))
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    step_s = statistics.median(ms[1:]) / 1e3
+    resident = sum(x.numel() * x.element_size() for x in
+                   tree_leaves(params) + tree_leaves(state.velocity))
+    shapes = [p.shape for p in tree_leaves(params)]
+    shape = InputShape("h1", H_SEQ, H_BATCH, "train")
+    rep = roofline.report(
+        arch=cfg.name, shape=shape, mesh_name=f"LaneMesh({H_W})", cfg=cfg,
+        n_devices=1, flops=on_card,
+        nbytes=2 * resident + batch["tokens"].numel() * 4,
+        wire=roofline.wire_bytes(step.ex_cfg, H_W, shapes, step.hints),
+        collective_counts={})
+    share = rep.model_flops / (step_s * roofline.PEAK_FLOPS[
+        cfg.compute_dtype])
+    log(f"  N3 H1 [{card}]: step {step_s * 1e3:.3f} ms (median of steps 1-2,"
+        f" CUDA events; {[round(x, 3) for x in ms]}); roofline at the H100 "
+        f"SXM peaks: compute {rep.compute_s * 1e3:.3f} ms ({on_card:.4e} "
+        f"FLOPs at {cfg.compute_dtype}), memory {rep.memory_s * 1e3:.3f} ms "
+        f"(a lower bound of {2 * resident} bytes), collective "
+        f"{rep.collective_s * 1e3:.3f} ms ({rep.wire_bytes_per_device:.4e} "
+        f"wire bytes a worker, NVLink 4 each way); model_flops "
+        f"{rep.model_flops:.4e} / (step s x peak) = {share:.4f}")
+    if not share < 1.05:
+        raise AssertionError(f"N3: model_flops share {share} above 1.05")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5142,7 +5438,9 @@ def main() -> int:
                       ("l", lambda: phase_l(torch, results,
                                             smi.stdout.strip(), rate)),
                       ("m", lambda: phase_m(torch, results,
-                                            smi.stdout.strip()))):
+                                            smi.stdout.strip(), ref)),
+                      ("n", lambda: phase_n(torch, results,
+                                            smi.stdout.strip(), ref))):
         log(f"== phase {phase}")
         t0 = time.perf_counter()
         try:

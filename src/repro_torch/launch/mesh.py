@@ -46,6 +46,7 @@ mirror as the backward:
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -382,6 +383,43 @@ def init_process_mesh(rank: int, world_size: int, init_method: str,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
     return ProcessMesh(device=device, model=model)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes only: no lanes, no processes, no
+    device.  ``size`` is its data workers (the ``"pod"`` and ``"data"``
+    axes folded, as :func:`make_mesh` folds them), ``model_size`` its
+    ``"model"`` axis."""
+
+    axes: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axes, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(n for a, n in zip(self.axes, self.sizes)
+                         if a in ("pod", "data"))
+
+    @property
+    def model_size(self) -> int:
+        return self.shape.get("model", 1)
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.sizes)
+
+
+def production_mesh_shape(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production meshes (``make_production_mesh``): one
+    pod of (16 data, 16 model), or two of them, (2 pod, 16 data, 16
+    model)."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
 
 
 def make_mesh(shape, axes, device=None) -> LaneMesh:

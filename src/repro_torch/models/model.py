@@ -299,6 +299,16 @@ def _sharded(tp) -> bool:
     return tp is not None and tp.size > 1
 
 
+def next_token_nll(logits, tgt):
+    """The mean cross entropy of float32 logits (B, S, V) against the
+    targets (B, S) int64."""
+    lse = torch.logsumexp(logits, dim=-1)
+    # the target logit by a gather: the reference's one-hot sum has the
+    # same value for finite logits
+    tgt_logit = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    return torch.mean(lse - tgt_logit)
+
+
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False,
             tp=None):
     """batch: {"tokens": (B,S), optional "frontend_embeds" (B, n, d)}.
@@ -314,13 +324,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False,
     logits, aux, _ = _forward(params, tokens, cfg,
                               frontend_embeds=batch.get("frontend_embeds"),
                               remat=remat)
-    tgt = tokens[:, 1:].to(torch.int64)
-    lg = logits[:, :-1]
-    lse = torch.logsumexp(lg, dim=-1)
-    # the target logit by a gather: the reference's one-hot sum has the
-    # same value for finite logits
-    tgt_logit = torch.gather(lg, -1, tgt[..., None])[..., 0]
-    nll = torch.mean(lse - tgt_logit)
+    nll = next_token_nll(logits[:, :-1], tokens[:, 1:].to(torch.int64))
     loss = nll
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * (

@@ -10,11 +10,17 @@ whole leaf (read from the first tree).  Each shard's work runs on its
 pieces at their own shapes, and the shards meet only in ``tp``'s
 operations, so M lanes of one process and M ranks give the same bits.
 
-* Embedding and head: vocab-parallel.  A shard embeds the tokens of its
-  rows (zero elsewhere) and the shards' embeddings are summed (exact: one
-  is not zero); its logits are its vocabulary's.  The loss is a
-  vocab-parallel cross entropy: the max and the sum of exponentials are
-  reduced over the shards and the target logit comes from its owner.
+* Embedding and head, in the layout ``param_specs`` gives the table
+  (the piece a shard holds shows it).  Vocab-parallel (V splits): a
+  shard embeds the tokens of its rows (zero elsewhere) and the shards'
+  embeddings are summed (exact: one is not zero); its logits are its
+  vocabulary's, and the loss is a vocab-parallel cross entropy (the max
+  and the sum of exponentials reduced over the shards, the target logit
+  from its owner).  On ``d`` (V does not split, d does): each shard
+  looks up its columns and the pieces are gathered.  Whole: one lookup.
+  Where V does not split the head is whole (``lm_head``'s spec keeps it
+  whole; a tied table split on ``d`` is gathered): the logits are
+  computed once, replicated, and the loss is a plain cross entropy.
 * Attention: ``wq``/``wk``/``wv`` column-parallel, ``wo`` row-parallel, a
   shard running its query heads.  Where ``n_kv_heads`` does not split
   over M the K/V projections are replicated and each shard reads the KV
@@ -22,7 +28,9 @@ operations, so M lanes of one process and M ranks give the same bits.
   boundary inside a head) the query projection's output is gathered and
   the attention runs whole on every shard before the row-parallel
   ``wo``.  MLA: ``wq_b``/``wkv_b`` column-parallel, ``wo`` row-parallel;
-  the latents are replicated (every head reads all of them).
+  the latents are replicated (every head reads all of them).  Where the
+  heads do not split (minicpm3's 40 over 16) ``wq_b`` and ``wkv_b`` are
+  gathered and the attention runs whole before the row-parallel ``wo``.
 * MLP: ``up``/``gate`` column-parallel, ``down`` row-parallel.
 * MoE: the router and the dispatch replicated; each shard runs its
   experts' slots, and their outputs are gathered so that ``combine`` adds
@@ -77,12 +85,24 @@ def _refuse(what: str):
 
 # ------------------------------------------------------- embed and head --
 
+def _table_split(table, cfg: ModelConfig) -> str:
+    """How the embedding's spec lays a shard's piece of the (V, d) table
+    out: ``"vocab"`` (V/M rows), ``"d"`` (d/M columns) or ``"whole"``."""
+    if table.shape[0] != cfg.vocab_size:
+        return "vocab"
+    return "d" if table.shape[1] != cfg.d_model else "whole"
+
+
 def embed(tables, tokens, cfg: ModelConfig, tp):
-    """The vocab-parallel embedding: each shard's rows, zero for tokens it
-    does not own, summed over the shards."""
-    if tables[0].shape[0] == cfg.vocab_size:
-        _refuse(f"vocabulary {cfg.vocab_size}")
+    """The embedding (B, S, d), replicated: vocab-parallel (each shard's
+    rows, zero for tokens it does not own, summed over the shards), on
+    ``d`` (each shard's columns, gathered) or whole."""
     tok = tokens.to(torch.int64)
+    split = _table_split(tables[0], cfg)
+    if split == "whole":
+        return F.embedding(tok, tables[0])
+    if split == "d":
+        return tp.gather([F.embedding(tok, t) for t in tables], -1)
     parts = []
     for table, m in zip(tables, tp.shards):
         Vm = table.shape[0]
@@ -94,24 +114,48 @@ def embed(tables, tokens, cfg: ModelConfig, tp):
 
 
 def head(ps, h, cfg: ModelConfig, tp):
-    """Each shard's float32 logits over its vocabulary (B, S, V/M)."""
+    """The float32 logits: a list of the shards' (B, S, V/M) where the
+    head is vocab-parallel, else ONE whole (B, S, V) tensor.  The whole
+    head runs once on the replicated ``h``, so its gradients are whole on
+    every shard; neither ``lm_head`` nor ``h`` passes ``copy_in`` (that
+    would sum M whole gradients).  A tied table split on ``d`` is
+    gathered first: the logits are the whole GEMM's, not a sum of the
+    shards' partial products."""
     h = norm(cfg.norm, _first(ps, "final_norm"), h)
-    hs = tp.copy_in(h)
     if cfg.tie_embeddings:
-        return [x.to(torch.float32) @ p["embed"]["table"].to(torch.float32).T
-                for p, x in zip(ps, hs)]
+        tables = _each(ps, "embed", "table")
+        split = _table_split(tables[0], cfg)
+        if split != "vocab":
+            table = tables[0] if split == "whole" else tp.gather(tables, -1)
+            return h.to(torch.float32) @ table.to(torch.float32).T
+        hs = tp.copy_in(h)
+        return [x.to(torch.float32) @ t.to(torch.float32).T
+                for t, x in zip(tables, hs)]
+    if _first(ps, "lm_head", "w").shape[-1] == cfg.vocab_size:
+        return linear(_first(ps, "lm_head"), h).to(torch.float32)
+    hs = tp.copy_in(h)
     return [linear(p["lm_head"], x).to(torch.float32) for p, x in zip(ps, hs)]
 
 
-def cross_entropy(parts, tgt, tp):
-    """The mean next-token cross entropy from the shards' logits (B, S,
-    V/M) and the targets (B, S) int64."""
-    mx = tp.max([lg.amax(-1) for lg in parts])
+def _whole_logits(logits, tp):
+    """``head``'s logits as one (B, S, V) tensor."""
+    if isinstance(logits, torch.Tensor):
+        return logits
+    return tp.gather(logits, -1)
+
+
+def cross_entropy(logits, tgt, tp):
+    """The mean next-token cross entropy from ``head``'s logits (the
+    shards' (B, S, V/M), or whole) and the targets (B, S) int64."""
+    if isinstance(logits, torch.Tensor):
+        from .model import next_token_nll
+        return next_token_nll(logits, tgt)
+    mx = tp.max([lg.amax(-1) for lg in logits])
     se = tp.sum([torch.sum(torch.exp(lg - mx[..., None]), dim=-1)
-                 for lg in parts])
+                 for lg in logits])
     lse = torch.log(se) + mx
     owned = []
-    for lg, m in zip(parts, tp.shards):
+    for lg, m in zip(logits, tp.shards):
         Vm = lg.shape[-1]
         local = tgt - m * Vm
         mine = (local >= 0) & (local < Vm)
@@ -275,14 +319,39 @@ def gqa_decode(ps, caches, x, pos: int, cfg: ModelConfig, tp, *,
     return tp.sum(outs)
 
 
+def _mla_whole(ps, tp):
+    """MLA's parameters with the column-parallel ``wq_b`` and ``wkv_b``
+    gathered whole (their shards' boundaries cut through a head), so that
+    every shard runs all the heads; the rest read from the first tree."""
+    whole = dict(_first(ps))
+    for key in ("wq_b", "wkv_b"):
+        whole[key] = {k: tp.gather(_each(ps, key, k), -1)
+                      for k in ps[0][key]}
+    return whole
+
+
 def mla_forward(ps, x, positions, cfg: ModelConfig, tp, *,
                 chunk_q: int = 512, return_kv: bool = False, **_):
-    """MLA over the model axis: (out, the shards' MLACaches or None)."""
+    """MLA over the model axis: (out, the shards' MLACaches or None).
+    Where the heads do not split over the shards, ``wq_b`` and ``wkv_b``
+    are gathered, the attention runs whole and ``wo`` stays
+    row-parallel."""
     m = cfg.mla
     dh = m.qk_nope_head_dim + m.qk_rope_head_dim
-    if (cfg.n_heads % tp.size
-            or _first(ps, "wq_b", "w").shape[-1] == cfg.n_heads * dh):
-        _refuse(f"MLA's {cfg.n_heads} heads")
+    if _first(ps, "wq_b", "w").shape[-1] == cfg.n_heads * dh:
+        _refuse(f"MLA's query projection of {cfg.n_heads} x {dh}")
+    if cfg.n_heads % tp.size:
+        whole = _mla_whole(ps, tp)
+        q_nope, q_rope, c_kv, kr = attn._mla_qkv(whole, x, positions, cfg)
+        k_nope, v = attn._mla_expand_kv(whole, c_kv, cfg)
+        o = attn.mla_attend(q_nope, q_rope, k_nope, kr, v, cfg,
+                            chunk_q=chunk_q).to(x.dtype)
+        out = tp.sum([linear(p["wo"], oj)
+                      for p, oj in zip(ps, tp.split(o, -1))])
+        caches = [attn.MLACache(c_kv=c_kv.to(cfg.cdtype),
+                                k_rope=kr[:, :, 0].to(cfg.cdtype))
+                  for _ in tp.shards]
+        return out, (caches if return_kv else None)
     q_lat, c_kv, k_rope = attn.mla_latents(_first(ps), x, cfg)
     qls, cs, krs = tp.copy_in(q_lat), tp.copy_in(c_kv), tp.copy_in(k_rope)
     outs, caches = [], []
@@ -300,7 +369,8 @@ def mla_forward(ps, x, positions, cfg: ModelConfig, tp, *,
 
 def mla_decode(ps, caches, x, pos: int, cfg: ModelConfig, tp, **_):
     """One-token MLA decode over the model axis (absorbed or expanded):
-    out (B,1,d)."""
+    out (B,1,d); heads that do not split run whole, as in
+    :func:`mla_forward`."""
     B = x.shape[0]
     L = caches[0].c_kv.shape[1]
     if not 0 <= pos < L:
@@ -308,6 +378,16 @@ def mla_decode(ps, caches, x, pos: int, cfg: ModelConfig, tp, **_):
                          f"{L} slots")
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q_lat, c_kv, k_rope = attn.mla_latents(_first(ps), x, cfg)
+    if cfg.n_heads % tp.size:
+        whole = _mla_whole(ps, tp)
+        q_nope, q_rope, kr = attn.mla_heads(whole, q_lat, k_rope, positions,
+                                            cfg)
+        for c in caches:
+            attn.mla_cache_write(c, c_kv, kr, pos)
+        o = attn.mla_decode_attend(whole, caches[0], q_nope, q_rope, pos,
+                                   cfg).to(x.dtype)
+        return tp.sum([linear(p["wo"], oj)
+                       for p, oj in zip(ps, tp.split(o, -1))])
     outs = []
     for p, c in zip(ps, caches):
         q_nope, q_rope, kr = attn.mla_heads(p, q_lat, k_rope, positions, cfg)
@@ -529,9 +609,9 @@ def _block(bps, h, positions, cfg: ModelConfig, kind, sps, tp, want_cache):
 def forward_parts(ps, tokens, cfg: ModelConfig, tp, *, frontend_embeds=None,
                   want_cache: bool = False, remat: bool = False,
                   last_only: bool = False):
-    """(the shards' logits (B, S, V/M) float32, aux, the shards' cache
-    trees or None): ``model._forward`` over the model axis.  With
-    ``last_only`` the head runs on the last position alone."""
+    """(``head``'s float32 logits, aux, the shards' cache trees or
+    None): ``model._forward`` over the model axis.  With ``last_only`` the
+    head runs on the last position alone."""
     from .model import _abs_pos, _positions_for, _sinusoidal, _stack_caches
     pattern, n_units = cfg.unit_pattern()
     B, S = tokens.shape
@@ -564,25 +644,26 @@ def forward_parts(ps, tokens, cfg: ModelConfig, tp, *, frontend_embeds=None,
         else:
             h, lb, rz, caches = unit_fn(h, lb, rz, unit_ps)
         unit_caches.append(caches)
-    parts = head(ps, h[:, -1:] if last_only else h, cfg, tp)
+    logits = head(ps, h[:, -1:] if last_only else h, cfg, tp)
     aux = {"load_balance": lb / cfg.n_layers, "router_z": rz / cfg.n_layers}
     if not want_cache:
-        return parts, aux, None
+        return logits, aux, None
     trees = [_stack_caches([{key: val[j] for key, val in uc.items()}
                             for uc in unit_caches])
              for j in range(len(ps))]
-    return parts, aux, trees
+    return logits, aux, trees
 
 
 def loss_fn(ps, batch, cfg: ModelConfig, tp, *, remat: bool = False):
     """``model.loss_fn`` over the model axis: (loss, metrics), the same
     on every shard."""
     tokens = batch["tokens"]
-    parts, aux, _ = forward_parts(ps, tokens, cfg, tp,
-                                  frontend_embeds=batch.get(
-                                      "frontend_embeds"), remat=remat)
-    nll = cross_entropy([lg[:, :-1] for lg in parts],
-                        tokens[:, 1:].to(torch.int64), tp)
+    logits, aux, _ = forward_parts(ps, tokens, cfg, tp,
+                                   frontend_embeds=batch.get(
+                                       "frontend_embeds"), remat=remat)
+    logits = logits[:, :-1] if isinstance(logits, torch.Tensor) else \
+        [lg[:, :-1] for lg in logits]
+    nll = cross_entropy(logits, tokens[:, 1:].to(torch.int64), tp)
     loss = nll
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * (
@@ -595,12 +676,12 @@ def prefill(ps, tokens, cfg: ModelConfig, tp, *, frontend_embeds=None,
     """``model.prefill`` over the model axis: (last-position logits
     (B,1,V), the shards' caches, aux)."""
     from .model import _pad_caches
-    parts, aux, trees = forward_parts(ps, tokens, cfg, tp,
-                                      frontend_embeds=frontend_embeds,
-                                      want_cache=True, last_only=True)
+    logits, aux, trees = forward_parts(ps, tokens, cfg, tp,
+                                       frontend_embeds=frontend_embeds,
+                                       want_cache=True, last_only=True)
     if max_len is not None:
         trees = [_pad_caches(t, tokens.shape[1], max_len) for t in trees]
-    return tp.gather(parts, -1), trees, aux
+    return _whole_logits(logits, tp), trees, aux
 
 
 def decode_step(ps, caches, token, pos, cfg: ModelConfig, tp, *,
@@ -643,7 +724,7 @@ def decode_step(ps, caches, token, pos, cfg: ModelConfig, tp, *,
             out, _ = ffn(bps, norm(cfg.norm, _first(bps, "norm2"), h), cfg,
                          tp)
             h = h + out
-    return tp.gather(head(ps, h, cfg, tp), -1), caches
+    return _whole_logits(head(ps, h, cfg, tp), tp), caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, tp, *,

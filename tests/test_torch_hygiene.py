@@ -11,7 +11,10 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "train_lm_mesh_torch.py"]
+    ROOT / "examples" / "train_lm_mesh_torch.py",
+    ROOT / "examples" / "federated_noniid_torch.py",
+    ROOT / "examples" / "serve_decode_torch.py",
+    ROOT / "examples" / "bandwidth_study_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -218,12 +218,13 @@ def _swaps(diff, lanes, scale, what):
     return int(bad.sum())
 
 
-def _steps_match_reference(ref, arch, steps=STEPS, mesh=None):
+def _steps_match_reference(ref, arch, steps=STEPS, mesh=None, cfg=None):
     """Hold the port's steps on ``mesh`` (default a ``LaneMesh(4)``) to
     the reference's under the support-swap rule; returns the leaves' paths
-    and how many parameters each excused over the steps."""
-    cfg = dataclasses.replace(get_arch(arch).reduced(),
-                              compute_dtype="float32")
+    and how many parameters each excused over the steps.  ``cfg``
+    defaults to ``arch``'s reduced config in float32."""
+    cfg = cfg or dataclasses.replace(get_arch(arch).reduced(),
+                                     compute_dtype="float32")
     ex_cfg = ExchangeConfig(mode="allgather", density=0.05, momentum=0.9,
                             engine="exact")
     step = build_train_step(cfg, mesh or LaneMesh(4, "cpu"), ex_cfg, lr=LR,
