@@ -33,6 +33,15 @@ The exchange writes the new velocity, M and v into the state's own
 tensors (the reference donates them) and returns that state with the
 update to subtract from the parameters.
 
+A ``recorder`` (``telemetry.Recorder``; the no-op ``NULL`` by default)
+records the exchange's phases as spans, per leaf (``leaf=``) and per lane
+where the work is per lane: ``exchange/select`` (SAMomentum, top-k, the
+rescale, shardedps' downward top-k2), ``exchange/layout`` (copies into
+and out of the row layout, wire casts, the lanes' stacks, the gathered
+transposes), ``exchange/bucket`` (shardedps' owner buckets),
+``exchange/collective`` (the mesh's collectives) and ``exchange/scatter``
+(the dense buffer, the union, M and v scatters, the ``1/W`` scale).
+
 :func:`shard_exchange_batch` is the mesh server's route exchange: on one
 card every shard's chunk is routed there and the buckets permuted; over a
 ``ProcessMesh`` of S ranks each rank routes its own source chunk and the
@@ -46,6 +55,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.arith import rcp
+from repro_torch.telemetry.trace import NULL
 
 from . import engine as engine_lib
 from .engine import CompressionSpec
@@ -168,7 +178,7 @@ def _own(x, dim, model):
     return x.chunk(model.size, dim)[model.rank]
 
 
-def _rows_quantizer(spec, model):
+def _rows_quantizer(spec, model, recorder=NULL):
     """(the spec to select with, the quantization of the selected rows):
     on a rank of the model axis the values of every shard's rows are
     quantized together, with ONE scale over the whole leaf's rows, as the
@@ -177,8 +187,9 @@ def _rows_quantizer(spec, model):
         return spec, lambda vals: vals
 
     def quantize(vals):
-        whole = engine_lib._maybe_quantize_rows(
-            _gather_model(vals, 0, model), spec.quantize)
+        with recorder.span("exchange/collective"):
+            vals = _gather_model(vals, 0, model)
+        whole = engine_lib._maybe_quantize_rows(vals, spec.quantize)
         return _own(whole, 0, model)
 
     return dataclasses.replace(spec, quantize="none"), quantize
@@ -188,13 +199,15 @@ def _rows_quantizer(spec, model):
 # dense (all-reduce) baseline
 # ---------------------------------------------------------------------------
 
-def dense_momentum_exchange(state, grads, *, cfg, lr, mesh):
+def dense_momentum_exchange(state, grads, *, cfg, lr, mesh,
+                            recorder=NULL):
     """Classic DP baseline: the workers' mean gradient, heavy-ball
     momentum.  The update is the new velocity, the same on every lane."""
     u_leaves, paths = tree_flatten(state.velocity)
     upd = []
-    for u, g in zip(u_leaves, tree_leaves(grads)):
-        g_mean = mesh.mean(g.to(torch.float32))
+    for leaf, (u, g) in enumerate(zip(u_leaves, tree_leaves(grads))):
+        with recorder.span("exchange/collective", leaf=leaf):
+            g_mean = mesh.mean(g.to(torch.float32))
         for lane in range(u.shape[0]):
             u[lane] = engine_lib.velocity_accumulate(
                 u[lane], g_mean, momentum=cfg.momentum, lr=lr)
@@ -212,58 +225,79 @@ def dense_momentum_exchange(state, grads, *, cfg, lr, mesh):
 # ---------------------------------------------------------------------------
 
 def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec,
-                           quantize=None):
+                           quantize=None, recorder=NULL, leaf=None):
     """SAMomentum + top-k + sparse all-gather for one leaf, ``u`` and ``g``
     ``(L, *shape)``, cut as ``cut`` (:func:`leaf_cut`).  Each lane runs the
     reference's per-device steps on its worker's tensor (so the transients
     are one worker's); the lanes' messages are stacked for the collective.
     Writes the new velocity into ``u``; returns the update to subtract
-    (``shape``)."""
+    (``shape``).  ``recorder`` records the phases as spans of leaf
+    ``leaf``."""
     from repro_torch.kernels import ops
 
     L, shape = u.shape[0], tuple(u.shape[1:])
     W = mesh.size
+    span = recorder.span
     quantize = quantize or (lambda vals: vals)
     if cut.flat:
         vals, idx = [], []
         for lane in range(L):
-            msg, u_new = engine_lib.samomentum_step(
-                u[lane], g[lane].to(torch.float32), momentum=cfg.momentum,
-                lr=lr, k=cut.k_row, spec=spec)
-            u[lane] = u_new
+            with span("exchange/select", leaf=leaf, lane=lane):
+                msg, u_new = engine_lib.samomentum_step(
+                    u[lane], g[lane].to(torch.float32),
+                    momentum=cfg.momentum, lr=lr, k=cut.k_row, spec=spec)
+            with span("exchange/layout", leaf=leaf, lane=lane):
+                u[lane] = u_new
             vals.append(msg.values)
             idx.append(msg.indices)
-        gvals = mesh.gather(torch.stack(vals))                 # (W, k)
-        gidx = mesh.gather(torch.stack(idx))
-        dense = torch.zeros(cut.rest, dtype=torch.float32, device=u.device)
-        ops.scatter_add(dense, gidx.reshape(-1), gvals.reshape(-1))
-        return (dense * rcp(W)).view(shape)
+        with span("exchange/layout", leaf=leaf):
+            vals, idx = torch.stack(vals), torch.stack(idx)
+        with span("exchange/collective", leaf=leaf):
+            gvals = mesh.gather(vals)                        # (W, k)
+            gidx = mesh.gather(idx)
+        with span("exchange/scatter", leaf=leaf):
+            dense = torch.zeros(cut.rest, dtype=torch.float32,
+                                device=u.device)
+            ops.scatter_add(dense, gidx.reshape(-1), gvals.reshape(-1))
+            return (dense * rcp(W)).view(shape)
     S, rest, ax, k_row = cut.S, cut.rest, cut.ax, cut.k_row
     wdt = _wire(cfg.wire_dtype)
     vals, idx = [], []
     for lane in range(L):
-        # the kernels read rows of unit stride: a moved dim is copied
-        um = u[lane].movedim(ax, 0)
-        v_l, i_l, u_new = engine_lib.samomentum_step_rows(
-            um.reshape(S, rest).contiguous(),
-            g[lane].movedim(ax, 0).reshape(S, rest).to(torch.float32)
-            .contiguous(),
-            momentum=cfg.momentum, lr=lr, k=k_row, spec=spec)
-        um.copy_(u_new.view(um.shape))
-        del u_new
-        vals.append(quantize(v_l).to(wdt))
+        with span("exchange/layout", leaf=leaf, lane=lane):
+            # the kernels read rows of unit stride: a moved dim is copied
+            um = u[lane].movedim(ax, 0)
+            u_rows = um.reshape(S, rest).contiguous()
+            g_rows = (g[lane].movedim(ax, 0).reshape(S, rest)
+                      .to(torch.float32).contiguous())
+        with span("exchange/select", leaf=leaf, lane=lane):
+            v_l, i_l, u_new = engine_lib.samomentum_step_rows(
+                u_rows, g_rows, momentum=cfg.momentum, lr=lr, k=k_row,
+                spec=spec)
+            del u_rows, g_rows
+            v_l = quantize(v_l)
+        with span("exchange/layout", leaf=leaf, lane=lane):
+            um.copy_(u_new.view(um.shape))
+            del u_new
+            vals.append(v_l.to(wdt))
         idx.append(i_l)
-    gvals = mesh.gather(torch.stack(vals))                   # (W, S, k_row)
-    gidx = mesh.gather(torch.stack(idx))
-    gv = gvals.transpose(0, 1).reshape(S, W * k_row).to(torch.float32)
-    gi = gidx.transpose(0, 1).reshape(S, W * k_row)
-    dense = torch.zeros((S, rest), dtype=torch.float32, device=u.device)
-    ops.scatter_add_rows(dense, None, gi, gv)
-    moved = (shape[ax],) + shape[:ax] + shape[ax + 1:]
-    return (dense * rcp(W)).view(moved).movedim(0, ax)
+    with span("exchange/layout", leaf=leaf):
+        vals, idx = torch.stack(vals), torch.stack(idx)
+    with span("exchange/collective", leaf=leaf):
+        gvals = mesh.gather(vals)                            # (W, S, k_row)
+        gidx = mesh.gather(idx)
+    with span("exchange/layout", leaf=leaf):
+        gv = gvals.transpose(0, 1).reshape(S, W * k_row).to(torch.float32)
+        gi = gidx.transpose(0, 1).reshape(S, W * k_row)
+    with span("exchange/scatter", leaf=leaf):
+        dense = torch.zeros((S, rest), dtype=torch.float32, device=u.device)
+        ops.scatter_add_rows(dense, None, gi, gv)
+        moved = (shape[ax],) + shape[:ax] + shape[ax + 1:]
+        return (dense * rcp(W)).view(moved).movedim(0, ax)
 
 
-def allgather_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None):
+def allgather_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None,
+                       recorder=NULL):
     """Per-leaf: SAMomentum -> top-k -> all-gather sparse -> scatter.
 
     Returns (updates, state): ``updates`` is the mean lr-scaled update to
@@ -272,29 +306,37 @@ def allgather_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None):
     """
     spec = cfg.spec()
     model = mesh.model
+    span = recorder.span
     u_leaves, paths = tree_flatten(state.velocity)
     if shard_axes is None:
         shard_axes = [None] * len(u_leaves)
     upd = []
-    for u, g, ax in zip(u_leaves, tree_leaves(grads), shard_axes):
+    for leaf, (u, g, ax) in enumerate(zip(u_leaves, tree_leaves(grads),
+                                          shard_axes)):
         full = _full_shape(u.shape[1:], ax, model)
         cut = leaf_cut(full, ax, cfg, mesh.size)
         if not _on_rank(model) or ax is None:
             upd.append(_leaf_allgather_hinted(
-                u, g, cut=cut, cfg=cfg, lr=lr, mesh=mesh, spec=spec))
+                u, g, cut=cut, cfg=cfg, lr=lr, mesh=mesh, spec=spec,
+                recorder=recorder, leaf=leaf))
         elif cut.flat:
             # a vector cut whole: every shard selects over all of it
-            uf = _gather_model(u, ax + 1, model)
+            with span("exchange/collective", leaf=leaf):
+                uf = _gather_model(u, ax + 1, model)
+                gf = _gather_model(g, ax + 1, model)
             up = _leaf_allgather_hinted(
-                uf, _gather_model(g, ax + 1, model), cut=cut, cfg=cfg,
-                lr=lr, mesh=mesh, spec=spec)
-            u.copy_(_own(uf, ax + 1, model))
-            upd.append(_own(up, ax, model).contiguous())
+                uf, gf, cut=cut, cfg=cfg, lr=lr, mesh=mesh, spec=spec,
+                recorder=recorder, leaf=leaf)
+            del gf
+            with span("exchange/layout", leaf=leaf):
+                u.copy_(_own(uf, ax + 1, model))
+                upd.append(_own(up, ax, model).contiguous())
         else:
-            sel, quantize = _rows_quantizer(spec, model)
+            sel, quantize = _rows_quantizer(spec, model, recorder)
             upd.append(_leaf_allgather_hinted(
                 u, g, cut=cut._replace(S=cut.S // model.size), cfg=cfg,
-                lr=lr, mesh=mesh, spec=sel, quantize=quantize))
+                lr=lr, mesh=mesh, spec=sel, quantize=quantize,
+                recorder=recorder, leaf=leaf))
     return tree_unflatten(paths, upd), state
 
 
@@ -378,7 +420,7 @@ def leaf_cut(shape, shard_axis, cfg: ExchangeConfig,
 
 
 def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
-                           quantize=None):
+                           quantize=None, recorder=NULL, leaf=None):
     """Row-wise sharded-PS dual-way exchange for one leaf.
 
     View: (S, rest) rows per worker.  Worker w owns columns
@@ -397,7 +439,8 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
     are stacked for the collectives.  Writes the new velocity, M and v into
     ``u``, ``m_sh``, ``v_sh``; returns (update, overflow): the ``(L,)``
     int32 count of selected entries dropped at the ``W*cap`` slot this step
-    (their mass stays in the velocity)."""
+    (their mass stays in the velocity).  ``recorder`` records the phases
+    as spans of leaf ``leaf``."""
     from repro_torch.kernels import ops
 
     W, L = mesh.size, u.shape[0]
@@ -406,57 +449,76 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
     shard_rest, cap, k2 = cut.shard_rest, cut.cap, cut.k2
     wdt = _wire(cfg.wire_dtype)
     dev = u.device
+    span = recorder.span
     quantize = quantize or (lambda vals: vals)
     rows_of = ((lambda x: x.reshape(1, rest)) if ax is None
                else (lambda x: x.movedim(ax, 0)))
     send_v, send_i, ovf = [], [], []
     for lane in range(L):
-        um = rows_of(u[lane])
-        uacc = engine_lib.velocity_accumulate(
-            um.reshape(S, rest).contiguous(),
-            rows_of(g[lane]).reshape(S, rest).to(torch.float32).contiguous(),
-            momentum=cfg.momentum, lr=lr)
-        vals, idx = engine_lib.select_rows(uacc, k_row, spec)
-        vals = quantize(vals)
-        # ---- bucket by owner, per row ----
-        idx = idx.to(torch.int64)
-        order = torch.argsort(idx // shard_rest, dim=1, stable=True)
-        idx_s = torch.gather(idx, 1, order)
-        vals_s = torch.gather(vals, 1, order)
-        owner_s = idx_s // shard_rest
-        pos = (torch.arange(k_row, device=dev)[None]
-               - torch.searchsorted(owner_s, owner_s))
-        ok = pos < cap
-        slot = torch.where(ok, owner_s * cap + pos, W * cap)
-        buf_v = torch.zeros((S, W * cap + 1), dtype=torch.float32,
-                            device=dev).scatter_(
-            1, slot, torch.where(ok, vals_s, 0.0))
-        buf_i = torch.full((S, W * cap + 1), -1, dtype=torch.int32,
-                           device=dev).scatter_(
-            1, slot, torch.where(ok, idx_s % shard_rest, -1).to(torch.int32))
-        # (S, W, cap) -> (W, S, cap): the all-to-all's send, by owner
-        send_v.append(buf_v[:, :-1].reshape(S, W, cap).transpose(0, 1)
-                      .to(wdt))
-        send_i.append(buf_i[:, :-1].reshape(S, W, cap).transpose(0, 1))
-        # SAMomentum rescale: only the shipped coordinates keep u (bucket
-        # overflow is NOT shipped -- its mass must stay in the velocity)
-        shipped = torch.zeros((S, rest + 1), dtype=torch.bool,
-                              device=dev).scatter_(
-            1, torch.where(ok, idx_s, rest), True)[:, :-1]
-        um.copy_(engine_lib.samomentum_rescale(uacc, shipped, cfg.momentum)
-                 .view(um.shape))
-        ovf.append((~ok).sum().to(torch.int32))
-        del uacc, shipped
+        with span("exchange/layout", leaf=leaf, lane=lane):
+            um = rows_of(u[lane])
+            u_rows = um.reshape(S, rest).contiguous()
+            g_rows = (rows_of(g[lane]).reshape(S, rest).to(torch.float32)
+                      .contiguous())
+        with span("exchange/select", leaf=leaf, lane=lane):
+            uacc = engine_lib.velocity_accumulate(
+                u_rows, g_rows, momentum=cfg.momentum, lr=lr)
+            del u_rows, g_rows
+            vals, idx = engine_lib.select_rows(uacc, k_row, spec)
+            vals = quantize(vals)
+        with span("exchange/bucket", leaf=leaf, lane=lane):
+            # ---- bucket by owner, per row ----
+            idx = idx.to(torch.int64)
+            order = torch.argsort(idx // shard_rest, dim=1, stable=True)
+            idx_s = torch.gather(idx, 1, order)
+            vals_s = torch.gather(vals, 1, order)
+            owner_s = idx_s // shard_rest
+            pos = (torch.arange(k_row, device=dev)[None]
+                   - torch.searchsorted(owner_s, owner_s))
+            ok = pos < cap
+            slot = torch.where(ok, owner_s * cap + pos, W * cap)
+            buf_v = torch.zeros((S, W * cap + 1), dtype=torch.float32,
+                                device=dev).scatter_(
+                1, slot, torch.where(ok, vals_s, 0.0))
+            buf_i = torch.full((S, W * cap + 1), -1, dtype=torch.int32,
+                               device=dev).scatter_(
+                1, slot,
+                torch.where(ok, idx_s % shard_rest, -1).to(torch.int32))
+            ovf.append((~ok).sum().to(torch.int32))
+        with span("exchange/layout", leaf=leaf, lane=lane):
+            # (S, W, cap) -> (W, S, cap): the all-to-all's send, by owner
+            send_v.append(buf_v[:, :-1].reshape(S, W, cap).transpose(0, 1)
+                          .to(wdt))
+            send_i.append(buf_i[:, :-1].reshape(S, W, cap).transpose(0, 1))
+        with span("exchange/select", leaf=leaf, lane=lane):
+            # SAMomentum rescale: only the shipped coordinates keep u
+            # (bucket overflow is NOT shipped -- its mass must stay in the
+            # velocity)
+            shipped = torch.zeros((S, rest + 1), dtype=torch.bool,
+                                  device=dev).scatter_(
+                1, torch.where(ok, idx_s, rest), True)[:, :-1]
+            u_new = engine_lib.samomentum_rescale(uacc, shipped,
+                                                  cfg.momentum)
+            del uacc, shipped
+        with span("exchange/layout", leaf=leaf, lane=lane):
+            um.copy_(u_new.view(um.shape))
+            del u_new
     # ---- all-to-all: row i of a lane's receive is what worker i sent ----
-    recv_v = mesh.all_to_all(torch.stack(send_v)).to(torch.float32)
-    recv_i = mesh.all_to_all(torch.stack(send_i))            # (L, W, S, cap)
+    with span("exchange/layout", leaf=leaf):
+        send_v, send_i = torch.stack(send_v), torch.stack(send_i)
+    with span("exchange/collective", leaf=leaf):
+        recv_v = mesh.all_to_all(send_v)
+        recv_i = mesh.all_to_all(send_i)                     # (L, W, S, cap)
     del send_v, send_i
     # ---- server shard update: M -= the received, in worker order (an
     # empty slot's -1 is dropped) ----
-    m2d = m_sh.view(L * S, shard_rest)
-    ops.scatter_add_rows(
-        m2d, None, recv_i.transpose(1, 2).reshape(L * S, W * cap),
-        -recv_v.transpose(1, 2).reshape(L * S, W * cap))
+    with span("exchange/layout", leaf=leaf):
+        recv_i = recv_i.transpose(1, 2).reshape(L * S, W * cap)
+        recv_v = -recv_v.to(torch.float32).transpose(1, 2).reshape(
+            L * S, W * cap)
+    with span("exchange/scatter", leaf=leaf):
+        ops.scatter_add_rows(m_sh.view(L * S, shard_rest), None, recv_i,
+                             recv_v)
     del recv_v, recv_i
     # ---- downward: secondary-compressed difference shard ----
     me = mesh.index().to(torch.int32) * shard_rest            # (L,)
@@ -464,32 +526,45 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
     for lane in range(L):
         m_l = m_sh[lane].view(S, shard_rest)
         v_l = v_sh[lane].view(S, shard_rest)
-        d_v, d_i = engine_lib.select_rows(m_l - v_l, k2, spec)
-        d_v = quantize(d_v)
-        ops.scatter_add_rows(v_l, None, d_i, d_v)
-        dvals.append(d_v.to(wdt))
-        didx.append(d_i + me[lane])
-    gvals = mesh.gather(torch.stack(dvals)).to(torch.float32)  # (W, S, k2)
-    gidx = mesh.gather(torch.stack(didx))
-    dense = torch.zeros((S, W * shard_rest), dtype=torch.float32,
-                        device=dev)
-    ops.scatter_add_rows(dense, None,
-                         gidx.transpose(0, 1).reshape(S, W * k2),
-                         gvals.transpose(0, 1).reshape(S, W * k2))
-    upd = dense[:, :rest].neg_().mul_(rcp(W))
-    if ax is None:
-        return upd.reshape(shape), torch.stack(ovf)
-    moved = (shape[ax],) + shape[:ax] + shape[ax + 1:]
-    return upd.reshape(moved).movedim(0, ax), torch.stack(ovf)
+        with span("exchange/select", leaf=leaf, lane=lane):
+            d_v, d_i = engine_lib.select_rows(m_l - v_l, k2, spec)
+            d_v = quantize(d_v)
+        with span("exchange/scatter", leaf=leaf, lane=lane):
+            ops.scatter_add_rows(v_l, None, d_i, d_v)
+        with span("exchange/layout", leaf=leaf, lane=lane):
+            dvals.append(d_v.to(wdt))
+            didx.append(d_i + me[lane])
+    with span("exchange/layout", leaf=leaf):
+        dvals, didx = torch.stack(dvals), torch.stack(didx)
+    with span("exchange/collective", leaf=leaf):
+        gvals = mesh.gather(dvals)                           # (W, S, k2)
+        gidx = mesh.gather(didx)
+    with span("exchange/layout", leaf=leaf):
+        gvals = gvals.to(torch.float32).transpose(0, 1).reshape(S, W * k2)
+        gidx = gidx.transpose(0, 1).reshape(S, W * k2)
+    with span("exchange/scatter", leaf=leaf):
+        dense = torch.zeros((S, W * shard_rest), dtype=torch.float32,
+                            device=dev)
+        ops.scatter_add_rows(dense, None, gidx, gvals)
+        upd = dense[:, :rest].neg_().mul_(rcp(W))
+    with span("exchange/bucket", leaf=leaf):
+        ovf = torch.stack(ovf)
+    with span("exchange/layout", leaf=leaf):
+        if ax is None:
+            return upd.reshape(shape), ovf
+        moved = (shape[ax],) + shape[:ax] + shape[ax + 1:]
+        return upd.reshape(moved).movedim(0, ax), ovf
 
 
-def shardedps_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None):
+def shardedps_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None,
+                       recorder=NULL):
     """Dual-way sparse exchange against a parameter server sharded over the
     workers: per-leaf dispatch to the row-wise implementation above.  On a
     rank of the model axis the overflow counts every shard's rows, as the
     reference's count spans the whole leaf."""
     spec = cfg.spec()
     model = mesh.model
+    span = recorder.span
     u_leaves, paths = tree_flatten(state.velocity)
     m_leaves = tree_leaves(state.m_shard)
     v_leaves = tree_leaves(state.v_shard)
@@ -497,34 +572,40 @@ def shardedps_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None):
         shard_axes = [None] * len(u_leaves)
     upd = []
     step_ovf, rows_ovf = 0, 0
-    for u, m_sh, v_sh, g, ax in zip(u_leaves, m_leaves, v_leaves,
-                                    tree_leaves(grads), shard_axes):
+    for leaf, (u, m_sh, v_sh, g, ax) in enumerate(zip(
+            u_leaves, m_leaves, v_leaves, tree_leaves(grads), shard_axes)):
         full = _full_shape(u.shape[1:], ax, model)
         cut = leaf_cut(full, ax, cfg, mesh.size)
         if _row_sharded(full, ax, model):
-            sel, quantize = _rows_quantizer(spec, model)
+            sel, quantize = _rows_quantizer(spec, model, recorder)
             up, ovf = _leaf_shardedps_hinted(
                 u, g, m_sh, v_sh, cut=cut._replace(S=cut.S // model.size),
-                cfg=cfg, lr=lr, mesh=mesh, spec=sel, quantize=quantize)
+                cfg=cfg, lr=lr, mesh=mesh, spec=sel, quantize=quantize,
+                recorder=recorder, leaf=leaf)
             rows_ovf = rows_ovf + ovf
         elif _on_rank(model) and ax is not None:
             # a vector cut whole: gathered, run whole on every shard
-            uf = _gather_model(u, ax + 1, model)
+            with span("exchange/collective", leaf=leaf):
+                uf = _gather_model(u, ax + 1, model)
+                gf = _gather_model(g, ax + 1, model)
             up, ovf = _leaf_shardedps_hinted(
-                uf, _gather_model(g, ax + 1, model), m_sh, v_sh, cut=cut,
-                cfg=cfg, lr=lr, mesh=mesh, spec=spec)
-            u.copy_(_own(uf, ax + 1, model))
-            up = _own(up, ax, model).contiguous()
+                uf, gf, m_sh, v_sh, cut=cut, cfg=cfg, lr=lr, mesh=mesh,
+                spec=spec, recorder=recorder, leaf=leaf)
+            del gf
+            with span("exchange/layout", leaf=leaf):
+                u.copy_(_own(uf, ax + 1, model))
+                up = _own(up, ax, model).contiguous()
             step_ovf = step_ovf + ovf
         else:
             up, ovf = _leaf_shardedps_hinted(
                 u, g, m_sh, v_sh, cut=cut, cfg=cfg, lr=lr, mesh=mesh,
-                spec=spec)
+                spec=spec, recorder=recorder, leaf=leaf)
             step_ovf = step_ovf + ovf
         upd.append(up)
     if isinstance(rows_ovf, torch.Tensor):   # every shard's rows counted
-        step_ovf = step_ovf + model.all_gather(rows_ovf).sum(0).to(
-            torch.int32)
+        with span("exchange/collective"):
+            rows_ovf = model.all_gather(rows_ovf)
+        step_ovf = step_ovf + rows_ovf.sum(0).to(torch.int32)
     overflow = state.overflow
     if isinstance(overflow, torch.Tensor):
         overflow += step_ovf
@@ -604,16 +685,17 @@ def shard_exchange_batch(spec: ShardSpec, indices, values, *,
 # ---------------------------------------------------------------------------
 
 def exchange(state, grads, *, cfg: ExchangeConfig, lr, mesh,
-             shard_axes=None):
+             shard_axes=None, recorder=NULL):
     """One exchange step of every worker of ``mesh``: ``grads`` and the
-    state's leaves carry the mesh's lane dim.  Returns (updates, state)."""
+    state's leaves carry the mesh's lane dim.  Returns (updates, state).
+    ``recorder`` records the phases as spans (module docstring)."""
     if cfg.mode == "dense":
         return dense_momentum_exchange(state, grads, cfg=cfg, lr=lr,
-                                       mesh=mesh)
+                                       mesh=mesh, recorder=recorder)
     if cfg.mode == "allgather":
         return allgather_exchange(state, grads, cfg=cfg, lr=lr, mesh=mesh,
-                                  shard_axes=shard_axes)
+                                  shard_axes=shard_axes, recorder=recorder)
     if cfg.mode == "shardedps":
         return shardedps_exchange(state, grads, cfg=cfg, lr=lr, mesh=mesh,
-                                  shard_axes=shard_axes)
+                                  shard_axes=shard_axes, recorder=recorder)
     raise ValueError(f"unknown exchange mode {cfg.mode!r}")

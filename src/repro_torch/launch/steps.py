@@ -41,6 +41,7 @@ from repro_torch.core.paramspace import (tree_flatten, tree_leaves,
 from repro_torch.models import config as mcfg
 from repro_torch.models.model import (abstract_params, decode_step, loss_fn,
                                       prefill)
+from repro_torch.telemetry.trace import NULL
 
 from . import sharding as shard_rules
 from .mesh import model_axis_size
@@ -71,7 +72,13 @@ class TrainStep:
     """``step(params, ex_state, batch) -> (params, ex_state, loss)`` and
     its three parts, which callers may time apart.  ``params`` are updated
     in place and ``ex_state`` by the exchange (the reference donates
-    both); ``loss`` is the workers' mean, a scalar tensor."""
+    both); ``loss`` is the workers' mean, a scalar tensor.
+
+    ``recorder`` (``telemetry.Recorder``; the no-op ``NULL`` by default)
+    records ``train/step`` around ``train/grads``, ``train/exchange`` and
+    ``train/apply``; in ``grads`` per lane ``grads/lane`` around
+    ``grads/forward``, ``grads/backward`` and ``grads/copy``; and the
+    exchange's phases (``core.distributed``)."""
 
     cfg: mcfg.ModelConfig
     mesh: object
@@ -79,6 +86,7 @@ class TrainStep:
     lr: float
     remat: bool
     hints: list
+    recorder: object = NULL
 
     def init_state(self, params):
         return init_exchange_state(params, self.ex_cfg, self.mesh,
@@ -101,23 +109,36 @@ class TrainStep:
         tp = self.mesh.model
         if tp.size > 1:
             live, trees = self._live_shards(leaves, paths)
+        span = self.recorder.span
         losses = []
         for i, w in enumerate(self.mesh.lanes):
-            part = {key: val[w * b:(w + 1) * b] for key, val in batch.items()}
-            if tp.size > 1:
-                loss = loss_fn(trees, part, self.cfg, remat=self.remat,
-                               tp=tp)[0]
-                gs = torch.autograd.grad(loss, [t for *_, t in live])
-                for (li, index, _), g in zip(live, gs):
-                    grads[li][i][index].copy_(g)
+            with span("grads/lane", lane=i):
+                part = {key: val[w * b:(w + 1) * b]
+                        for key, val in batch.items()}
+                if tp.size > 1:
+                    with span("grads/forward", lane=i):
+                        loss = loss_fn(trees, part, self.cfg,
+                                       remat=self.remat, tp=tp)[0]
+                    with span("grads/backward", lane=i):
+                        gs = torch.autograd.grad(loss,
+                                                 [t for *_, t in live])
+                    with span("grads/copy", lane=i):
+                        for (li, index, _), g in zip(live, gs):
+                            grads[li][i][index].copy_(g)
+                    del gs
+                    losses.append(loss.detach())
+                    continue
+                live_leaves = [p.detach().requires_grad_() for p in leaves]
+                with span("grads/forward", lane=i):
+                    loss = loss_fn(tree_unflatten(paths, live_leaves), part,
+                                   self.cfg, remat=self.remat)[0]
+                with span("grads/backward", lane=i):
+                    gs = torch.autograd.grad(loss, live_leaves)
+                with span("grads/copy", lane=i):
+                    for dst, g in zip(grads, gs):
+                        dst[i].copy_(g)
+                del gs
                 losses.append(loss.detach())
-                continue
-            live_leaves = [p.detach().requires_grad_() for p in leaves]
-            loss = loss_fn(tree_unflatten(paths, live_leaves), part,
-                           self.cfg, remat=self.remat)[0]
-            for dst, g in zip(grads, torch.autograd.grad(loss, live_leaves)):
-                dst[i].copy_(g)
-            losses.append(loss.detach())
         return tree_unflatten(paths, grads), torch.stack(losses)
 
     def _live_shards(self, leaves, paths):
@@ -147,7 +168,8 @@ class TrainStep:
 
     def exchange(self, ex_state, grads):
         return exchange(ex_state, grads, cfg=self.ex_cfg, lr=self.lr,
-                        mesh=self.mesh, shard_axes=self.hints)
+                        mesh=self.mesh, shard_axes=self.hints,
+                        recorder=self.recorder)
 
     @staticmethod
     def apply(params, updates):
@@ -158,11 +180,16 @@ class TrainStep:
             p.sub_(u)
 
     def __call__(self, params, ex_state, batch):
-        grads, losses = self.grads(params, batch)
-        updates, ex_state = self.exchange(ex_state, grads)
-        del grads
-        self.apply(params, updates)
-        return params, ex_state, self.mesh.mean(losses)
+        span = self.recorder.span
+        with span("train/step"):
+            with span("train/grads"):
+                grads, losses = self.grads(params, batch)
+            with span("train/exchange"):
+                updates, ex_state = self.exchange(ex_state, grads)
+            del grads
+            with span("train/apply"):
+                self.apply(params, updates)
+            return params, ex_state, self.mesh.mean(losses)
 
 
 def whole_params(params, cfg: mcfg.ModelConfig, mesh):

@@ -19,6 +19,12 @@ over ``torch.distributed``, ``--model-par`` (default: the same rule on
 
 With a card for every rank of a host the ranks talk over NCCL
 (``mesh.init_process_mesh``); that leg has not yet run on several cards.
+
+``--trace-dir DIR`` records the train step's spans (``TrainStep``'s and
+the exchange's) and writes ``DIR/trace.json`` (Chrome trace events) and
+``DIR/events.jsonl``, whose ``span_totals`` record holds per span name
+its count over the run and its host, self and device milliseconds a step
+(device ms on a card only: CUDA events at the spans' ends).
 """
 from __future__ import annotations
 
@@ -64,6 +70,10 @@ def parse_args(argv=None):
                          "warning | error (default: REPRO_LOG env or info)")
     ap.add_argument("--log-file", default=None,
                     help="mirror launcher output (timestamped) to a file")
+    ap.add_argument("--trace-dir", default=None,
+                    help="write the train step's spans (trace.json) and "
+                         "their totals a step (events.jsonl) under this "
+                         "directory -- rank 0 only under torchrun")
     return ap.parse_args(argv)
 
 
@@ -113,6 +123,9 @@ def main(argv=None):
                             quantize=args.quantize,
                             sampled_threshold_above=args.sampled_above)
     step = build_train_step(cfg, mesh, ex_cfg, lr=args.lr, remat=False)
+    if args.trace_dir and int(os.environ.get("RANK", 0)) == 0:
+        step.recorder = telemetry.Recorder(args.trace_dir,
+                                           device=device.type == "cuda")
     params = init_params(cfg, seed=0, device=device)
     if not mesh.model.lanes:
         # a rank keeps its model shard of every leaf
@@ -144,12 +157,34 @@ def main(argv=None):
             if int(os.environ.get("RANK", 0)) == 0:
                 save_checkpoint(args.checkpoint, params, step=args.steps)
                 log.info(f"[train] saved {args.checkpoint}")
+        if step.recorder.enabled:
+            _write_span_totals(step.recorder, args.steps, device)
     finally:
         if "WORLD_SIZE" in os.environ:
             import torch.distributed as dist
             mesh.close()
             dist.destroy_process_group()
     log.info("[train] done")
+
+
+def _write_span_totals(recorder, steps: int, device) -> None:
+    """Per span name its count over the run and its host, self and device
+    ms a step (device ms None off the card), as one ``span_totals``
+    record, then the recorder's files."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    spans = {}
+    for name, tot in recorder.totals().items():
+        dev_s = tot["device_s"]
+        spans[name] = {"count": tot["count"],
+                       "host_ms": 1e3 * tot["host_s"] / steps,
+                       "self_ms": 1e3 * tot["self_s"] / steps,
+                       "device_ms": (None if dev_s is None
+                                     else 1e3 * dev_s / steps)}
+    recorder.event("span_totals", steps=steps, spans=spans)
+    recorder.close()
 
 
 def _model_par(n: int) -> int:
