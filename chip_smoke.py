@@ -16,7 +16,12 @@ exits nonzero and prints no result line):
   kernel's rounds, out-of-range indices, -0 runs with +0 pads, k = 0 and
   1), the block top-k adversarial blocks (all equal, zeros of both signs,
   denormals, ties across lanes, infinities) at r from 1 to 1024 around its
-  regime switch and at a 4-byte offset; the multi-row scatter-add one such
+  regime switch and at a 4-byte offset, and its row regime (``row_topk``,
+  a row's exact top-k in one CTA) against the plain version and the
+  hierarchy at the benchmark cells' row shapes and at k = 1, around 64,
+  above 1,024 and k = n, on rows of 37, 1,000, 4,096 and ROW_MAX
+  elements, adversarial rows planted, at a 4-byte offset and strided, and
+  the engine's switch at ROW_MAX; the multi-row scatter-add one such
   case per lane of 16 permuted rows, each lane alone (B = 1), the identity
   rows, k = 0 and 600 lanes; the fused SAMomentum pass rows of 10, 2,049
   and 2,304 elements at 0-, 4- and 8-byte offsets with ties, denormals,
@@ -473,6 +478,7 @@ def kernel_phase(torch, timer, rate, results):
         launch_ms=t["launch_ms"], r32_ms=t32["ms"],
         r32_launch_ms=t32["launch_ms"], r32_plain_ms=t32["plain_ms"],
         r32_bound_ms=t32["bound_ms"], r32_library_ms=t32["library_ms"]))
+    row_kernels(torch, timer, rate, results, compare, errs)
 
     # 3. fused SAMomentum (kernel 4), its float32 fused multiply-adds
     # (4a, 4b) and the multi-row scatter-add (kernel 2)
@@ -1005,7 +1011,8 @@ def h_kernels(torch, timer, rate, results, compare):
     (65,024, 4,096) rows, k_row 205) through one worker's blockwise step:
     the accumulate (4a), the block top-r (3: r = 205 over the 520,192
     blocks of the rows padded to whole groups of 8 blocks, as the
-    selection launches it, adversarial blocks planted in its first rows),
+    hierarchy launches it, adversarial blocks planted in its first rows;
+    the selection itself takes the row regime, 3r, held by row_kernels),
     the fused pass at each row's threshold (4), the repair's
     scatter-add (2: 65,024 lanes, 127 launches of 512) and its fma (4b).
     Then row 2 at the exchange's other launches on that leaf: allgather's
@@ -1052,7 +1059,7 @@ def h_kernels(torch, timer, rate, results, compare):
     check(f"samomentum_accumulate/{tag}", (uacc,),
           (sk.velocity_accumulate_plain(u, g, momentum=m, lr=lr),))
     plant_blocks(torch, gen, uacc.view(-1, bt.BLOCK))
-    # the launch the selection makes: each row zero-padded to whole groups
+    # the launch the hierarchy makes: each row zero-padded to whole groups
     # of GROUP blocks
     blocks = torch.nn.functional.pad(
         uacc, (0, (-rest) % (bt.BLOCK * bt.GROUP))).view(-1, bt.BLOCK)
@@ -1135,6 +1142,157 @@ def h_kernels(torch, timer, rate, results, compare):
           bt.block_topk_2d(x, r=r2), bt.block_topk_plain(x, r2))
     del x
     torch.cuda.empty_cache()
+
+
+# the row regime at the benchmark cells' row shapes (S, n, k): chatglm3's
+# embedding and lm_head rows and its MLP leaves' view, minicpm3's shortest
+# and longest hinted rows, and a (2, 1,024) downward top-k2 of shardedps
+ROW_CELLS = ((65024, 4096, 205), (13696, 8192, 410), (5120, 512, 26),
+             (6400, 5120, 256), (2, 1024, 51))
+# (n, ks) of the edge cases: k = 1, around kSelectMaxR, above a block, k =
+# n; n not a multiple of 32 or of 4 (the scalar loads), n = ROW_MAX
+ROW_EDGES = ((4096, (1, 64, 65, 1500, 4096)), (1000, (1, 33, 999, 1000)),
+             (37, (1, 5, 37)), (8192, (1, 410, 8192)))
+
+
+def plant_rows(torch, gen, x2d):
+    """Adversarial rows for the row top-k, in place on rows 0-8 of
+    ``(S, n)``: all zero, zeros of both signs, two values of opposite sign
+    (ties at every rank), denormals of both signs, NaN among normals,
+    infinities of both signs, small integers, mostly zero with normals and
+    denormals, and planted ties around a 5% boundary."""
+    S, n = x2d.shape
+    dev = x2d.device
+
+    def normal(size=n):
+        return torch.randn(size, generator=gen, device=dev)
+
+    sign = torch.where(normal() > 0, 1.0, -1.0)
+    tiny = torch.tensor(1e-41, device=dev)        # below 2**-126
+    rows = [torch.zeros(n, device=dev), 0.0 * sign, 0.25 * sign,
+            torch.randint(1, 9, (n,), generator=gen,
+                          device=dev).float() * tiny * sign]
+    b = normal()
+    b[::17] = float("nan")
+    rows.append(b)
+    b = normal()
+    b[::13], b[1::13] = float("inf"), float("-inf")
+    rows.append(b)
+    rows.append(torch.round(normal() * 2))
+    b = torch.zeros(n, device=dev)
+    b[::50] = normal(len(range(0, n, 50)))
+    b[7::33] = tiny * sign[7::33]
+    rows.append(b)
+    b = normal()
+    b[b.abs() > 1.6] = 2.0 * torch.sign(b[b.abs() > 1.6])
+    rows.append(b)
+    for i, row in enumerate(rows[:S]):
+        x2d[i] = row
+
+
+def row_kernels(torch, timer, rate, results, compare, errs):
+    """The row regime of row 3 (``row_topk``), bit for bit against its
+    plain version and against the hierarchy it replaces
+    (``hierarchical_topk_rows`` at r = k), at the cells' row shapes with
+    adversarial rows planted, at the edge cases, at a 4-byte offset (the
+    scalar loads) and on strided rows; the engine's dispatch at ROW_MAX
+    and ROW_MAX + 1 by the launch counters.  Timed at every cell shape:
+    kernel, launch alone, plain version, ``torch.topk`` of |x| and the
+    hierarchy, beside the bound (the row read once, k values and indices
+    written)."""
+    from repro_torch.core.engine import BlockwiseEngine
+    from repro_torch.kernels import block_topk as bt
+    from repro_torch.kernels import build, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+
+    def three(name, x2d, k, want=None):
+        got = bt.row_topk_rows(x2d, k)
+        compare(f"row_topk/{name}", got,
+                want if want is not None else bt.row_topk_plain(x2d, k),
+                quiet=True)
+        compare(f"row_topk/{name} vs the hierarchy", got,
+                ops.hierarchical_topk_rows(x2d, k=k, r=k), quiet=True)
+
+    for n, ks in ROW_EDGES:
+        x = torch.randn(12, n, generator=gen, device="cuda")
+        plant_rows(torch, gen, x)
+        # the same rows at a 4-byte offset, and as strided rows of a wider
+        # tensor (a leaf's view of a batch of arenas)
+        shifted = torch.empty(12 * n + 1, device="cuda")
+        shifted[1:] = x.reshape(-1)
+        wide = torch.zeros(12, n + 7, device="cuda")
+        wide[:, 3:3 + n] = x
+        for k in ks:
+            want = bt.row_topk_plain(x, k)
+            three(f"({12}, {n}), k={k}", x, k)
+            three(f"({12}, {n}), k={k}, 4-byte offset",
+                  shifted[1:].view(12, n), k, want)
+            three(f"({12}, {n}), k={k}, strided rows", wide[:, 3:3 + n], k,
+                  want)
+        log(f"  row_topk: n={n}, k in {ks}: bit-equal to the plain version "
+            f"and the hierarchy, also at a 4-byte offset and strided")
+        del x, shifted, wide
+    timings = {}
+    for S, n, k in ROW_CELLS:
+        x = torch.randn(S, n, generator=gen, device="cuda")
+        plant_rows(torch, gen, x)
+        three(f"({S}, {n}), k={k}", x, k)
+        vals_o = torch.empty((S, k), device="cuda")
+        idx_o = torch.empty((S, k), dtype=torch.int32, device="cuda")
+        reps = 5 if S * n > 1 << 24 else 15
+        t = timings[(S, n, k)] = dict(
+            ms=timer(lambda: bt.row_topk_rows(x, k), reps=reps),
+            launch_ms=timer(lambda: build.library().row_topk(
+                x.data_ptr(), n, vals_o.data_ptr(), idx_o.data_ptr(), S, n,
+                k, build.stream()), reps=reps),
+            plain_ms=timer(lambda: bt.row_topk_plain(x, k), reps=reps),
+            library_ms=timer(lambda: torch.topk(x.abs(), k, dim=1),
+                             reps=reps),
+            hierarchy_ms=timer(lambda: ops.hierarchical_topk_rows(
+                x, k=k, r=k), reps=reps),
+            bound_ms=(4 * S * n + 8 * S * k) / rate * 1e3)
+        t["zero_rows_ms"] = None
+        if S > 10_000:      # the embedding early on: rows of absent tokens
+            x.zero_()
+            x[::32] = torch.randn(len(range(0, S, 32)), n, generator=gen,
+                                  device="cuda")
+            three(f"({S}, {n}), k={k}, 31 of 32 rows zero", x, k)
+            t["zero_rows_ms"] = timer(lambda: bt.row_topk_rows(x, k),
+                                      reps=reps)
+        host = host_us(torch, lambda: bt.row_topk_rows(x, k), calls=20)
+        log(f"  row_topk ({S}, {n}), k={k}: kernel {t['ms']:.4f} ms "
+            f"(launch alone {t['launch_ms']:.4f} ms; 31 of 32 rows zero "
+            f"{t['zero_rows_ms']} ms), plain {t['plain_ms']:.4f} ms, "
+            f"torch.topk {t['library_ms']:.4f} ms, the hierarchy "
+            f"{t['hierarchy_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['ms'] / t['bound_ms']:.2f}x); host per call {host:.1f} us")
+        del x, vals_o, idx_o
+        torch.cuda.empty_cache()
+
+    # the dispatch: ROW_MAX takes the row regime, ROW_MAX + 1 the hierarchy
+    eng = BlockwiseEngine()
+    for n, want in ((bt.ROW_MAX, (1, 0)), (bt.ROW_MAX + 1, (0, 1))):
+        x = torch.randn(3, n, generator=gen, device="cuda")
+        before = (bt.ROW_INFO.launches, bt.INFO.launches)
+        got = eng.select_rows(x, 410)
+        made = (bt.ROW_INFO.launches - before[0],
+                bt.INFO.launches - before[1])
+        if made != want:
+            raise AssertionError(f"row_topk: n={n} launched (row, block) "
+                                 f"{made}, expected {want}")
+        compare(f"row_topk/engine at n={n}", got,
+                bt.row_topk_plain(x, 410), quiet=True)
+    log(f"  row_topk: the engine takes the row regime at n = {bt.ROW_MAX} "
+        f"and the hierarchy at {bt.ROW_MAX + 1}")
+    emb = timings[ROW_CELLS[0]]
+    results.append(dict(
+        name=bt.ROW_INFO.name, route="cuda", source=bt.ROW_INFO.source,
+        replaces=bt.ROW_INFO.replaces, max_abs_err=errs["row_topk"],
+        ms=emb["ms"], plain_ms=emb["plain_ms"], bound_ms=emb["bound_ms"],
+        bound_by="bytes", library_ms=emb["library_ms"],
+        launch_ms=emb["launch_ms"],
+        cells={f"{S}x{n}/k{k}": t for (S, n, k), t in timings.items()}))
 
 
 G_SHARDS = 4        # phase G's shards: 4 of phase B's arena, one empty
@@ -1725,7 +1883,8 @@ FULL_DIMS = (512, 2048, 2304, 2048, 10)   # run_big's MLP
 # scatter-add's takes phase C's, the batched loop it was written for, and
 # the tern packing's phase D2's, the codec that packs
 SERIAL_ROWS = ("scatter_add", "block_topk", "samomentum_fused",
-               "samomentum_accumulate", "fma", "segment_quantize")
+               "samomentum_accumulate", "fma", "segment_quantize",
+               "row_topk")
 # the kernels the simulator's loops run (phases B and C); the tern packing
 # runs in the codec only, phase D
 SIM_KERNELS = SERIAL_ROWS + ("scatter_add_rows",)
@@ -1921,6 +2080,7 @@ def phase_b(torch, results, ref):
         for t, key in sorted(rows, reverse=True)[:10]:
             log(f"    {t / 1e3 / len(window):8.3f} ms/event  {key[:90]}")
         for label, part in (("block top-k", "block_topk_"),
+                            ("row top-k", "row_topk_"),
                             ("scatter-add (flat and rows)",
                              "scatter_add_kernel"),
                             ("SAMomentum passes and fma", "rowmap_kernel"),
@@ -2515,14 +2675,16 @@ def phase_f(torch, results, ref):
         f"accuracy {accs[0]:.3f} -> {accs[-1]:.3f} over {len(accs)} decodes")
 
     # the launches the pushes alone need: one segmented quantize a push,
-    # a block top-k a leaf a push, a flat scatter-add a push's commit and
+    # a top-k a leaf a push (the block top-k, or its row regime for a leaf
+    # of at most ROW_MAX elements), a flat scatter-add a push's commit and
     # an applied diff's; the rest of the run is D1's
     pushes = sum(cnt[f"sub/{i}/pushes"] - 1 for i in range(len(replicas)))
     applied = sum(r["diffs"] for r in replicas)
     need = {"segment_quantize": pushes,
-            "block_topk": space.n_leaves * pushes,
+            "block_topk+row_topk": space.n_leaves * pushes,
             "scatter_add": pushes + applied}
-    extra = {k: launches[k] - ref["d1_launches"][k] for k in need}
+    extra = {k: sum(launches[n] - ref["d1_launches"][n]
+                    for n in k.split("+")) for k in need}
     if any(extra[k] < need[k] for k in need):
         raise AssertionError(f"F1: launches beyond D1's {extra}, the pushes "
                              f"need at least {need}")
@@ -2741,8 +2903,8 @@ H_BATCH, H_SEQ, H_STEPS = 16, 128, 5
 H_LR, H_MOMENTUM, H_DENSITY = 0.05, 0.9, 0.05
 H_LAYERS = 2                # of chatglm3-6b's 28; H3 at 1
 # the kernel rows the allgather-blockwise exchange must launch: rows 1, 2,
-# 3, 4 and 4a
-H_ROWS = ("scatter_add", "scatter_add_rows", "block_topk",
+# 3 (its row regime: every hinted row and norm scale fits a CTA), 4 and 4a
+H_ROWS = ("scatter_add", "scatter_add_rows", "row_topk",
           "samomentum_fused", "samomentum_accumulate")
 
 

@@ -8,8 +8,12 @@ Three engines share the semantics contract of ``kernels/ref.py``:
 * ``sampled``   -- DGC-style sampled-threshold estimate, a sort-free
                    compaction of the passers into <= 4k candidates, and an
                    exact top-k over only those.
-* ``blockwise`` -- the kernel path: ``ops.hierarchical_topk`` (per-block
-                   top-r candidates, kernel 2) for selection,
+* ``blockwise`` -- the kernel path: for selection, a row of at most
+                   ``block_topk.ROW_MAX`` elements under an exact plan goes
+                   through ``block_topk.row_topk_rows`` (kernel 2's row
+                   regime: the row's exact top-k in one pass), any other
+                   through ``ops.hierarchical_topk_rows`` (per-block top-r
+                   candidates, kernel 2, then a candidate top-k);
                    ``samomentum_fused`` (kernel 3) for the threshold /
                    rescale pass, ``scatter_add_rows`` (kernel 4) and one
                    fused multiply-add for the support repair.  Exact
@@ -208,7 +212,13 @@ class SampledEngine:
 class BlockwiseEngine:
     """Hierarchical block selection: each 1024-element block emits its
     local top-``r`` candidates (kernel 2); a library top-k over the nb*r
-    candidates finishes the selection.  Exact whenever r >= k."""
+    candidates finishes the selection.  Exact whenever r >= k.
+
+    Where the plan is exact (r >= k, or r = BLOCK: every element a
+    candidate) and a row holds at most ``ROW_MAX`` elements, the row
+    regime gives the same answer in one pass (``row_topk_rows``: one CTA
+    a row, no padding, no candidate sort), so the row takes it; longer
+    rows and inexact plans keep the hierarchy."""
 
     name = "blockwise"
     block_r: int | None = None
@@ -235,12 +245,14 @@ class BlockwiseEngine:
     select = _select_flat
 
     def select_rows(self, x2d, k):
-        from repro_torch.kernels import ops
+        from repro_torch.kernels import block_topk, ops
 
         n = x2d.shape[1]
         r = self._plan(n, k)
         if r is None:
             return ExactEngine().select_rows(x2d, k)
+        if n <= block_topk.ROW_MAX and (r >= k or r == block_topk.BLOCK):
+            return block_topk.row_topk_rows(x2d, k)
         vals, idx = ops.hierarchical_topk_rows(x2d, k=k, r=r)
         # _plan guarantees >= k real candidates, so idx < n; the clamp is
         # decode safety only
@@ -361,8 +373,9 @@ def _samomentum_step_blockwise_rows(u2d, g2d, eng: BlockwiseEngine, *,
                                     momentum, lr, k):
     """The kernel path, one launch of each kernel for all rows:
 
-    1. ``hierarchical_topk_rows`` picks each row's support of the
-       accumulated velocity (kernel 2 over all rows' blocks),
+    1. ``eng.select_rows`` picks each row's support of the accumulated
+       velocity (kernel 2's row regime for short rows under an exact plan,
+       else its blocks over all rows and the candidate top-k),
     2. ``samomentum_fused_rows`` re-walks it once against each row's k-th
        candidate magnitude (kernel 3, one threshold per row), called as the
        reference calls it, on ``(uacc, uacc)`` with ``lr = 1 - m``

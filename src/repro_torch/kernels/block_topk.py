@@ -1,5 +1,5 @@
 """Per-block top-r candidate selection -- kernel 2 of the port
-(``csrc/block_topk.cu``).
+(``csrc/block_topk.cu``), and its row regime.
 
 Replaces the TPU's argmax-sweep kernel (``repro/kernels/block_topk.py``,
 ``block_topk_2d``).  For each block of 1024 elements: the r largest |x|,
@@ -8,7 +8,13 @@ the sign-cleared bit pattern: -0 ties +0, denormals rank by magnitude.  One
 warp per block; up to ``SELECT_MAX_R`` a radix select and a sort of the
 candidates, above it a register and merge sort of the whole block.
 
-The wrapper takes a CPU tensor to :func:`block_topk_plain` and launches the
+The row regime (:func:`row_topk_rows`, counted on ``ROW_INFO``) replaces
+no TPU kernel: for a row of at most ``ROW_MAX`` elements it gives the whole
+row's exact top-k in one pass -- what the block top-k at r >= k and the
+candidate combine (``ops.hierarchical_topk_rows``) give, in the same order
+and bits -- one CTA a row, bound by reading the row once (see the source).
+
+Each wrapper takes a CPU tensor to its plain version and launches the
 kernel for a CUDA tensor; anything else raises.
 """
 from __future__ import annotations
@@ -20,11 +26,17 @@ from . import build
 BLOCK = 1024     # elements per block
 GROUP = 8        # ops pads to whole groups of blocks, as the reference
 SELECT_MAX_R = 64   # kSelectMaxR in csrc/block_topk.cu: the regime switch
+ROW_MAX = 8192      # kRowMax in csrc/block_topk.cu: the longest row a CTA has
 
 INFO = build.KernelInfo(
     name="block_topk",
     source="src/repro_torch/kernels/csrc/block_topk.cu",
     replaces="src/repro/kernels/block_topk.py:34")
+ROW_INFO = build.KernelInfo(
+    name="row_topk",
+    source="src/repro_torch/kernels/csrc/block_topk.cu",
+    replaces="none: the row regime of src/repro/kernels/block_topk.py:34 "
+             "with src/repro/kernels/ops.py:57's candidate top-k")
 
 
 def block_topk_plain(x2d: torch.Tensor, r: int):
@@ -54,4 +66,41 @@ def block_topk_2d(x2d: torch.Tensor, *, r: int):
                                     idx.data_ptr(), nb, r, build.stream())
     build.check(rc, INFO.name)
     build.count(INFO)
+    return vals, idx
+
+
+def row_topk_plain(x2d: torch.Tensor, k: int):
+    """Plain PyTorch version of the row regime: a stable descending sort of
+    |x| per row, the first k (ties to the lower index)."""
+    idx = torch.sort(x2d.abs(), dim=1, descending=True, stable=True)[1][:, :k]
+    return torch.gather(x2d, 1, idx), idx.to(torch.int32)
+
+
+def row_topk_rows(x2d: torch.Tensor, k: int):
+    """Each row's exact top-k by |x|: x2d ``(S, n)`` with ``n <= ROW_MAX``
+    -> (vals ``(S, k)`` x.dtype, idx ``(S, k)`` int32 row-local indices),
+    |x| descending, ties to the lower index.  CPU -> plain version, CUDA ->
+    the kernel, ONE launch for all rows (rows may lie any stride apart)."""
+    if x2d.dim() != 2 or not 1 <= x2d.shape[1] <= ROW_MAX:
+        raise ValueError(f"row_topk_rows: shape {tuple(x2d.shape)}, "
+                         f"expected (S, n) with 1 <= n <= {ROW_MAX}")
+    S, n = x2d.shape
+    if not 1 <= k <= n:
+        raise ValueError(f"row_topk_rows: k={k} outside [1, {n}]")
+    if x2d.device.type == "cpu":
+        return row_topk_plain(x2d, k)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"row_topk_rows: no kernel for {x2d.device}")
+    build.require(x2d, "x2d", torch.float32, x2d.device, contiguous=False)
+    if x2d.stride(1) != 1:
+        x2d = x2d.contiguous()
+    vals = torch.empty((S, k), dtype=torch.float32, device=x2d.device)
+    idx = torch.empty((S, k), dtype=torch.int32, device=x2d.device)
+    if S == 0:
+        return vals, idx
+    ld = x2d.stride(0) if S > 1 else n
+    rc = build.library().row_topk(x2d.data_ptr(), ld, vals.data_ptr(),
+                                  idx.data_ptr(), S, n, k, build.stream())
+    build.check(rc, ROW_INFO.name)
+    build.count(ROW_INFO)
     return vals, idx

@@ -1,6 +1,7 @@
 // Per-block top-r by magnitude: for each block of 1024 elements, the r
 // largest |x|, ties to the lower index, as signed values and block-local
-// indices, in descending order of |x|.
+// indices, in descending order of |x|.  And, at the end of the file, the
+// row regime: a row's exact top-k in one pass (row_topk).
 //
 // Replaces: src/repro/kernels/block_topk.py, _kernel / block_topk_2d.
 //
@@ -383,6 +384,396 @@ block_topk_select_kernel(const float* __restrict__ x, float* __restrict__ vals,
                      vals, idx, b * r, r);
 }
 
+// ---------------------------------------------------------------------------
+// The row regime: row_topk
+//
+// Replaces no TPU kernel.  It is the row-length regime of this file's block
+// top-k together with its candidate combine (src/repro/kernels/ops.py,
+// hierarchical_topk: block winners, then lax.top_k over them): for a row of
+// at most kRowMax elements, the exact top-k by |x| of the whole row in one
+// pass, with the same answer as the hierarchy at r >= k -- signed values and
+// row-local indices, |x| descending, ties to the lower index, |x| the
+// sign-cleared bit pattern (-0 ties +0, denormals by magnitude, NaN above
+// inf).
+//
+// Why: the exchange's rows are short (4,096 to 8,192 elements) and its k
+// large (5% of a row), where the hierarchy pads each row to whole groups of
+// 8 blocks, fully sorts every block (r > kSelectMaxR) and then sorts some
+// 40% of the row again as candidates.  The bound is 4n bytes read and 8k
+// written a row; this kernel reads the row once and keeps it in registers.
+//
+// Design: one CTA a row (a row of at most 512 elements is one warp), 16
+// elements a thread, loaded with 16-byte loads where the row allows
+// (element 4 (T q + t) + c in register 4 q + c, T threads).  Padding past n
+// reads as +0 at an index >= n: it can tie only with zeros, after every real
+// one in index order, so it is never chosen (k <= n).
+//
+// 1. T, the k-th largest |x|, by a radix select over the 31 magnitude bits.
+//    The exponent first: walk down the exponents present from the largest,
+//    two exponents' floors a pass (block reductions of two counts and of
+//    the largest |x| below them), usually one pass.  Then the 23 mantissa
+//    bits in three digits (8, 8, 7): a shared histogram of the keys still
+//    in the band [lo, hi) -- few, so the atomics rarely meet -- which every
+//    warp scans for the digit itself (one barrier a pass).  Stop as soon as
+//    count(|x| >= lo) is exactly k: usually after one or two digits.
+// 2. Ties at T: if more than k lie at or above T, every |x| > T plus the
+//    lowest-index k - count(> T) ties, picked from a bit mask of the row by
+//    one block-wide scan of its words' popcounts.
+// 3. The k winners as this file's 64-bit keys, compacted in any order into
+//    dynamic shared memory, then put in order.  Up to 4 a thread: into 512
+//    buckets by |x| (top - |x|, shifted to fit), a scan of the bucket
+//    counts, each winner placed in its bucket's range and ranked there
+//    against the few others -- O(k) work where a sorting network takes
+//    O(k log^2 k).  A bucket of more than 32 (ties, few distinct values),
+//    or more than 4 winners a thread, takes a bitonic network in shared
+//    memory over P, the next power of two, instead.
+//
+// On an H100 the time goes to the dependent steps between barriers more
+// than to the bytes: the rows' loads alone run near the bound, and the
+// digit passes, the compaction and the ordering follow them; three CTAs an
+// SM (40 registers, a few spilled) beat two (PERF.md, row 3).
+
+constexpr int kRowMax = 8192;              // the longest row a CTA holds
+constexpr int kRowPerThread = 16;          // elements a thread
+constexpr int kRowThreads = kRowMax / kRowPerThread;
+constexpr int kRowMinBlocks = 3;           // CTAs of kRowThreads an SM
+constexpr int kKeysPerThread = 4;          // the bucket sort's winners
+constexpr int kRowWords = kRowMax / 32;    // tie mask words
+constexpr int kBuckets = 512;              // the winners' buckets
+constexpr int kBucketLog = 9;
+constexpr unsigned kBucketMax = 32;        // beyond it the bitonic sort
+
+struct RowShared {
+  unsigned hist[3][256];     // one histogram a mantissa digit
+  unsigned ties[kRowWords];  // tie bits in index order
+  alignas(16) unsigned bucket[kBuckets];   // winners a bucket, then starts
+  unsigned red[2][3][32];    // [parity][sum, sum, max][warp]
+  unsigned count;            // keys placed
+  unsigned bmax;             // the fullest bucket
+};
+
+// Sums of `a` and `b` and max of `mx` over the CTA, returned in place.
+// `parity` alternates the scratch so that one barrier a reduction suffices.
+__device__ __forceinline__ void block_reduce(unsigned& a, unsigned& b,
+                                             unsigned& mx, RowShared& sh,
+                                             int& parity, int lane, int warp,
+                                             int nwarps) {
+  const unsigned sa = __reduce_add_sync(kFull, a);
+  const unsigned sb = __reduce_add_sync(kFull, b);
+  const unsigned m = __reduce_max_sync(kFull, mx);
+  if (lane == 0) {
+    sh.red[parity][0][warp] = sa;
+    sh.red[parity][1][warp] = sb;
+    sh.red[parity][2][warp] = m;
+  }
+  __syncthreads();
+  const bool in = lane < nwarps;
+  a = __reduce_add_sync(kFull, in ? sh.red[parity][0][lane] : 0u);
+  b = __reduce_add_sync(kFull, in ? sh.red[parity][1][lane] : 0u);
+  mx = __reduce_max_sync(kFull, in ? sh.red[parity][2][lane] : 0u);
+  parity ^= 1;
+}
+
+// Ascending bitonic sort of P (a power of two) keys in shared memory.  A
+// stage of stride s <= 32 pairs keys inside the 64 that one warp's 32
+// consecutive pairs cover, so only a stage of stride >= 64, or one right
+// after it, needs the whole CTA's barrier.
+__device__ __forceinline__ void bitonic_sort_shared(unsigned long long* keys,
+                                                    int P, int t,
+                                                    int nthreads) {
+  const int pairs = P >> 1;
+  int prev = 0;
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int s = size >> 1; s > 0; s >>= 1) {
+      if (s >= 64 || prev >= 64)
+        __syncthreads();
+      else
+        __syncwarp();
+      for (int p = t; p < pairs; p += nthreads) {
+        const int i = ((p & ~(s - 1)) << 1) | (p & (s - 1));
+        unsigned long long a = keys[i], b = keys[i + s];
+        if ((a > b) == ((i & size) == 0)) {
+          keys[i] = b;
+          keys[i + s] = a;
+        }
+      }
+      prev = s;
+    }
+  }
+  __syncthreads();
+}
+
+// One CTA a row of x (blockIdx.x), rows ld elements apart; see above.
+__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
+row_topk_kernel(const float* __restrict__ x, long long ld,
+                float* __restrict__ vals, int32_t* __restrict__ idx, int n,
+                int k, int P) {
+  extern __shared__ unsigned long long keys[];   // P or 2P slots
+  __shared__ RowShared sh;
+  const int t = threadIdx.x, nthreads = blockDim.x;
+  const long long row = blockIdx.x;
+  const float* xr = x + row * ld;
+  for (int i = t; i < 3 * 256; i += nthreads) (&sh.hist[0][0])[i] = 0u;
+  for (int i = t; i < kRowWords; i += nthreads) sh.ties[i] = 0u;
+  for (int i = t; i < kBuckets; i += nthreads) sh.bucket[i] = 0u;
+  if (t == 0) sh.count = 0u;
+
+  auto elem = [&](int j) { return 4 * (nthreads * (j >> 2) + t) + (j & 3); };
+  unsigned bits[kRowPerThread];
+  if ((reinterpret_cast<uintptr_t>(xr) & 15) == 0 && (n & 3) == 0) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+#pragma unroll
+    for (int q = 0; q < kRowPerThread / 4; ++q) {
+      const int e = elem(4 * q);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < n) v = __ldg(x4 + (e >> 2));
+      bits[4 * q + 0] = __float_as_uint(v.x);
+      bits[4 * q + 1] = __float_as_uint(v.y);
+      bits[4 * q + 2] = __float_as_uint(v.z);
+      bits[4 * q + 3] = __float_as_uint(v.w);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRowPerThread; ++j) {
+      const int e = elem(j);
+      bits[j] = e < n ? __float_as_uint(__ldg(xr + e)) : 0u;
+    }
+  }
+  const int lane = t & 31, warp = t >> 5, nwarps = nthreads >> 5;
+  const long long out = row * k;
+  const unsigned kk = (unsigned)k;
+  int parity = 0;
+  unsigned top = 0, none = 0, none2 = 0;
+#pragma unroll
+  for (int j = 0; j < kRowPerThread; ++j) top = max(top, mag_of(bits[j]));
+  block_reduce(none, none2, top, sh, parity, lane, warp, nwarps);
+  if (top == 0) {  // an all-zero row: its first k elements, in index order
+    for (int e = t; e < k; e += nthreads) {
+      vals[out + e] = xr[e];
+      idx[out + e] = e;
+    }
+    return;
+  }
+
+  // 1. T's exponent.  From here on count(|x| >= lo) = c_lo >= k > c_hi =
+  // count(|x| >= hi), and [lo, hi) is the band still to resolve.  A pass
+  // counts at two exponents' floors, lo and the one below it.
+  unsigned lo = top & 0x7f800000u, c_hi = 0, c_lo;
+  for (;;) {
+    const unsigned lo2 = lo > 0 ? lo - 0x00800000u : 0u;
+    unsigned c = 0, c2 = 0, below = 0;
+#pragma unroll
+    for (int j = 0; j < kRowPerThread; ++j) {
+      const unsigned m = mag_of(bits[j]);
+      c += m >= lo ? 1u : 0u;
+      c2 += m >= lo2 ? 1u : 0u;
+      below = m < lo2 ? max(below, m) : below;
+    }
+    block_reduce(c, c2, below, sh, parity, lane, warp, nwarps);
+    if (c >= kk) {
+      c_lo = c;
+      break;
+    }
+    if (c2 >= kk) {
+      c_hi = c;
+      c_lo = c2;
+      lo = lo2;
+      break;
+    }
+    c_hi = c2;
+    lo = below & 0x7f800000u;
+  }
+  unsigned hi = lo + 0x00800000u;
+
+  // then the mantissa, one digit a pass, until exactly k lie at or above
+  // lo.  Every warp reads the histogram and finds the digit itself: the
+  // next pass fills another histogram, so one barrier a pass.
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    if (c_lo == kk) break;
+    const int shift = p == 0 ? 15 : (p == 1 ? 7 : 0);
+    unsigned* hist = sh.hist[p];
+#pragma unroll
+    for (int j = 0; j < kRowPerThread; ++j) {
+      const unsigned m = mag_of(bits[j]);
+      if (m >= lo && m < hi) atomicAdd(&hist[(m - lo) >> shift], 1u);
+    }
+    __syncthreads();
+    // lane l holds bins 32 q + l; the chunk of 32 bins holding the digit
+    // first (from the top), then the lane
+    unsigned h[8], tot[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      h[q] = hist[32 * q + lane];
+      tot[q] = __reduce_add_sync(kFull, h[q]);
+    }
+    unsigned acc = c_hi, v = 0;
+    int chunk = 0;
+#pragma unroll
+    for (int q = 7; q >= 0; --q) {
+      if (acc + tot[q] >= kk) {
+        chunk = q;
+        v = h[q];
+        break;
+      }
+      acc += tot[q];
+    }
+    unsigned incl = v;   // this lane's bin and every higher one of the chunk
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned u = __shfl_down_sync(kFull, incl, o);
+      if (lane + o < 32) incl += u;
+    }
+    const int at = 31 - __clz(__ballot_sync(kFull, acc + incl >= kk));
+    const unsigned at_incl = __shfl_sync(kFull, incl, at);
+    c_hi = acc + at_incl - __shfl_sync(kFull, v, at);
+    c_lo = acc + at_incl;
+    lo += (unsigned)(32 * chunk + at) << shift;
+    hi = lo + (1u << shift);
+  }
+
+  // 2. More than k at or above lo: lo is T, and the lowest-index k - c_hi
+  // ties at T join every |x| > T.
+  const bool tie = c_lo > kk;
+  if (tie) {
+#pragma unroll
+    for (int j = 0; j < kRowPerThread; ++j) {
+      if (mag_of(bits[j]) == lo) {
+        const int i = elem(j);
+        atomicOr(&sh.ties[i >> 5], 1u << (i & 31));
+      }
+    }
+    __syncthreads();
+    const int nwords = nthreads * kRowPerThread / 32;
+    unsigned word = t < nwords ? sh.ties[t] : 0u;
+    const unsigned c = __popc(word);
+    unsigned incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) sh.red[parity][0][warp] = incl;
+    __syncthreads();
+    const unsigned before = __reduce_add_sync(
+        kFull, lane < warp ? sh.red[parity][0][lane] : 0u);
+    parity ^= 1;
+    const unsigned excl = before + incl - c, need = kk - c_hi;
+    unsigned take = need > excl ? min(need - excl, c) : 0u, kept = 0;
+    for (; take > 0; --take) {
+      const unsigned low = word & (0u - word);
+      kept |= low;
+      word ^= low;
+    }
+    if (t < nwords) sh.ties[t] = kept;
+    __syncthreads();
+  }
+
+  // 3. The k winners' keys into shared memory, in any order, then sorted
+  unsigned chosen = 0, cnt = 0;
+#pragma unroll
+  for (int j = 0; j < kRowPerThread; ++j) {
+    const unsigned m = mag_of(bits[j]);
+    const int i = elem(j);
+    const bool take = tie ? m > lo || (m == lo &&
+                                       ((sh.ties[i >> 5] >> (i & 31)) & 1u))
+                          : m >= lo;
+    chosen |= take ? 1u << j : 0u;
+    cnt += take ? 1u : 0u;
+  }
+  unsigned incl = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
+  }
+  unsigned base = 0;
+  if (lane == 31 && incl > 0) base = atomicAdd(&sh.count, incl);
+  unsigned pos = __shfl_sync(kFull, base, 31) + incl - cnt;
+#pragma unroll
+  for (int j = 0; j < kRowPerThread; ++j)
+    if ((chosen >> j) & 1u) keys[pos++] = make_key(bits[j], elem(j));
+  __syncthreads();
+  if (k <= kKeysPerThread * nthreads) {
+    // up to kKeysPerThread winners a thread (e = t + q T), into buckets by
+    // |x|, the largest first: bucket (top - |x|) >> sh_b of [0, kBuckets),
+    // every winner lying in [lo, top]
+    const unsigned w = 32 - __clz(top - lo);
+    const unsigned sh_b = w > kBucketLog ? w - kBucketLog : 0;
+    unsigned long long key[kKeysPerThread];
+    unsigned b[kKeysPerThread], slot[kKeysPerThread];
+#pragma unroll
+    for (int q = 0; q < kKeysPerThread; ++q) {
+      const int e = t + q * nthreads;
+      key[q] = e < k ? keys[e] : ~0ull;
+      b[q] = (top - (0x7fffffffu - (unsigned)(key[q] >> 32))) >> sh_b;
+      slot[q] = e < k ? atomicAdd(&sh.bucket[b[q]], 1u) : 0u;
+    }
+    __syncthreads();
+    if (warp == 0) {   // each bucket's start: an exclusive scan in place
+      constexpr int kPer = kBuckets / 32;
+      uint4* mine = reinterpret_cast<uint4*>(sh.bucket) + lane * (kPer / 4);
+      unsigned c[kPer], sum = 0, most = 0;
+#pragma unroll
+      for (int q = 0; q < kPer / 4; ++q) {
+        const uint4 v = mine[q];
+        c[4 * q] = v.x;
+        c[4 * q + 1] = v.y;
+        c[4 * q + 2] = v.z;
+        c[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        sum += c[q];
+        most = max(most, c[q]);
+      }
+      unsigned incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned u = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += u;
+      }
+      unsigned run = incl - sum;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const unsigned cq = c[q];
+        c[q] = run;
+        run += cq;
+      }
+#pragma unroll
+      for (int q = 0; q < kPer / 4; ++q)
+        mine[q] = make_uint4(c[4 * q], c[4 * q + 1], c[4 * q + 2],
+                             c[4 * q + 3]);
+      most = __reduce_max_sync(kFull, most);
+      if (lane == 0) sh.bmax = most;
+    }
+    __syncthreads();
+    if (sh.bmax <= kBucketMax) {
+      // place each winner in its bucket's range, then rank it there
+      unsigned long long* placed = keys + P;
+#pragma unroll
+      for (int q = 0; q < kKeysPerThread; ++q)
+        if (t + q * nthreads < k) placed[sh.bucket[b[q]] + slot[q]] = key[q];
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kKeysPerThread; ++q) {
+        if (t + q * nthreads >= k) continue;
+        const unsigned start = sh.bucket[b[q]];
+        const unsigned end = b[q] + 1 < kBuckets ? sh.bucket[b[q] + 1] : kk;
+        unsigned r = 0;
+        for (unsigned e = start; e < end; ++e)
+          r += placed[e] < key[q] ? 1u : 0u;
+        emit(key[q], vals, idx, out + start + r);
+      }
+      return;
+    }
+  }
+  for (int e = k + t; e < P; e += nthreads) keys[e] = ~0ull;
+  __syncthreads();
+  bitonic_sort_shared(keys, P, t, nthreads);
+  for (int e = t; e < k; e += nthreads) emit(keys[e], vals, idx, out + e);
+}
+
 }  // namespace
 
 extern "C" int block_topk(const void* x, void* vals, void* idx, long long nb,
@@ -402,5 +793,32 @@ extern "C" int block_topk(const void* x, void* vals, void* idx, long long nb,
     block_topk_sort_kernel<<<grid, kWarpsPerCta * 32, 0, s>>>(
         xf, (float*)vals, (int32_t*)idx, nb, r);
   }
+  return (int)cudaGetLastError();
+}
+
+// Each row of (S, n) float32, rows ld elements apart: its exact top-k by
+// |x| into vals (S, k) float32 and idx (S, k) int32, one CTA a row.
+extern "C" int row_topk(const void* x, long long ld, void* vals, void* idx,
+                        long long S, int n, int k, void* stream) {
+  if (S == 0) return 0;
+  if (n < 1 || n > kRowMax || k < 1 || k > n || S > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  int P = 1;
+  while (P < k) P <<= 1;
+  constexpr int kWarpElems = 32 * kRowPerThread;
+  const int threads = 32 * ((n + kWarpElems - 1) / kWarpElems);
+  // the winners, and the buckets' second buffer where they run
+  const size_t dyn = sizeof(unsigned long long) * (size_t)P *
+                     (k <= kKeysPerThread * threads ? 2 : 1);
+  static bool wide = false;   // the dynamic shared memory raised once
+  if (dyn > 32768 && !wide) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        row_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sizeof(unsigned long long) * kRowMax));
+    if (e != cudaSuccess) return (int)e;
+    wide = true;
+  }
+  row_topk_kernel<<<(unsigned)S, threads, dyn, (cudaStream_t)stream>>>(
+      (const float*)x, ld, (float*)vals, (int32_t*)idx, n, k, P);
   return (int)cudaGetLastError();
 }

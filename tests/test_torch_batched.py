@@ -169,15 +169,22 @@ def test_scatter_add_rows_refuses_rows_that_do_not_fit_the_lanes(rows, lanes):
 
 def test_kernel_constants_match_the_cuda_source():
     """The wrapper's launch count and the tests' round size follow the
-    constants of csrc/scatter_apply.cu."""
+    constants of csrc/scatter_apply.cu; the engine's switch to the row
+    regime follows csrc/block_topk.cu's longest row a CTA holds."""
     import re
     from pathlib import Path
 
-    src = (Path(scatter_apply.__file__).parent / "csrc"
-           / "scatter_apply.cu").read_text()
+    from repro_torch.kernels import block_topk
+
+    csrc = Path(scatter_apply.__file__).parent / "csrc"
+    src = (csrc / "scatter_apply.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kMaxLanes"]) == scatter_apply.MAX_LANES
     assert int(consts["kCap"]) == scatter_apply.ROUND
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                             (csrc / "block_topk.cu").read_text()))
+    assert int(consts["kRowMax"]) == block_topk.ROW_MAX
+    assert int(consts["kSelectMaxR"]) == block_topk.SELECT_MAX_R
 
 
 def test_rows_wrappers_take_the_plain_path_on_the_cpu(monkeypatch):
