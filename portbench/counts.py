@@ -8,6 +8,7 @@ full 700 W power limit: 989 TFLOP/s in bf16, 3.35 TB/s of HBM3.
 from __future__ import annotations
 
 import math
+from fractions import Fraction
 
 from . import ref_dgs
 
@@ -15,12 +16,26 @@ PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
-def _matrix_macs_per_token(layout) -> int:
+def _matrix_macs_per_token(cfg, layout):
     """Multiply-adds a token spends in the model's projections: every
     ``matrix`` leaf (the embedding, a lookup, is not one), a stacked leaf
-    once per layer."""
-    return sum(math.prod(shape) for _, shape, init in layout
-               if init == "matrix")
+    once per layer.  A routed expert tensor (:func:`ref_dgs.is_expert`,
+    as ``moe/up``) counts ``top_k / E_router`` of its size: a token visits
+    ``top_k`` (the configuration's ``moe.top_k``) of the ``E_router``
+    experts that the router beside it (``moe/router/w``) scores, its
+    output width, and the leaf holds those of them that are here.  The
+    router and shared-expert leaves are plain matrices."""
+    shapes = {path: shape for path, shape, _ in layout}
+    macs = 0
+    for path, shape, init in layout:
+        if init != "matrix":
+            continue
+        size = math.prod(shape)
+        if ref_dgs.is_expert(path, shape):
+            e_router = shapes[path[:-1] + ("router", "w")][-1]
+            size = Fraction(size * cfg["moe"]["top_k"], e_router)
+        macs += size
+    return macs
 
 
 def _attention_macs_per_sequence(cfg, seq: int) -> int:
@@ -39,11 +54,13 @@ def _attention_macs_per_sequence(cfg, seq: int) -> int:
 def train_step_flops(cfg, layout, traffic) -> float:
     """A train step's model FLOPs: the forward's products (2 FLOPs a
     multiply-add) and the backward's (twice the forward's), over the
-    global batch; no recompute."""
+    global batch; no recompute; a routed expert's products for the
+    tokens routed to it alone (:func:`_matrix_macs_per_token`)."""
     batch, seq = traffic["batch"], traffic["seq"]
-    macs = (_matrix_macs_per_token(layout) * batch * seq
+    macs = (_matrix_macs_per_token(cfg, layout) * batch * seq
             + _attention_macs_per_sequence(cfg, seq) * batch)
-    return 3 * 2 * macs
+    flops = 3 * 2 * macs
+    return int(flops) if flops.denominator == 1 else float(flops)
 
 
 def exchange_least_bytes(layout, traffic) -> int:

@@ -27,6 +27,7 @@ import re
 import statistics
 import sys
 import time
+import typing
 from pathlib import Path
 
 import numpy as np
@@ -128,16 +129,30 @@ def leaf_of(tree, path):
 
 # ---------------------------------------------------------------- program --
 
+def _schema_part(cls, mapping: dict):
+    """``cls`` built from ``mapping``: a value that is itself a mapping
+    becomes the dataclass its field is annotated with (``MLAConfig``,
+    ``MoEConfig``, ``SSMConfig``, ...).  A key that is no field raises."""
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for key, val in mapping.items():
+        hint = hints.get(key)
+        part = next((t for t in (hint, *typing.get_args(hint))
+                     if dataclasses.is_dataclass(t)), None)
+        if isinstance(val, dict) and part is not None:
+            val = _schema_part(part, val)
+        kw[key] = val
+    return cls(**kw)
+
+
 def port_config(config: dict):
     """The program's model configuration from the configuration file's
-    fields of its schema."""
-    from repro_torch.models.config import MLAConfig, ModelConfig
+    fields of its schema, its nested parts as their dataclasses."""
+    from repro_torch.models.config import ModelConfig
 
     names = {f.name for f in dataclasses.fields(ModelConfig)}
-    kw = {k: v for k, v in config.items() if k in names}
-    if kw.get("mla"):
-        kw["mla"] = MLAConfig(**kw["mla"])
-    return ModelConfig(**kw)
+    return _schema_part(ModelConfig,
+                        {k: v for k, v in config.items() if k in names})
 
 
 def build_program(cell: Cell, layout, device):

@@ -16,15 +16,29 @@ configuration's ``blockwise`` engine is exact at the cells' k, since it
 keeps ``min(k, 1024)`` candidates a block).
 
 How a leaf is cut into rows (the per-row thresholds of the exchange) is
-this module's own frozen rule: a leaf's *row dim* is its projection's
-output dim for the query, key, value, gate, up and latent-expansion
-projections and the head, its input dim for the output and down
-projections, and the vocabulary for the embedding; every other leaf
-(norm scales, the latent down-projections) has none.  With a row dim the
-rows are that dim's, the rest of the leaf in order their columns; without
-one a leaf is one row (``allgather`` selects over it whole when it has
-fewer than 2**24 entries).  Every leaf's k is ``round(size * density)``,
-a row's ``ceil(k / rows)``.
+this module's own frozen rule.  A leaf's *row dim* (of its core dims: a
+stacked leaf, under ``units``, has a leading layer dim before them) is
+
+* the output (last) dim of the query, key, value, gate, up,
+  latent-expansion (``wq_b``, ``wkv_b``) and SSM input (``in_proj``)
+  projections, weight and bias, and of the head (``lm_head``);
+* the input (first) dim of the output, down and SSM output
+  (``out_proj``) projections;
+* the vocabulary of the embedding (``table``);
+* the expert dim of a mixture-of-experts layer's expert tensors
+  (``moe``'s ``gate``, ``up`` and ``down``, three core dims);
+* the channel or head (last) dim of the SSM's per-channel and per-head
+  leaves (``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``);
+
+and every other leaf (norm scales and biases, the latent
+down-projections ``wq_a`` and ``wkv_a``, the router) has none.  With a
+row dim the rows are that dim's and the rest of the leaf in order their
+columns.  Without one a leaf is one row; but ``allgather`` selects over
+it whole only when it has fewer than 2**24 entries, and cuts a larger one
+into rows of its first dim.  Where a row would hold more than 2**22
+entries and more than one further dim is left, the leading further dims
+fold into the rows, one at a time, as long as that holds.  Every leaf's k
+is ``round(size * density)``, a row's ``ceil(k / rows)``.
 """
 from __future__ import annotations
 
@@ -35,24 +49,59 @@ import numpy as np
 import torch
 
 # leaf owners whose row dim is the last (output) dim, and the first
-_ROWS_LAST = {"wq", "wk", "wv", "gate", "up", "wq_b", "wkv_b", "lm_head"}
-_ROWS_FIRST = {"wo", "down"}
+_ROWS_LAST = {"wq", "wk", "wv", "gate", "up", "wq_b", "wkv_b", "lm_head",
+              "in_proj"}
+_ROWS_FIRST = {"wo", "down", "out_proj"}
+# a mixture-of-experts layer's expert tensors, rows of the expert dim
+_EXPERTS = {"gate", "up", "down"}
+# the SSM's per-channel and per-head leaves, rows of their last dim
+_CHANNELS = {"conv_w", "conv_b", "A_log", "dt_bias", "D"}
+ROW_MAX = 1 << 22
+
+
+def _core(path, shape) -> int:
+    """The number of the leaf's core dims (a stacked leaf's layer dim
+    left out)."""
+    return len(shape) - (1 if path[0] == "units" else 0)
+
+
+def is_expert(path, shape) -> bool:
+    """Whether the leaf is a mixture-of-experts layer's routed expert
+    tensor: ``moe``'s ``gate``, ``up`` or ``down``, with three core dims
+    (experts first)."""
+    return (path[-2] == "moe" and path[-1] in _EXPERTS
+            and _core(path, shape) == 3)
 
 
 def row_dim(path, shape):
     """The leaf's row dim (None: no row dim)."""
     stacked = path[0] == "units"
-    core = len(shape) - (1 if stacked else 0)
+    core = _core(path, shape)
     owner, last = path[-2], path[-1]
     if last == "table":
+        d = 0
+    elif is_expert(path, shape):
         d = 0
     elif owner in _ROWS_LAST and last in ("w", "b"):
         d = core - 1
     elif owner in _ROWS_FIRST and last == "w":
         d = 0
+    elif last in _CHANNELS:
+        d = core - 1
     else:
         return None
     return d + (1 if stacked else 0)
+
+
+def fold(shape, ax):
+    """(S, rest): the rows of dim ``ax``, leading further dims folded
+    into them while a row holds more than 2**22 entries and more than one
+    further dim is left."""
+    dims = list(shape)
+    S = dims.pop(ax)
+    while math.prod(dims) > ROW_MAX and len(dims) > 1:
+        S *= dims.pop(0)
+    return S, math.prod(dims)
 
 
 def density_to_k(size: int, density: float) -> int:
@@ -82,14 +131,11 @@ def cut(path, shape, mode: str, density: float, W: int,
     if whole and mode == "allgather" and size >= 1 << 24:
         # too large to select over whole: rows of its first dim
         ax = 0
-        S, rest = shape[0], size // shape[0]
+        S, rest = fold(shape, ax)
     elif whole:
         S, rest, ax = 1, size, None
     else:
-        S, rest = shape[ax], size // shape[ax]
-        if rest > 1 << 22 and len(shape) > 2:
-            raise ValueError(f"{path}: rows of {rest} columns are not cut "
-                             f"further by this reference")
+        S, rest = fold(shape, ax)
     k_row = max(1, min(rest, -(-k // S)))
     if mode == "allgather":
         return Cut(S, rest, ax, k_row)

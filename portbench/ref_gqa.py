@@ -21,6 +21,10 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+# the widths at which the CPU tests drive this family (the configuration's
+# keys they replace)
+TINY = dict(d_model=16, n_heads=2, n_kv_heads=1, head_dim=8, d_ff=16,
+            vocab_size=32)
 
 # ---------------------------------------------------------------- layout --
 

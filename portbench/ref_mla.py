@@ -12,6 +12,12 @@ import torch
 
 from . import ref_gqa as base
 
+# the widths at which the CPU tests drive this family (the configuration's
+# keys they replace)
+TINY = dict(d_model=16, n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=32,
+            mla=dict(q_lora_rank=8, kv_lora_rank=8, qk_nope_head_dim=4,
+                     qk_rope_head_dim=4, v_head_dim=4, absorb=False))
+
 
 def attention_layout(cfg):
     m = cfg["mla"]

@@ -1,6 +1,6 @@
 """Shared pieces of the benchmark's tests: the ``card`` marker, a fixture
 that skips a card test where there is no CUDA device (decided when the
-test runs, never at import), and tiny cells of both reference families
+test runs, never at import), and tiny cells of every reference family
 that the CPU tests drive through the harness."""
 import copy
 
@@ -32,24 +32,14 @@ def card():
     return "cuda"
 
 
-TINY = {
-    "ref_gqa": dict(d_model=16, n_heads=2, n_kv_heads=1, head_dim=8,
-                    d_ff=16, vocab_size=32),
-    "ref_mla": dict(d_model=16, n_heads=2, n_kv_heads=2, d_ff=16,
-                    vocab_size=32,
-                    mla=dict(q_lora_rank=8, kv_lora_rank=8,
-                             qk_nope_head_dim=4, qk_rope_head_dim=4,
-                             v_head_dim=4, absorb=False)),
-}
-
-
 def tiny_cell(name: str) -> harness.Cell:
     """The benchmark's cell ``name`` at a tiny size: its configuration's
-    widths and its traffic's batch cut down, everything else (mode,
-    workers, density, the limits) as the cell has it."""
+    widths (its reference's ``TINY``) and its traffic's batch cut down,
+    everything else (mode, workers, density, the limits) as the cell has
+    it."""
     cell = harness.load_cell(name)
     config = copy.deepcopy(cell.config)
-    config.update(TINY[config["reference"]])
+    config.update(copy.deepcopy(harness.reference(config).TINY))
     traffic = dict(cell.traffic, batch=8, seq=8, distinct_batches=4)
     traffic.pop("reference_rows", None)
     return harness.Cell(name=name, config=config, traffic=traffic,

@@ -51,17 +51,34 @@ def test_cell_files_found_by_name(name):
     tree = abstract_params(harness.port_config(cell.config))
     assert {p: tuple(harness.leaf_of(tree, p).shape) for p, _, _ in layout} \
         == {p: tuple(s) for p, s, _ in layout}
-    # 2 layers at the published widths
-    assert sum(math.prod(s) for _, s, _ in layout) == {
-        "chatglm3-6b": 940_602_368, "minicpm3-4b": 501_406_208}[
-            cell.config["name"]]
+    # the count the configuration's file states at its cut
+    assert sum(math.prod(s) for _, s, _ in layout) == cell.config["parameters"]
+
+
+# what a configuration may cut (its depth; the experts and the part of the
+# vocabulary one chip of a stated deployment holds), each to no less than
+# its floor of the published count
+CUTS = {"n_layers": lambda published: 1,
+        "moe.n_experts": lambda published: 8,
+        "vocab_size": lambda published: -(-published // 8)}
+
+
+def _value(config, key):
+    for part in key.split("."):
+        config = config[part]
+    return config
 
 
 def test_configs_keep_published_widths():
     for conf in BENCH["configs"]:
         c = harness.load_json(harness.ROOT / conf["file"])
-        assert conf["reduced"] == sorted(c["reduced"]) == ["n_layers"]
-        assert c["n_layers"] == c["reduced"]["n_layers"]["here"]
+        for key, cut in c["reduced"].items():
+            assert CUTS[key](cut["published"]) <= cut["here"] \
+                < cut["published"]
+            assert _value(c, key) == cut["here"]
+        # BENCHMARK.json names each cut by its key, a nested one by its group
+        assert conf["reduced"] == sorted(
+            key.split(".")[0] for key in c["reduced"])
 
 
 def test_guard_compares_whole_top_level_names():
@@ -91,6 +108,29 @@ def test_train_step_flops_by_hand():
     traffic = {"batch": 2, "seq": 3}
     assert counts.train_step_flops(cfg, layout, traffic) == \
         6 * (macs_token * 6 + macs_attention * 2)
+
+
+@pytest.mark.parametrize("router, expert_macs", [(64, 18), (80, 14.4)])
+def test_train_step_flops_by_hand_moe(router, expert_macs):
+    # one MoE layer holding 8 of the experts its router scores, top-6: of
+    # 64 the experts here take 6 * 8 / 64 = 0.75 of a token's choices, of
+    # 80 0.6
+    cfg = dict(n_layers=1, n_heads=2, head_dim=4, moe=dict(top_k=6))
+    layout = [(("embed", "table"), (32, 4), "embedding"),
+              (("lm_head", "w"), (4, 32), "matrix"),
+              (("units", "b0", "moe", "down"), (1, 8, 2, 4), "matrix"),
+              (("units", "b0", "moe", "gate"), (1, 8, 4, 2), "matrix"),
+              (("units", "b0", "moe", "router", "w"), (1, 4, router),
+               "matrix"),
+              (("units", "b0", "moe", "up"), (1, 8, 4, 2), "matrix"),
+              (("units", "b0", "norm1", "scale"), (1, 4), "ones")]
+    # per token: lm_head 4x32, the router 4 x router, and that share of an
+    # expert's gate, up and down (3 x 4 x 2) multiply-adds
+    macs_token = 128 + 4 * router + expert_macs
+    macs_attention = 1 * 2 * 8 * 6
+    traffic = {"batch": 2, "seq": 3}
+    assert counts.train_step_flops(cfg, layout, traffic) == \
+        pytest.approx(6 * (macs_token * 6 + macs_attention * 2), rel=1e-15)
 
 
 def test_exchange_least_bytes_by_hand():
