@@ -41,6 +41,7 @@ from repro_torch.core.paramspace import (tree_flatten, tree_leaves,
 from repro_torch.models import config as mcfg
 from repro_torch.models.model import (abstract_params, decode_step, loss_fn,
                                       prefill)
+from repro_torch.telemetry import trace
 from repro_torch.telemetry.trace import NULL
 
 from . import sharding as shard_rules
@@ -77,8 +78,12 @@ class TrainStep:
     ``recorder`` (``telemetry.Recorder``; the no-op ``NULL`` by default)
     records ``train/step`` around ``train/grads``, ``train/exchange`` and
     ``train/apply``; in ``grads`` per lane ``grads/lane`` around
-    ``grads/forward``, ``grads/backward`` and ``grads/copy``; and the
-    exchange's phases (``core.distributed``)."""
+    ``grads/forward``, ``grads/backward`` and ``grads/copy``; the
+    model's own spans and counters (the MoE's, ``models.moe``), which
+    reach it through ``telemetry.trace.current`` with the lane during the
+    forward only (a rematerialised forward, recomputed in the backward,
+    records nothing a second time); and the exchange's phases
+    (``core.distributed``)."""
 
     cfg: mcfg.ModelConfig
     mesh: object
@@ -116,7 +121,8 @@ class TrainStep:
                 part = {key: val[w * b:(w + 1) * b]
                         for key, val in batch.items()}
                 if tp.size > 1:
-                    with span("grads/forward", lane=i):
+                    with span("grads/forward", lane=i), \
+                            trace.recording(self.recorder, lane=i):
                         loss = loss_fn(trees, part, self.cfg,
                                        remat=self.remat, tp=tp)[0]
                     with span("grads/backward", lane=i):
@@ -129,7 +135,8 @@ class TrainStep:
                     losses.append(loss.detach())
                     continue
                 live_leaves = [p.detach().requires_grad_() for p in leaves]
-                with span("grads/forward", lane=i):
+                with span("grads/forward", lane=i), \
+                        trace.recording(self.recorder, lane=i):
                     loss = loss_fn(tree_unflatten(paths, live_leaves), part,
                                    self.cfg, remat=self.remat)[0]
                 with span("grads/backward", lane=i):

@@ -170,7 +170,8 @@ def main(argv=None):
 def _write_span_totals(recorder, steps: int, device) -> None:
     """Per span name its count over the run and its host, self and device
     ms a step (device ms None off the card), as one ``span_totals``
-    record, then the recorder's files."""
+    record, then the recorder's files (the device counters' totals in its
+    ``counters`` record)."""
     import torch
 
     if device.type == "cuda":

@@ -245,10 +245,16 @@ def mla_init(init: Init, cfg: ModelConfig):
     m = cfg.mla
     d, H = cfg.d_model, cfg.n_heads
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank is None:
+        q = {"wq": linear_init(init, d, H * qd, dtype=cfg.pdtype)}
+    else:
+        q = {"wq_a": linear_init(init, d, m.q_lora_rank, dtype=cfg.pdtype),
+             "q_norm": norm_init(init, "rmsnorm", m.q_lora_rank,
+                                 dtype=cfg.pdtype),
+             "wq_b": linear_init(init, m.q_lora_rank, H * qd,
+                                 dtype=cfg.pdtype)}
     return {
-        "wq_a": linear_init(init, d, m.q_lora_rank, dtype=cfg.pdtype),
-        "q_norm": norm_init(init, "rmsnorm", m.q_lora_rank, dtype=cfg.pdtype),
-        "wq_b": linear_init(init, m.q_lora_rank, H * qd, dtype=cfg.pdtype),
+        **q,
         "wkv_a": linear_init(init, d, m.kv_lora_rank + m.qk_rope_head_dim,
                              dtype=cfg.pdtype),
         "kv_norm": norm_init(init, "rmsnorm", m.kv_lora_rank,
@@ -271,11 +277,13 @@ def _mla_qkv(params, x, positions, cfg: ModelConfig):
 
 def mla_latents(params, x, cfg: ModelConfig):
     """The head-independent part of MLA: (the normed query latent
-    (B,S,q_rank), the normed KV latent c_kv (B,S,rank), the unrotated rope
-    key (B,S,1,dr))."""
+    (B,S,q_rank), or ``x`` itself where the query has no latent, the
+    normed KV latent c_kv (B,S,rank), the unrotated rope key
+    (B,S,1,dr))."""
     m = cfg.mla
     B, S, _ = x.shape
-    q_lat = rmsnorm(params["q_norm"], linear(params["wq_a"], x))
+    q_lat = (x if m.q_lora_rank is None
+             else rmsnorm(params["q_norm"], linear(params["wq_a"], x)))
     kv_a = linear(params["wkv_a"], x)
     c_kv = rmsnorm(params["kv_norm"], kv_a[..., :m.kv_lora_rank])
     k_rope = kv_a[..., m.kv_lora_rank:].reshape(B, S, 1, m.qk_rope_head_dim)
@@ -283,17 +291,31 @@ def mla_latents(params, x, cfg: ModelConfig):
 
 
 def mla_heads(params, q_lat, k_rope, positions, cfg: ModelConfig):
-    """The heads of ``params["wq_b"]`` (all, or a model shard's) from the
-    query latent: (q_nope, q_rope, k_rope), the two rope parts rotated."""
+    """The heads of ``params["wq_b"]`` (``params["wq"]`` without a query
+    latent; all, or a model shard's) from the query latent: (q_nope,
+    q_rope, k_rope), the two rope parts rotated."""
     m = cfg.mla
     B, S, _ = q_lat.shape
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
-    q = linear(params["wq_b"], q_lat)
+    q = linear(params["wq" if m.q_lora_rank is None else "wq_b"], q_lat)
     q = q.reshape(B, S, q.shape[-1] // (dn + dr), dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope, k_rope = rope_lib.standard_rope(q_rope, k_rope, positions,
-                                            theta=cfg.rope_theta)
+                                            theta=cfg.rope_theta,
+                                            scaling=cfg.rope_scaling)
     return q_nope, q_rope, k_rope
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """The scores' scale: ``(dn + dr) ** -0.5``, times YaRN's ``mscale(
+    mscale_all_dim) ** 2`` under YaRN (DeepSeek-V2's softmax scale)."""
+    m = cfg.mla
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    sc = cfg.rope_scaling
+    if sc is not None and sc.mscale_all_dim:
+        ms = rope_lib.yarn_mscale(sc.factor, sc.mscale_all_dim)
+        scale = scale * ms * ms
+    return scale
 
 
 def _mla_expand_kv(params, c_kv, cfg: ModelConfig):
@@ -310,7 +332,7 @@ def mla_forward(params, x, positions, cfg: ModelConfig, *,
                 chunk_q: int = 512, return_kv: bool = False, **_):
     """Training/prefill MLA, query-block chunked. x: (B,S,d) -> (B,S,d)
     (and the layer's :class:`MLACache` when ``return_kv``).  Scores scale
-    by ``(dn + dr) ** -0.5``."""
+    by :func:`mla_scale`."""
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
     k_nope, v = _mla_expand_kv(params, c_kv, cfg)   # (B,S,H,dn), (B,S,H,dv)
     out = mla_attend(q_nope, q_rope, k_nope, k_rope, v, cfg, chunk_q=chunk_q)
@@ -328,7 +350,7 @@ def mla_attend(q_nope, q_rope, k_nope, k_rope, v, cfg: ModelConfig, *,
     B, S, H, dn = q_nope.shape
     m = cfg.mla
     dr, dv = m.qk_rope_head_dim, m.v_head_dim
-    scale = (dn + dr) ** -0.5
+    scale = mla_scale(cfg)
     C = min(chunk_q, S)
     while S % C:
         C -= 1
@@ -404,7 +426,7 @@ def mla_decode_attend(params, cache: MLACache, q_nope, q_rope, pos: int,
     dr, dv = m.qk_rope_head_dim, m.v_head_dim
     L = cache.c_kv.shape[1]
     valid = torch.arange(L, device=q_nope.device) <= pos
-    scale = (dn + dr) ** -0.5
+    scale = mla_scale(cfg)
     qn = q_nope[:, 0].to(torch.float32)                      # (B,H,dn)
     qr = q_rope[:, 0].to(torch.float32)                      # (B,H,dr)
     s_rope = qr @ cache.k_rope.to(torch.float32).transpose(1, 2)  # (B,H,L)

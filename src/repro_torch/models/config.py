@@ -8,6 +8,11 @@ hyperparameters; ``reduced()`` derives the CPU smoke-test variant.  The
 schema is the reference's field for field; ``pdtype``/``cdtype`` are torch
 dtypes.  The port's model runs the dense GQA and MoE families
 (``models/model.py``).
+
+Fields past the reference's default to the reference's behaviour:
+``RopeScaling`` (YaRN), ``MLAConfig.q_lora_rank = None`` (a query
+without a latent), the held-expert, shared-expert and balance fields of
+``MoEConfig`` and ``first_k_dense_replace`` (DeepSeek-V2's families).
 """
 from __future__ import annotations
 
@@ -23,18 +28,45 @@ class MoEConfig:
     top_k: int
     d_expert: int                  # per-expert FFN hidden size
     capacity_factor: float = 1.25
-    impl: Literal["dense", "capacity"] = "capacity"
+    impl: Literal["dense", "capacity", "dropless"] = "capacity"
     router_aux_weight: float = 0.01
+    # the router's outputs when this layer holds only some of the experts
+    # (expert parallelism): it holds [first_expert, first_expert +
+    # n_experts) of n_router (None: all n_experts, from 0)
+    n_router: int | None = None
+    first_expert: int = 0
+    n_shared: int = 0              # shared experts: one MLP n_shared * d_expert wide
+    norm_topk: bool = True         # renormalise the top-k weights
+    # the balance loss: Switch's load balance plus the z-loss, or
+    # DeepSeek-V2's sequence-wise loss alone, summed over the layers
+    balance: Literal["switch", "sequence"] = "switch"
+
+    @property
+    def router_width(self) -> int:
+        return self.n_router or self.n_experts
 
 
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:
-    q_lora_rank: int = 768
+    q_lora_rank: int | None = 768    # None: the query without a latent
     kv_lora_rank: int = 256
     qk_nope_head_dim: int = 64
     qk_rope_head_dim: int = 32
     v_head_dim: int = 64
     absorb: bool = False           # absorbed decode matmuls (§Perf)
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """YaRN (arXiv:2309.00071) as DeepSeek-V2 configures it, under its
+    ``rope_scaling`` keys."""
+    type: Literal["yarn"]
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +99,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     rope_theta_local: float | None = None  # gemma3: separate local theta
     rotary_pct: float = 1.0                # partial rotary fraction (chatglm)
+    rope_scaling: RopeScaling | None = None
     # blocks
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     activation: Literal["swiglu", "geglu", "gelu", "silu"] = "swiglu"
@@ -75,6 +108,7 @@ class ModelConfig:
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
+    first_k_dense_replace: int = 0         # leading dense layers before the MoE
     attn_every: int = 0                    # hybrid: shared attn every N layers
     shared_attention: bool = False         # hybrid: attn params shared
     # modality stub
@@ -125,8 +159,9 @@ class ModelConfig:
         return kinds
 
     def unit_pattern(self) -> tuple[list[str], int]:
-        """(pattern, n_units): layers = pattern * n_units; scan over units."""
-        kinds = self.layer_kinds()
+        """(pattern, n_units): the layers after the leading dense ones =
+        pattern * n_units; scan over units."""
+        kinds = self.layer_kinds()[self.first_k_dense_replace:]
         # find the smallest repeating pattern that tiles the layer list
         for plen in range(1, len(kinds) + 1):
             if len(kinds) % plen:
@@ -143,9 +178,10 @@ class ModelConfig:
             n += self.vocab_size * d
         per_layer = 0
         kinds = self.layer_kinds()
-        for kind in kinds:
+        for i, kind in enumerate(kinds):
             if kind.startswith("attn"):
-                per = self._attn_params() + self._ffn_params()
+                per = self._attn_params() + self._ffn_params(
+                    dense=i < self.first_k_dense_replace)
             elif kind == "mamba":
                 per = self._mamba_params()
             elif kind == "mamba_attn":
@@ -161,21 +197,22 @@ class ModelConfig:
         if self.attention == "mla":
             m = self.mla
             qd = m.qk_nope_head_dim + m.qk_rope_head_dim
-            return (d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qd
-                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+            q = (d * self.n_heads * qd if m.q_lora_rank is None else
+                 d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qd)
+            return (q + d * (m.kv_lora_rank + m.qk_rope_head_dim)
                     + m.kv_lora_rank * self.n_heads
                     * (m.qk_nope_head_dim + m.v_head_dim)
                     + self.n_heads * m.v_head_dim * d)
         return (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                 + self.n_heads * hd * d)
 
-    def _ffn_params(self) -> int:
+    def _ffn_params(self, dense: bool = False) -> int:
         d = self.d_model
-        if self.moe is not None:
-            e = self.moe
-            gates = 3 if self.activation in ("swiglu", "geglu") else 2
-            return d * e.n_experts + e.n_experts * gates * d * e.d_expert
         gates = 3 if self.activation in ("swiglu", "geglu") else 2
+        if self.moe is not None and not dense:
+            e = self.moe
+            return (d * e.router_width + e.n_experts * gates * d * e.d_expert
+                    + gates * d * e.n_shared * e.d_expert)
         return gates * d * self.d_ff
 
     def _mamba_params(self) -> int:

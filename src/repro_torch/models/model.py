@@ -8,7 +8,11 @@ units on a leading dim.  ``forward`` walks the units in a Python loop,
 each reading its slice of the stacked leaves (the reference's
 ``lax.scan``).  An attention block is GQA or MLA, its FFN the dense MLP
 or, when ``cfg.moe`` is set, the MoE (``models.moe``), whose router aux
-losses are averaged over the layers.  A ``mamba`` block is the Mamba2/SSD
+losses are averaged over the layers (DeepSeek-V2's sequence-wise balance
+loss is summed over them).  The first
+``cfg.first_k_dense_replace`` layers (DeepSeek-V2's leading dense layers)
+are attention blocks with the dense MLP, unstacked under ``dense.l{i}``,
+before the units.  A ``mamba`` block is the Mamba2/SSD
 mixer (``models.ssm``); a ``mamba_attn`` block follows it with the shared
 attention block (zamba2).  The modality families take the frontend's
 patch or frame embeddings in place of the first ``frontend_tokens``
@@ -39,7 +43,8 @@ from .layers import (Init, embed, embedding_init, linear, linear_init, mlp,
 
 # ------------------------------------------------------------------- init --
 
-def _block_init(init: Init, cfg: ModelConfig, kind: str):
+def _block_init(init: Init, cfg: ModelConfig, kind: str, *,
+                dense: bool = False):
     if kind in ("mamba", "mamba_attn"):
         return {
             "norm1": norm_init(init, cfg.norm, cfg.d_model, dtype=cfg.pdtype),
@@ -51,7 +56,7 @@ def _block_init(init: Init, cfg: ModelConfig, kind: str):
                  else attn.gqa_init)(init, cfg),
         "norm2": norm_init(init, cfg.norm, cfg.d_model, dtype=cfg.pdtype),
     }
-    if cfg.moe is not None:
+    if cfg.moe is not None and not dense:
         p["moe"] = moe_lib.moe_init(init, cfg)
     else:
         p["mlp"] = mlp_init(init, cfg.d_model, cfg.d_ff,
@@ -84,6 +89,9 @@ def _init(init: Init, cfg: ModelConfig):
         "final_norm": norm_init(init, cfg.norm, cfg.d_model,
                                 dtype=cfg.pdtype),
     }
+    if cfg.first_k_dense_replace:
+        params["dense"] = {f"l{i}": _block_init(init, cfg, "attn", dense=True)
+                           for i in range(cfg.first_k_dense_replace)}
     units = init.stacked(n_units)
     params["units"] = {f"b{i}": _block_init(units, cfg, kind)
                        for i, kind in enumerate(pattern)}
@@ -112,11 +120,11 @@ def abstract_params(cfg: ModelConfig):
 
 # ---------------------------------------------------------------- forward --
 
-def _ffn(bp, hn, cfg: ModelConfig):
+def _ffn(bp, hn, cfg: ModelConfig, layer: int = 0):
     """The block's FFN on its normed input: (out, aux), the MoE's router
     losses or None for the dense MLP."""
-    if cfg.moe is not None:
-        return moe_lib.moe_forward(bp["moe"], hn, cfg)
+    if "moe" in bp:
+        return moe_lib.moe_forward(bp["moe"], hn, cfg, layer=layer)
     return mlp(bp["mlp"], hn, activation=cfg.activation), None
 
 
@@ -139,10 +147,11 @@ def _apply_shared(shared, h, positions, cfg: ModelConfig, *,
 
 
 def _apply_block(bp, h, positions, cfg: ModelConfig, kind: str, shared, *,
-                 want_cache: bool = False):
-    """One block: (h, its aux losses or None, the layer's cache or None:
-    a KVCache or MLACache, or for a mamba block ``{"ssm": SSMCache}`` and,
-    after the shared attention, ``"shared": KVCache``)."""
+                 want_cache: bool = False, layer: int = 0):
+    """One block, layer ``layer`` of the model: (h, its aux losses or
+    None, the layer's cache or None: a KVCache or MLACache, or for a
+    mamba block ``{"ssm": SSMCache}`` and, after the shared attention,
+    ``"shared": KVCache``)."""
     if kind in ("mamba", "mamba_attn"):
         out = ssm_lib.mamba_forward(bp["mamba"],
                                     norm(cfg.norm, bp["norm1"], h), cfg,
@@ -165,7 +174,7 @@ def _apply_block(bp, h, positions, cfg: ModelConfig, kind: str, shared, *,
     if want_cache:
         out, cache = out
     h = h + out
-    out, aux = _ffn(bp, norm(cfg.norm, bp["norm2"], h), cfg)
+    out, aux = _ffn(bp, norm(cfg.norm, bp["norm2"], h), cfg, layer)
     return h + out, aux, cache
 
 
@@ -222,6 +231,9 @@ def _forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
     sinusoidal positions are added, as in the reference, so they get
     theirs too."""
     pattern, n_units = cfg.unit_pattern()
+    n_dense = cfg.first_k_dense_replace
+    if n_dense and want_cache:
+        raise NotImplementedError("caches of leading dense layers")
     B, S = tokens.shape
     h = embed(params["embed"], tokens).to(cfg.cdtype)
     h = multimodal.merge_frontend(cfg, h, frontend_embeds)
@@ -231,12 +243,12 @@ def _forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
         h = h + _sinusoidal(cfg.d_model, p).to(h.dtype)
     shared = params.get("shared")
 
-    def unit_fn(h, lb, rz, unit_params):
+    def unit_fn(h, lb, rz, unit_params, first):
         caches = {}
         for i, kind in enumerate(pattern):
             h, aux, caches[f"b{i}"] = _apply_block(
                 unit_params[f"b{i}"], h, positions, cfg, kind, shared,
-                want_cache=want_cache)
+                want_cache=want_cache, layer=first + i)
             if aux is not None:
                 lb = lb + aux["load_balance"]
                 rz = rz + aux["router_z"]
@@ -244,19 +256,32 @@ def _forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
 
     lb = torch.zeros((), dtype=torch.float32, device=tokens.device)
     rz = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(n_dense):
+        h = _apply_block(params["dense"][f"l{i}"], h, positions, cfg, "attn",
+                         shared, layer=i)[0]
     unit_caches = []
-    for unit_params in _unit_slices(params["units"], n_units):
+    for u, unit_params in enumerate(_unit_slices(params["units"], n_units)):
+        first = n_dense + u * len(pattern)
         if remat:
             h, lb, rz, caches = checkpoint(unit_fn, h, lb, rz, unit_params,
-                                           use_reentrant=False)
+                                           first, use_reentrant=False)
         else:
-            h, lb, rz, caches = unit_fn(h, lb, rz, unit_params)
+            h, lb, rz, caches = unit_fn(h, lb, rz, unit_params, first)
         unit_caches.append(caches)
     logits = _head(params, h, cfg)
-    aux = {"load_balance": lb / cfg.n_layers, "router_z": rz / cfg.n_layers}
+    aux = _router_aux(cfg, lb, rz)
     if not want_cache:
         return logits, aux, None
     return logits, aux, _stack_caches(unit_caches)
+
+
+def _router_aux(cfg: ModelConfig, lb, rz):
+    """The MoE layers' router losses from their sums over the layers:
+    DeepSeek-V2's sequence-wise balance loss as the sum (what the loss
+    adds), else both averaged over all the layers (the reference's)."""
+    if cfg.moe is not None and cfg.moe.balance == "sequence":
+        return {"load_balance": lb, "router_z": rz}
+    return {"load_balance": lb / cfg.n_layers, "router_z": rz / cfg.n_layers}
 
 
 def _stack_caches(unit_caches):
@@ -309,6 +334,12 @@ def next_token_nll(logits, tgt):
     return torch.mean(lse - tgt_logit)
 
 
+def _no_dense_lead(cfg: ModelConfig, what: str):
+    if cfg.first_k_dense_replace:
+        raise NotImplementedError(f"{what} of a model with leading dense "
+                                  f"layers")
+
+
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False,
             tp=None):
     """batch: {"tokens": (B,S), optional "frontend_embeds" (B, n, d)}.
@@ -318,6 +349,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False,
     reference's.  Over a model axis ``tp`` of size > 1, ``params`` is the
     list of the local shards' trees (``models.tensor_parallel``)."""
     if _sharded(tp):
+        _no_dense_lead(cfg, "the sharded forward")
         from . import tensor_parallel
         return tensor_parallel.loss_fn(params, batch, cfg, tp, remat=remat)
     tokens = batch["tokens"]
@@ -326,7 +358,10 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False,
                               remat=remat)
     nll = next_token_nll(logits[:, :-1], tokens[:, 1:].to(torch.int64))
     loss = nll
-    if cfg.moe is not None:
+    if cfg.moe is not None and cfg.moe.balance == "sequence":
+        # DeepSeek-V2 adds each MoE layer's sequence loss, with no z-loss
+        loss = loss + cfg.moe.router_aux_weight * aux["load_balance"]
+    elif cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * (
             aux["load_balance"] + aux["router_z"])
     return loss, {"nll": nll, **aux}
@@ -346,6 +381,7 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
     place.  Over a model axis ``tp`` of size > 1: one tree per local
     shard."""
     device = resolve_device(device)
+    _no_dense_lead(cfg, "decode")
     if _sharded(tp):
         from . import tensor_parallel
         return tensor_parallel.init_caches(cfg, batch, seq_len, tp,
@@ -382,6 +418,7 @@ def decode_step(params, caches, token, pos, cfg: ModelConfig, *,
     returns (logits (B, 1, V) float32, caches).  Over a model axis ``tp``
     of size > 1, ``params`` and ``caches`` are lists of the local shards'
     trees."""
+    _no_dense_lead(cfg, "decode")
     if _sharded(tp):
         from . import tensor_parallel
         return tensor_parallel.decode_step(params, caches, token, pos, cfg,
@@ -435,6 +472,7 @@ def prefill(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
     of size > 1, ``params`` is the list of the local shards' trees and the
     caches are one tree per shard."""
     if _sharded(tp):
+        _no_dense_lead(cfg, "the sharded prefill")
         from . import tensor_parallel
         return tensor_parallel.prefill(params, tokens, cfg, tp,
                                        frontend_embeds=frontend_embeds,

@@ -5,9 +5,12 @@ M-RoPE (Qwen2-VL's three sections), with per-layer theta (PyTorch port of
 All functions take and return ``(B, S, H, D)`` query/key tensors.  The
 rotation acts on interleaved pairs ``(x0, x1) -> (-x1, x0)``, not on
 halves, and the frequencies are float64 cast to float32, as the
-reference's.
+reference's.  ``rope_scaling`` (``config.RopeScaling``) takes YaRN's
+blended frequencies (DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding``).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -24,17 +27,53 @@ def _freqs(dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 * mscale * ln(factor) + 1`` (1 at a
+    factor of at most 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_freqs(dim: int, theta: float, scaling) -> np.ndarray:
+    """YaRN's inverse frequencies: the pairs that turn fewer than
+    ``beta_slow`` times over the original context are divided by
+    ``factor``, those that turn more than ``beta_fast`` times are kept,
+    and a linear ramp over the pair index blends the ones between."""
+    def corr(rotations):
+        return dim * math.log(scaling.original_max_position_embeddings
+                              / (rotations * 2 * math.pi)) \
+            / (2 * math.log(theta))
+
+    low = max(math.floor(corr(scaling.beta_fast)), 0)
+    high = min(math.ceil(corr(scaling.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float64) - low)
+                   / (high - low), 0.0, 1.0)
+    base = _freqs(dim, theta)
+    return base / scaling.factor * ramp + base * (1.0 - ramp)
+
+
 def _interleave2(x):
     """[a, b, ...] -> [a, a, b, b, ...]."""
     return torch.stack([x, x], dim=-1).reshape(*x.shape[:-1], -1)
 
 
-def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
-    """cos/sin tables for given integer positions. -> (..., dim) each."""
-    inv = torch.from_numpy(_freqs(dim, theta).astype(np.float32)).to(
-        positions.device)
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float,
+                 scaling=None):
+    """cos/sin tables for given integer positions. -> (..., dim) each.
+    Under YaRN (``scaling``) the tables are scaled by ``mscale(mscale) /
+    mscale(mscale_all_dim)``."""
+    freqs = (_freqs(dim, theta) if scaling is None
+             else _yarn_freqs(dim, theta, scaling))
+    inv = torch.from_numpy(freqs.astype(np.float32)).to(positions.device)
     ang = positions[..., None].to(torch.float32) * inv  # (..., dim/2)
-    return _interleave2(torch.cos(ang)), _interleave2(torch.sin(ang))
+    cos, sin = _interleave2(torch.cos(ang)), _interleave2(torch.sin(ang))
+    if scaling is not None:
+        m = (yarn_mscale(scaling.factor, scaling.mscale)
+             / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
+    return cos, sin
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -51,7 +90,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def standard_rope(q, k, positions, *, theta: float = 10000.0,
-                  rotary_dim: int | None = None):
+                  rotary_dim: int | None = None, scaling=None):
     """Standard RoPE over the first ``rotary_dim`` dims of the head.
 
     rotary_dim < head_dim gives ChatGLM-style partial ("2d") rotary: GLM
@@ -59,7 +98,7 @@ def standard_rope(q, k, positions, *, theta: float = 10000.0,
     """
     D = q.shape[-1]
     rd = rotary_dim or D
-    cos, sin = rope_cos_sin(positions, rd, theta)
+    cos, sin = rope_cos_sin(positions, rd, theta, scaling)
     if rd == D:
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     q_rot = apply_rope(q[..., :rd], cos, sin)

@@ -31,8 +31,15 @@ after the caller has synchronised, adds each name's device seconds (the
 stream interval between its two events, idle included).  While a
 ``torch.profiler`` profile runs such a recorder's spans also enter a
 ``record_function`` range of their name, so the profiler's trace holds
-them on the clock of its device operations.  Only this mode imports
-torch.
+them on the clock of its device operations.  Only this mode and
+:meth:`Recorder.tally` import torch.
+
+Device counters: ``rec.tally("moe.pairs_held", t)`` adds (or with
+``reduce="max"`` maxes) a device tensor into a device-side total, with no
+sync; :meth:`Recorder.tallies` and :meth:`Recorder.flush` read the totals.
+Model code reaches the recorder of the step that runs it through
+:func:`current` (with the step's arguments, such as ``lane``), set by
+:func:`recording`; outside one it is :data:`NULL`.
 
 All methods are thread-safe (the cluster runtime records from coordinator
 and client threads) and cheap enough to leave in hot host loops; the
@@ -41,6 +48,8 @@ runners can thread one object through unconditionally.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import itertools
 import json
 import os
@@ -127,6 +136,8 @@ class Recorder:
         # per span name: [count, host seconds, self host seconds]
         self._totals: dict[str, list] = {}
         self._device_events: dict[str, list] = {}
+        # per device counter: [count, reduce, device tensor]
+        self._tallies: dict[str, list] = {}
         self._torch = None
         if device:
             import torch
@@ -207,6 +218,30 @@ class Recorder:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
 
+    def tally(self, name: str, value, reduce: str = "sum") -> None:
+        """Add (``reduce="sum"``) or max (``"max"``) the device tensor
+        ``value`` into the counter ``name``, on the device: nothing is
+        read until :meth:`tallies` or :meth:`flush`."""
+        import torch
+
+        value = value.detach()
+        with self._lock:
+            entry = self._tallies.get(name)
+            if entry is None:
+                self._tallies[name] = [1, reduce, value.clone()]
+                return
+            entry[0] += 1
+            entry[2] = (entry[2] + value if entry[1] == "sum"
+                        else torch.maximum(entry[2], value))
+
+    def tallies(self) -> dict:
+        """Per device counter: ``count`` (of tallies) and ``value`` (its
+        total as a number), read from the device here."""
+        with self._lock:
+            tallies = {k: (v[0], v[2]) for k, v in self._tallies.items()}
+        return {k: {"count": n, "value": t.item()}
+                for k, (n, t) in tallies.items()}
+
     # -- lifecycle ---------------------------------------------------------
 
     def flush(self) -> list[str]:
@@ -214,10 +249,12 @@ class Recorder:
         without one); returns the paths written."""
         if self.run_dir is None:
             return []
+        tallies = {k: v["value"] for k, v in self.tallies().items()}
         with self._lock:
-            if self.counters:
+            if self.counters or tallies:
                 rec = {"t": round(time.perf_counter() - self._t0, 6),
-                       "kind": "counters", "counters": dict(self.counters)}
+                       "kind": "counters",
+                       "counters": {**self.counters, **tallies}}
                 self._jsonl.append(json.dumps(rec))
             trace = list(self._trace)
             lines = list(self._jsonl)
@@ -262,7 +299,13 @@ class NullRecorder(Recorder):
     def count(self, name, n=1):
         pass
 
+    def tally(self, name, value, reduce="sum"):
+        pass
+
     def totals(self):
+        return {}
+
+    def tallies(self):
         return {}
 
     def flush(self):
@@ -270,3 +313,24 @@ class NullRecorder(Recorder):
 
 
 NULL = NullRecorder()
+
+
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_recorder", default=(NULL, {}))
+
+
+def current() -> tuple:
+    """(the recorder of the step that runs this code, the step's span
+    arguments): :data:`NULL` and none outside :func:`recording`."""
+    return _CURRENT.get()
+
+
+@contextlib.contextmanager
+def recording(recorder, **args):
+    """Make ``recorder`` and ``args`` what :func:`current` returns inside
+    the block."""
+    token = _CURRENT.set((recorder, args))
+    try:
+        yield recorder
+    finally:
+        _CURRENT.reset(token)

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
+from port_fields import reference_fields
 
 from repro.configs import ARCHS as JARCHS
 from repro.configs.shapes import InputShape as JShape
@@ -72,18 +73,14 @@ def _port_cfg(cfg):
             if f.name not in ("moe", "mla", "ssm")})
 
 
-def _fields(cfg) -> dict:
-    return dataclasses.asdict(cfg)
-
-
 @pytest.mark.parametrize("name", NAMES)
 def test_config_fields_count_and_reduced(name):
     jc, tc = JARCHS[name], TARCHS[name]
-    assert _fields(tc) == _fields(jc)
+    assert reference_fields(tc) == reference_fields(jc)
     assert tc.param_count() == jc.param_count()
     assert str(tc.pdtype).removeprefix("torch.") == str(jc.pdtype)
     assert str(tc.cdtype).removeprefix("torch.") == str(jc.cdtype)
-    assert _fields(tc.reduced()) == _fields(jc.reduced())
+    assert reference_fields(tc.reduced()) == reference_fields(jc.reduced())
     assert tc.reduced().param_count() == jc.reduced().param_count()
     assert tc.layer_kinds() == jc.layer_kinds()
     assert tc.unit_pattern() == jc.unit_pattern()

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from port_fields import reference_fields
 
 from repro.configs import ARCHS as JARCHS
 from repro.core.distributed import rows_view as jrows_view
@@ -55,7 +56,7 @@ def _pair(name="qwen3-moe-235b-a22b", *, dtype="float32", **moe):
     tc = dataclasses.replace(
         TARCHS[name].reduced(), compute_dtype=dtype,
         moe=TMoE(**dataclasses.asdict(jc.moe)))
-    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert reference_fields(tc) == reference_fields(jc)
     return jc, tc
 
 
