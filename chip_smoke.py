@@ -479,6 +479,7 @@ def kernel_phase(torch, timer, rate, results):
         r32_launch_ms=t32["launch_ms"], r32_plain_ms=t32["plain_ms"],
         r32_bound_ms=t32["bound_ms"], r32_library_ms=t32["library_ms"]))
     row_kernels(torch, timer, rate, results, compare, errs)
+    sam_row_kernels(torch, timer, rate, results, compare, errs)
 
     # 3. fused SAMomentum (kernel 4), its float32 fused multiply-adds
     # (4a, 4b) and the multi-row scatter-add (kernel 2)
@@ -1292,6 +1293,131 @@ def row_kernels(torch, timer, rate, results, compare, errs):
         ms=emb["ms"], plain_ms=emb["plain_ms"], bound_ms=emb["bound_ms"],
         bound_by="bytes", library_ms=emb["library_ms"],
         launch_ms=emb["launch_ms"],
+        cells={f"{S}x{n}/k{k}": t for (S, n, k), t in timings.items()}))
+
+
+def sam_row_kernels(torch, timer, rate, results, compare, errs):
+    """The row-wise SAMomentum step in one pass (``samomentum_row_topk``),
+    bit for bit in values, indices and the new velocity against its plain
+    version on the same inputs (the float64-emulated accumulate, the plain
+    row top-k, the mask rescale: NaNs read as one pattern, as for row 4a)
+    and against the chain it replaces on the card (row 4a's accumulate,
+    row 3r's ``row_topk``, the support mask and the rescale), out of place
+    and in place over u: at the allgather cells' row shapes (``ROW_CELLS``'
+    first four: chatglm3's embedding and lm_head rows, its MLP leaves'
+    view, minicpm3's shortest hinted rows and its MLP rows) with tie-heavy
+    rows planted (u's adversarial rows under g = 0, g's under u = 0), at
+    the edges (k = n, n odd, a row of 2), at another lr, at a 4-byte
+    offset and on strided rows.  Timed at every cell shape as the exchange
+    calls it (in place): kernel, launch alone, the chain, rows 4a and 3r
+    alone, the plain version, beside the bound (u and g read once, u
+    written once, k values and indices a row)."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import block_topk as bt
+    from repro_torch.kernels import build, samomentum_kernel
+    from repro_torch.arith import rcp
+
+    m, lr0 = H_MOMENTUM, H_LR
+    gen = torch.Generator(device="cuda").manual_seed(33)
+
+    def chain(u, g, lr, k):
+        uacc = samomentum_kernel.velocity_accumulate(u, g, momentum=m,
+                                                     lr=lr)
+        vals, idx = bt.row_topk_rows(uacc, k)
+        mask = engine.rows_support_mask(idx, uacc.shape[1])
+        return vals, idx, engine.samomentum_rescale(uacc, mask, m)
+
+    def planted(S, n):
+        u = torch.randn(S, n, generator=gen, device="cuda")
+        g = torch.randn(S, n, generator=gen, device="cuda")
+        h = min(S, 18)
+        plant_rows(torch, gen, u[:h])
+        g[:9] = 0.0
+        plant_rows(torch, gen, g[9:h])
+        u[9:h] = 0.0
+        return u, g
+
+    def check(name, u, g, k, lr=lr0):
+        plain = bt.samomentum_row_topk_plain(u, g, momentum=m, lr=lr, k=k)
+        want = chain(u, g, lr, k)
+        got = bt.samomentum_row_topk_rows(u, g, momentum=m, lr=lr, k=k)
+        compare(f"samomentum_row_topk/{name}", got, plain, quiet=True,
+                nan_as_one=True)
+        compare(f"samomentum_row_topk_chain/{name}", got, want, quiet=True)
+        mine = u.clone()
+        got = bt.samomentum_row_topk_rows(mine, g, momentum=m, lr=lr, k=k,
+                                          out=mine)
+        compare(f"samomentum_row_topk/{name}, in place", got, plain,
+                quiet=True, nan_as_one=True)
+        compare(f"samomentum_row_topk_chain/{name}, in place", got, want,
+                quiet=True)
+        del plain, want, got, mine
+
+    for S, n, ks in ((12, 4096, (1, 205, 4096)), (20, 1001, (1, 50, 1001)),
+                     (20, 37, (5, 37)), (300, 2, (1, 2)),
+                     (20, 8192, (410, 8192))):
+        u, g = planted(S, n)
+        shifted = torch.zeros(2, S * n + 1, device="cuda")
+        shifted[0, 1:], shifted[1, 1:] = u.reshape(-1), g.reshape(-1)
+        wide = torch.zeros(2, S, n + 7, device="cuda")
+        wide[0, :, 3:3 + n], wide[1, :, 3:3 + n] = u, g
+        for k in ks:
+            check(f"({S}, {n}), k={k}", u, g, k)
+            check(f"({S}, {n}), k={k}, lr 0.0371", u, g, k, 0.0371)
+            check(f"({S}, {n}), k={k}, 4-byte offset",
+                  shifted[0, 1:].view(S, n), shifted[1, 1:].view(S, n), k)
+            check(f"({S}, {n}), k={k}, strided rows", wide[0, :, 3:3 + n],
+                  wide[1, :, 3:3 + n], k, 0.0371)
+        del u, g, shifted, wide
+    log("  samomentum_row_topk: bit-equal to its plain version and to the "
+        "chain (4a, 3r, mask, rescale) at the edges, at two lr, at a 4-byte "
+        "offset, strided and in place")
+    timings = {}
+    for S, n, k in ROW_CELLS[:4]:
+        u, g = planted(S, n)
+        check(f"({S}, {n}), k={k}", u, g, k)
+        vals_o = torch.empty((S, k), device="cuda")
+        idx_o = torch.empty((S, k), dtype=torch.int32, device="cuda")
+        reps = 5 if S * n > 1 << 24 else 15
+
+        def fused():
+            return bt.samomentum_row_topk_rows(u, g, momentum=m,
+                                               lr=lr0, k=k, out=u)
+
+        def launch():
+            return build.library().samomentum_row_topk(
+                u.data_ptr(), n, g.data_ptr(), n, u.data_ptr(), n, lr0, m,
+                rcp(m), vals_o.data_ptr(), idx_o.data_ptr(), S, n, k,
+                build.stream())
+
+        def kernels_alone():
+            uacc = samomentum_kernel.velocity_accumulate(
+                u, g, momentum=m, lr=lr0)
+            return bt.row_topk_rows(uacc, k)
+
+        t = timings[(S, n, k)] = dict(
+            ms=timer(fused, reps=reps), launch_ms=timer(launch, reps=reps),
+            chain_ms=timer(lambda: chain(u, g, lr0, k), reps=reps),
+            acc_topk_ms=timer(kernels_alone, reps=reps),
+            plain_ms=timer(lambda: bt.samomentum_row_topk_plain(
+                u, g, momentum=m, lr=lr0, k=k), reps=reps),
+            bound_ms=(12 * S * n + 8 * S * k) / rate * 1e3)
+        host = host_us(torch, fused, calls=20)
+        log(f"  samomentum_row_topk ({S}, {n}), k={k}: kernel "
+            f"{t['ms']:.4f} ms (launch alone {t['launch_ms']:.4f} ms), the "
+            f"chain {t['chain_ms']:.4f} ms (4a + 3r alone "
+            f"{t['acc_topk_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.2f}x); "
+            f"host per call {host:.1f} us")
+        del u, g, vals_o, idx_o
+        torch.cuda.empty_cache()
+    emb = timings[ROW_CELLS[0]]
+    results.append(dict(
+        name=bt.SAM_ROW_INFO.name, route="cuda",
+        source=bt.SAM_ROW_INFO.source, replaces=bt.SAM_ROW_INFO.replaces,
+        max_abs_err=errs["samomentum_row_topk"], ms=emb["ms"],
+        plain_ms=emb["plain_ms"], bound_ms=emb["bound_ms"],
+        bound_by="bytes", library_ms=None, launch_ms=emb["launch_ms"],
         cells={f"{S}x{n}/k{k}": t for (S, n, k), t in timings.items()}))
 
 
@@ -2902,8 +3028,9 @@ H_W = 4                     # workers: lanes of the card
 H_BATCH, H_SEQ, H_STEPS = 16, 128, 5
 H_LR, H_MOMENTUM, H_DENSITY = 0.05, 0.9, 0.05
 H_LAYERS = 2                # of chatglm3-6b's 28; H3 at 1
-# the kernel rows the allgather-blockwise exchange must launch: rows 1, 2,
-# 3 (its row regime: every hinted row and norm scale fits a CTA), 4 and 4a
+# the kernel rows every allgather-blockwise exchange must launch: rows 1,
+# 2, 3r (its row regime: every row fits a CTA; the norm scales' flat step),
+# 4 and 4a; H1 adds 3s, which takes chatglm3's hinted rows
 H_ROWS = ("scatter_add", "scatter_add_rows", "row_topk",
           "samomentum_fused", "samomentum_accumulate")
 
@@ -3062,7 +3189,8 @@ def phase_h1(torch, results, card):
         for row in results:
             row[f"launches_h_{mode}"] = launches[row["name"]]
         if mode == "allgather":
-            idle = [k for k in H_ROWS if launches[k] == 0]
+            idle = [k for k in H_ROWS + ("samomentum_row_topk",)
+                    if launches[k] == 0]
             if idle:
                 raise AssertionError(f"{label}: rows {idle} never launched: "
                                      f"{launches}")

@@ -95,6 +95,7 @@ for mode in ("none", "bf16", "int8", "tern"):
 """
 KEEP = ("scatter_add (", "scatter_add:", "block_topk r=", "block_topk:",
         "block_topk rows launch", "row_topk (", "row_topk:",
+        "samomentum_row_topk (", "samomentum_row_topk:",
         "samomentum_fused", "scatter_add_rows", "samomentum_accumulate",
         "fma", "wire_codes ", "wire_codes:",
         "tern_pack ", "tern_pack:", "segment_quantize ", "segment_quantize:",

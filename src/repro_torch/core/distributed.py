@@ -271,14 +271,17 @@ def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec,
             g_rows = (g[lane].movedim(ax, 0).reshape(S, rest)
                       .to(torch.float32).contiguous())
         with span("exchange/select", leaf=leaf, lane=lane):
+            # the new velocity over u_rows: where those rows are u's own
+            # storage (dim 0 hinted, as an embedding), in place
             v_l, i_l, u_new = engine_lib.samomentum_step_rows(
                 u_rows, g_rows, momentum=cfg.momentum, lr=lr, k=k_row,
-                spec=spec)
-            del u_rows, g_rows
+                spec=spec, out=u_rows)
+            del g_rows
             v_l = quantize(v_l)
         with span("exchange/layout", leaf=leaf, lane=lane):
-            um.copy_(u_new.view(um.shape))
-            del u_new
+            if u_new.data_ptr() != um.data_ptr():
+                um.copy_(u_new.view(um.shape))
+            del u_rows, u_new
             vals.append(v_l.to(wdt))
         idx.append(i_l)
     with span("exchange/layout", leaf=leaf):

@@ -11,7 +11,9 @@ Three engines share the semantics contract of ``kernels/ref.py``:
 * ``blockwise`` -- the kernel path: for selection, a row of at most
                    ``block_topk.ROW_MAX`` elements under an exact plan goes
                    through ``block_topk.row_topk_rows`` (kernel 2's row
-                   regime: the row's exact top-k in one pass), any other
+                   regime: the row's exact top-k in one pass; in
+                   :func:`samomentum_step_rows` the whole step's, through
+                   ``block_topk.samomentum_row_topk_rows``), any other
                    through ``ops.hierarchical_topk_rows`` (per-block top-r
                    candidates, kernel 2, then a candidate top-k);
                    ``samomentum_fused`` (kernel 3) for the threshold /
@@ -244,15 +246,24 @@ class BlockwiseEngine:
 
     select = _select_flat
 
+    def row_regime(self, n: int, k: int) -> bool:
+        """Whether a row of ``n`` takes the row regime at ``k``: it fits
+        one CTA and the plan is exact (r >= k, or r = BLOCK)."""
+        from repro_torch.kernels import block_topk
+
+        r = self._plan(n, k)
+        return n <= block_topk.ROW_MAX and r is not None \
+            and (r >= k or r == block_topk.BLOCK)
+
     def select_rows(self, x2d, k):
         from repro_torch.kernels import block_topk, ops
 
         n = x2d.shape[1]
+        if self.row_regime(n, k):
+            return block_topk.row_topk_rows(x2d, k)
         r = self._plan(n, k)
         if r is None:
             return ExactEngine().select_rows(x2d, k)
-        if n <= block_topk.ROW_MAX and (r >= k or r == block_topk.BLOCK):
-            return block_topk.row_topk_rows(x2d, k)
         vals, idx = ops.hierarchical_topk_rows(x2d, k=k, r=r)
         # _plan guarantees >= k real candidates, so idx < n; the clamp is
         # decode safety only
@@ -275,11 +286,12 @@ def velocity_accumulate(u, g, *, momentum: float, lr):
                                                  lr=lr)
 
 
-def samomentum_rescale(uacc, sent_mask, momentum: float):
+def samomentum_rescale(uacc, sent_mask, momentum: float, out=None):
     """Paper Alg. 3 line 11: sent coordinates keep their velocity, unsent
     are divided by m (as a multiply by the f32 reciprocal, the reference's
-    rounding) so next step's ``m * u`` decay cancels."""
-    return torch.where(sent_mask, uacc, uacc * rcp(momentum))
+    rounding) so next step's ``m * u`` decay cancels.  Written into
+    ``out`` when given."""
+    return torch.where(sent_mask, uacc, uacc * rcp(momentum), out=out)
 
 
 def support_mask(indices, size: int):
@@ -333,25 +345,50 @@ def quantize_arena(msg: SparseLeaf, mode: str, seg) -> SparseLeaf:
 
 
 def _samomentum_select_rescale(u2d, g2d, eng, *, momentum: float, lr,
-                               k: int):
+                               k: int, out=None):
     """Accumulate, select each row's support with ``eng``, rescale by the
-    support mask.  Returns (vals (S, k), idx (S, k) int32, u_new (S, n))."""
+    support mask (into ``out`` when given).  Returns (vals (S, k), idx
+    (S, k) int32, u_new (S, n))."""
     uacc = velocity_accumulate(u2d, g2d, momentum=momentum, lr=lr)
     vals, idx = eng.select_rows(uacc, k)
     mask = rows_support_mask(idx, uacc.shape[1])
-    return vals, idx, samomentum_rescale(uacc, mask, momentum)
+    return vals, idx, samomentum_rescale(uacc, mask, momentum, out=out)
+
+
+def _row_fused(eng, u2d, g2d, k: int, lr) -> bool:
+    """Whether the step of these rows is one pass of
+    ``block_topk.samomentum_row_topk_rows``: the blockwise engine in its
+    row regime, on float32 rows of unit stride, at one float ``lr``."""
+    return isinstance(eng, BlockwiseEngine) \
+        and not isinstance(lr, torch.Tensor) \
+        and eng.row_regime(int(u2d.shape[1]), k) \
+        and all(t.dtype == torch.float32 and (t.shape[1] == 1
+                                              or t.stride(1) == 1)
+                for t in (u2d, g2d))
 
 
 def samomentum_step_rows(u2d, g2d, *, momentum: float, lr, k: int,
-                         spec: CompressionSpec = DEFAULT_SPEC):
+                         spec: CompressionSpec = DEFAULT_SPEC, out=None):
     """Row-wise SAMomentum step, as the reference's (its mesh hot path's
     ``(S, rest)`` view): accumulate, select, rescale by the support mask,
     then wire quantization with ONE scale over all rows, as
-    :func:`select_rows`.  ``lr`` is a float or an ``(S, 1)`` tensor.  Returns
-    (vals (S, k), idx (S, k) int32, u_new (S, rest))."""
+    :func:`select_rows`.  ``lr`` is a float or an ``(S, 1)`` tensor.  The
+    new velocity is written into ``out`` when given (``u2d`` itself: in
+    place).  Returns (vals (S, k), idx (S, k) int32, u_new (S, rest)).
+
+    The blockwise engine's row regime at a float ``lr`` takes the whole
+    step in one pass (``samomentum_row_topk_rows``: one launch for all
+    rows, the same bits); any other row takes the chain of accumulate,
+    select and rescale."""
+    from repro_torch.kernels import block_topk
+
     eng = resolve_engine(spec, int(u2d.shape[1]))
-    vals, idx, u_new = _samomentum_select_rescale(
-        u2d, g2d, eng, momentum=momentum, lr=lr, k=k)
+    if _row_fused(eng, u2d, g2d, k, lr):
+        vals, idx, u_new = block_topk.samomentum_row_topk_rows(
+            u2d, g2d, momentum=momentum, lr=lr, k=k, out=out)
+    else:
+        vals, idx, u_new = _samomentum_select_rescale(
+            u2d, g2d, eng, momentum=momentum, lr=lr, k=k, out=out)
     return _maybe_quantize_rows(vals, spec.quantize), idx, u_new
 
 

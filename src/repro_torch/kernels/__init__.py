@@ -5,7 +5,7 @@ from . import block_topk, samomentum_kernel, scatter_apply, wire_pack
 KERNELS = (scatter_apply.INFO, block_topk.INFO, samomentum_kernel.INFO,
            scatter_apply.ROWS_INFO, wire_pack.INFO, wire_pack.PACK_INFO,
            samomentum_kernel.ACC_INFO, samomentum_kernel.FMA_INFO,
-           block_topk.ROW_INFO)
+           block_topk.ROW_INFO, block_topk.SAM_ROW_INFO)
 
 
 def reset_launches() -> None:

@@ -1,7 +1,8 @@
 // Per-block top-r by magnitude: for each block of 1024 elements, the r
 // largest |x|, ties to the lower index, as signed values and block-local
 // indices, in descending order of |x|.  And, at the end of the file, the
-// row regime: a row's exact top-k in one pass (row_topk).
+// row regime: a row's exact top-k in one pass (row_topk), and the
+// SAMomentum step around it in the same pass (samomentum_row_topk).
 //
 // Replaces: src/repro/kernels/block_topk.py, _kernel / block_topk_2d.
 //
@@ -503,44 +504,179 @@ __device__ __forceinline__ void bitonic_sort_shared(unsigned long long* keys,
   __syncthreads();
 }
 
-// One CTA a row of x (blockIdx.x), rows ld elements apart; see above.
-__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
-row_topk_kernel(const float* __restrict__ x, long long ld,
-                float* __restrict__ vals, int32_t* __restrict__ idx, int n,
-                int k, int P) {
-  extern __shared__ unsigned long long keys[];   // P or 2P slots
-  __shared__ RowShared sh;
+// Element j of thread t's 16 in a row of T threads: 4 (T q + t) + c, with
+// j = 4 q + c (16-byte loads cover a thread's four consecutive elements).
+__device__ __forceinline__ int row_elem(int j, int t, int nthreads) {
+  return 4 * (nthreads * (j >> 2) + t) + (j & 3);
+}
+
+// The two ends of the row core (row_select), as a policy: what a thread's
+// 16 elements are, the answer for an all-zero row, and what is written
+// back once each thread knows which of its elements won.
+
+// row_topk: the row of x read, nothing written back.
+struct TopkRow {
+  const float* xr;
+
+  __device__ __forceinline__ void load(unsigned (&bits)[kRowPerThread],
+                                       int n, int t, int nthreads) const {
+    if ((reinterpret_cast<uintptr_t>(xr) & 15) == 0 && (n & 3) == 0) {
+      const float4* x4 = reinterpret_cast<const float4*>(xr);
+#pragma unroll
+      for (int q = 0; q < kRowPerThread / 4; ++q) {
+        const int e = row_elem(4 * q, t, nthreads);
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (e < n) v = __ldg(x4 + (e >> 2));
+        bits[4 * q + 0] = __float_as_uint(v.x);
+        bits[4 * q + 1] = __float_as_uint(v.y);
+        bits[4 * q + 2] = __float_as_uint(v.z);
+        bits[4 * q + 3] = __float_as_uint(v.w);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kRowPerThread; ++j) {
+        const int e = row_elem(j, t, nthreads);
+        bits[j] = e < n ? __float_as_uint(__ldg(xr + e)) : 0u;
+      }
+    }
+  }
+
+  // an all-zero row: its first k elements, in index order
+  __device__ __forceinline__ void zero_row(
+      const unsigned (&)[kRowPerThread], float* __restrict__ vals,
+      int32_t* __restrict__ idx, long long out, int, int k, int t,
+      int nthreads) const {
+    for (int e = t; e < k; e += nthreads) {
+      vals[out + e] = xr[e];
+      idx[out + e] = e;
+    }
+  }
+
+  __device__ __forceinline__ void store(const unsigned (&)[kRowPerThread],
+                                        unsigned, int, int, int) const {}
+};
+
+// samomentum_row_topk: the row's accumulated velocity
+// uacc = fma(m, u, lr * g) formed in registers (samomentum.cu's
+// AccumulateOp, bit for bit), and the rescaled velocity
+// sent ? uacc : uacc * (1/m) written back over `out`'s row, which may be
+// u's own (in place: a thread writes only the elements it read).
+struct SAMomentumRow {
+  const float* u;
+  const float* __restrict__ g;
+  float* out;
+  float m, lr, rcp_m;
+
+  // 16-byte loads and stores where the three rows allow them
+  __device__ __forceinline__ bool wide(int n) const {
+    const uintptr_t mix = reinterpret_cast<uintptr_t>(u) |
+                          reinterpret_cast<uintptr_t>(g) |
+                          reinterpret_cast<uintptr_t>(out);
+    return (mix & 15) == 0 && (n & 3) == 0;
+  }
+
+  __device__ __forceinline__ unsigned acc(float uu, float gg) const {
+    return __float_as_uint(__fmaf_rn(m, uu, __fmul_rn(lr, gg)));
+  }
+
+  __device__ __forceinline__ void load(unsigned (&bits)[kRowPerThread],
+                                       int n, int t, int nthreads) const {
+    if (wide(n)) {
+      const float4* u4 = reinterpret_cast<const float4*>(u);
+      const float4* g4 = reinterpret_cast<const float4*>(g);
+#pragma unroll
+      for (int q = 0; q < kRowPerThread / 4; ++q) {
+        const int e = row_elem(4 * q, t, nthreads);
+        if (e < n) {
+          const float4 a = u4[e >> 2], b = __ldg(g4 + (e >> 2));
+          bits[4 * q + 0] = acc(a.x, b.x);
+          bits[4 * q + 1] = acc(a.y, b.y);
+          bits[4 * q + 2] = acc(a.z, b.z);
+          bits[4 * q + 3] = acc(a.w, b.w);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) bits[4 * q + c] = 0u;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kRowPerThread; ++j) {
+        const int e = row_elem(j, t, nthreads);
+        bits[j] = e < n ? acc(u[e], __ldg(g + e)) : 0u;
+      }
+    }
+  }
+
+  __device__ __forceinline__ float rescaled(unsigned b, bool sent) const {
+    const float x = __uint_as_float(b);
+    return sent ? x : __fmul_rn(x, rcp_m);
+  }
+
+  __device__ __forceinline__ void store(const unsigned (&bits)[kRowPerThread],
+                                        unsigned chosen, int n, int t,
+                                        int nthreads) const {
+    if (wide(n)) {
+      float4* o4 = reinterpret_cast<float4*>(out);
+#pragma unroll
+      for (int q = 0; q < kRowPerThread / 4; ++q) {
+        const int e = row_elem(4 * q, t, nthreads);
+        if (e < n) {
+          o4[e >> 2] = make_float4(
+              rescaled(bits[4 * q + 0], (chosen >> (4 * q + 0)) & 1u),
+              rescaled(bits[4 * q + 1], (chosen >> (4 * q + 1)) & 1u),
+              rescaled(bits[4 * q + 2], (chosen >> (4 * q + 2)) & 1u),
+              rescaled(bits[4 * q + 3], (chosen >> (4 * q + 3)) & 1u));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kRowPerThread; ++j) {
+        const int e = row_elem(j, t, nthreads);
+        if (e < n) out[e] = rescaled(bits[j], (chosen >> j) & 1u);
+      }
+    }
+  }
+
+  // an all-zero row: its first k elements win, in index order, from the
+  // registers (uacc is not in memory)
+  __device__ __forceinline__ void zero_row(
+      const unsigned (&bits)[kRowPerThread], float* __restrict__ vals,
+      int32_t* __restrict__ idx, long long out_at, int n, int k, int t,
+      int nthreads) const {
+    unsigned chosen = 0;
+#pragma unroll
+    for (int j = 0; j < kRowPerThread; ++j) {
+      const int e = row_elem(j, t, nthreads);
+      if (e < k) {
+        vals[out_at + e] = __uint_as_float(bits[j]);
+        idx[out_at + e] = e;
+        chosen |= 1u << j;
+      }
+    }
+    store(bits, chosen, n, t, nthreads);
+  }
+};
+
+// The row core: the exact top-k by |x| of one row (blockIdx.x) of n
+// elements read through `io`, into vals and idx from `out` on; see above.
+template <class Io>
+__device__ __forceinline__ void row_select(const Io& io,
+                                           unsigned long long* keys,
+                                           RowShared& sh,
+                                           float* __restrict__ vals,
+                                           int32_t* __restrict__ idx,
+                                           long long out, int n, int k,
+                                           int P) {
   const int t = threadIdx.x, nthreads = blockDim.x;
-  const long long row = blockIdx.x;
-  const float* xr = x + row * ld;
   for (int i = t; i < 3 * 256; i += nthreads) (&sh.hist[0][0])[i] = 0u;
   for (int i = t; i < kRowWords; i += nthreads) sh.ties[i] = 0u;
   for (int i = t; i < kBuckets; i += nthreads) sh.bucket[i] = 0u;
   if (t == 0) sh.count = 0u;
 
-  auto elem = [&](int j) { return 4 * (nthreads * (j >> 2) + t) + (j & 3); };
+  auto elem = [&](int j) { return row_elem(j, t, nthreads); };
   unsigned bits[kRowPerThread];
-  if ((reinterpret_cast<uintptr_t>(xr) & 15) == 0 && (n & 3) == 0) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-#pragma unroll
-    for (int q = 0; q < kRowPerThread / 4; ++q) {
-      const int e = elem(4 * q);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (e < n) v = __ldg(x4 + (e >> 2));
-      bits[4 * q + 0] = __float_as_uint(v.x);
-      bits[4 * q + 1] = __float_as_uint(v.y);
-      bits[4 * q + 2] = __float_as_uint(v.z);
-      bits[4 * q + 3] = __float_as_uint(v.w);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kRowPerThread; ++j) {
-      const int e = elem(j);
-      bits[j] = e < n ? __float_as_uint(__ldg(xr + e)) : 0u;
-    }
-  }
+  io.load(bits, n, t, nthreads);
   const int lane = t & 31, warp = t >> 5, nwarps = nthreads >> 5;
-  const long long out = row * k;
   const unsigned kk = (unsigned)k;
   int parity = 0;
   unsigned top = 0, none = 0, none2 = 0;
@@ -548,10 +684,7 @@ row_topk_kernel(const float* __restrict__ x, long long ld,
   for (int j = 0; j < kRowPerThread; ++j) top = max(top, mag_of(bits[j]));
   block_reduce(none, none2, top, sh, parity, lane, warp, nwarps);
   if (top == 0) {  // an all-zero row: its first k elements, in index order
-    for (int e = t; e < k; e += nthreads) {
-      vals[out + e] = xr[e];
-      idx[out + e] = e;
-    }
+    io.zero_row(bits, vals, idx, out, n, k, t, nthreads);
     return;
   }
 
@@ -693,6 +826,7 @@ row_topk_kernel(const float* __restrict__ x, long long ld,
 #pragma unroll
   for (int j = 0; j < kRowPerThread; ++j)
     if ((chosen >> j) & 1u) keys[pos++] = make_key(bits[j], elem(j));
+  io.store(bits, chosen, n, t, nthreads);
   __syncthreads();
   if (k <= kKeysPerThread * nthreads) {
     // up to kKeysPerThread winners a thread (e = t + q T), into buckets by
@@ -774,6 +908,86 @@ row_topk_kernel(const float* __restrict__ x, long long ld,
   for (int e = t; e < k; e += nthreads) emit(keys[e], vals, idx, out + e);
 }
 
+// One CTA a row of x (blockIdx.x), rows ld elements apart; see above.
+__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
+row_topk_kernel(const float* __restrict__ x, long long ld,
+                float* __restrict__ vals, int32_t* __restrict__ idx, int n,
+                int k, int P) {
+  extern __shared__ unsigned long long keys[];   // P or 2P slots
+  __shared__ RowShared sh;
+  const long long row = blockIdx.x;
+  row_select(TopkRow{x + row * ld}, keys, sh, vals, idx, row * k, n, k, P);
+}
+
+// ---------------------------------------------------------------------------
+// The row regime of the SAMomentum step: samomentum_row_topk
+//
+// Replaces no TPU kernel.  It is the allgather exchange's row-wise
+// SAMomentum step (src/repro/core/engine.py, samomentum_step_rows: the
+// velocity accumulate, the top-k of each row, the support mask and the
+// rescale by it) for rows of at most kRowMax elements, in one pass: where
+// that chain reads and writes the velocity five times (the accumulate's
+// u, g and uacc; the top-k's uacc; the mask; the multiply; the select),
+// about 38 bytes an element, this kernel reads u and g once and writes
+// the new velocity once, 12 bytes an element, besides k values and
+// indices a row.
+//
+// Design: row_topk's core (row_select) with another load and store.  The
+// load forms uacc = fma(m, u, lr * g) in registers with row 4a's rounding;
+// the selection runs on those bits as row_topk runs on x, so vals and idx
+// are row_topk's of uacc.  Each thread then knows which of its elements
+// won (|x| > T, or a tie at T whose bit the tie mask kept) and writes
+// sent ? uacc : uacc * (1/m) over the row -- the chain's rescale by the
+// support mask, bit for bit -- with 16-byte stores where the rows allow.
+// u may be the output (in place): each element is read and written by the
+// one thread that holds it.
+
+__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
+samomentum_row_topk_kernel(const float* u, long long ldu,
+                           const float* __restrict__ g, long long ldg,
+                           float* unew, long long ldo, float lr,
+                           float m, float rcp_m,
+                           float* __restrict__ vals,
+                           int32_t* __restrict__ idx, int n, int k, int P) {
+  extern __shared__ unsigned long long keys[];   // P or 2P slots
+  __shared__ RowShared sh;
+  const long long row = blockIdx.x;
+  const SAMomentumRow io{u + row * ldu, g + row * ldg, unew + row * ldo, m,
+                         lr, rcp_m};
+  row_select(io, keys, sh, vals, idx, row * k, n, k, P);
+}
+
+// The rows' launch: P, the power of two at or above k; a warp for every
+// 512 elements of a row; the winners' keys, and the buckets' second buffer
+// where they run, in dynamic shared memory -- the kernel's limit raised
+// once past the 32 KB it may take without.
+struct RowLaunch {
+  int P, threads;
+  size_t dyn;
+};
+
+template <class Kernel>
+int row_launch(Kernel kernel, bool& wide, int n, int k, RowLaunch& l) {
+  l.P = 1;
+  while (l.P < k) l.P <<= 1;
+  constexpr int kWarpElems = 32 * kRowPerThread;
+  l.threads = 32 * ((n + kWarpElems - 1) / kWarpElems);
+  l.dyn = sizeof(unsigned long long) * (size_t)l.P *
+          (k <= kKeysPerThread * l.threads ? 2 : 1);
+  if (l.dyn > 32768 && !wide) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sizeof(unsigned long long) * kRowMax));
+    if (e != cudaSuccess) return (int)e;
+    wide = true;
+  }
+  return 0;
+}
+
+bool row_shape_ok(long long S, int n, int k) {
+  return n >= 1 && n <= kRowMax && k >= 1 && k <= n && S <= 0x7fffffffLL;
+}
+
 }  // namespace
 
 extern "C" int block_topk(const void* x, void* vals, void* idx, long long nb,
@@ -801,24 +1015,34 @@ extern "C" int block_topk(const void* x, void* vals, void* idx, long long nb,
 extern "C" int row_topk(const void* x, long long ld, void* vals, void* idx,
                         long long S, int n, int k, void* stream) {
   if (S == 0) return 0;
-  if (n < 1 || n > kRowMax || k < 1 || k > n || S > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  int P = 1;
-  while (P < k) P <<= 1;
-  constexpr int kWarpElems = 32 * kRowPerThread;
-  const int threads = 32 * ((n + kWarpElems - 1) / kWarpElems);
-  // the winners, and the buckets' second buffer where they run
-  const size_t dyn = sizeof(unsigned long long) * (size_t)P *
-                     (k <= kKeysPerThread * threads ? 2 : 1);
-  static bool wide = false;   // the dynamic shared memory raised once
-  if (dyn > 32768 && !wide) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        row_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(unsigned long long) * kRowMax));
-    if (e != cudaSuccess) return (int)e;
-    wide = true;
-  }
-  row_topk_kernel<<<(unsigned)S, threads, dyn, (cudaStream_t)stream>>>(
-      (const float*)x, ld, (float*)vals, (int32_t*)idx, n, k, P);
+  if (!row_shape_ok(S, n, k)) return (int)cudaErrorInvalidValue;
+  static bool wide = false;
+  RowLaunch l;
+  const int rc = row_launch(row_topk_kernel, wide, n, k, l);
+  if (rc != 0) return rc;
+  row_topk_kernel<<<(unsigned)S, l.threads, l.dyn, (cudaStream_t)stream>>>(
+      (const float*)x, ld, (float*)vals, (int32_t*)idx, n, k, l.P);
+  return (int)cudaGetLastError();
+}
+
+// The row-wise SAMomentum step of (S, n) float32 rows: u and g rows ldu and
+// ldg elements apart; the top-k of uacc = m u + lr g into vals and idx as
+// row_topk's, and the rescaled velocity into unew's rows, ldo apart (unew
+// may be u).
+extern "C" int samomentum_row_topk(const void* u, long long ldu,
+                                   const void* g, long long ldg, void* unew,
+                                   long long ldo, float lr, float m,
+                                   float rcp_m, void* vals, void* idx,
+                                   long long S, int n, int k, void* stream) {
+  if (S == 0) return 0;
+  if (!row_shape_ok(S, n, k)) return (int)cudaErrorInvalidValue;
+  static bool wide = false;
+  RowLaunch l;
+  const int rc = row_launch(samomentum_row_topk_kernel, wide, n, k, l);
+  if (rc != 0) return rc;
+  samomentum_row_topk_kernel<<<(unsigned)S, l.threads, l.dyn,
+                               (cudaStream_t)stream>>>(
+      (const float*)u, ldu, (const float*)g, ldg, (float*)unew, ldo, lr, m,
+      rcp_m, (float*)vals, (int32_t*)idx, n, k, l.P);
   return (int)cudaGetLastError();
 }
