@@ -111,9 +111,8 @@ def init_state(params, cfg: ExchangeConfig, n_workers: int, *,
         shard_axes = [None] * len(leaves)
 
     def state_size(shape, ax):
-        full = _full_shape(shape, ax, model)
-        size = shardedps_state_size(full, ax, n_workers)
-        return size // model.size if _row_sharded(full, ax, model) else size
+        cut = model_axis_rule(shape, ax, cfg, n_workers, model)[1]
+        return cut.S * cut.shard_rest
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros((lanes,) + shape, dtype=dtype,
@@ -144,28 +143,28 @@ def _wire(dtype: str) -> torch.dtype:
 # A hinted leaf is sharded over the "model" axis on its hinted dim, and the
 # rows of its row view are the hinted dim's (times folded dims after it), so
 # a shard's rows are one block of them: a model shard's exchange is the
-# exchange of its rows, with the whole leaf's k_row and cut.  Only a leaf cut
-# whole (allgather's flat branch, shardedps' one-row view of a vector) is
-# gathered over the model axis first, and every shard then runs it whole.
-# On lanes every leaf is whole and the exchange is the one of model size 1.
+# exchange of its rows, with the whole leaf's k_row and cut.  On lanes every
+# leaf is whole and the exchange is the one of model size 1.
 # ---------------------------------------------------------------------------
 
-def _on_rank(model) -> bool:
-    return model is not None and not model.lanes and model.size > 1
+def model_axis_rule(shape, ax, cfg: ExchangeConfig, n_workers: int, model):
+    """How a sparse exchange in ``cfg.mode`` runs a leaf of which this
+    process holds ``shape``, hinted on dim ``ax``: ``(how, cut)``.
 
-
-def _full_shape(shape, ax, model):
-    """The whole leaf's shape from a rank's shard of it."""
+    ``how`` is ``"as is"`` (lanes, a model axis of size 1, or no hint: the
+    leaf is whole here), ``"whole"`` (a hinted leaf that :func:`leaf_cut`
+    makes one row, ``cut.ax`` None: gathered over the model axis and run
+    whole on every shard) or ``"rows"`` (the rank's block of the leaf's
+    rows).  ``cut`` is the whole leaf's, with the rank's ``S`` under
+    ``"rows"``."""
     shape = tuple(int(d) for d in shape)
-    if ax is None or not _on_rank(model):
-        return shape
-    return shape[:ax] + (shape[ax] * model.size,) + shape[ax + 1:]
-
-
-def _row_sharded(full, ax, model) -> bool:
-    """Whether a rank holds a block of the leaf's rows (else the leaf is
-    replicated or cut whole)."""
-    return _on_rank(model) and ax is not None and len(full) > 1
+    if ax is None or model is None or model.lanes or model.size == 1:
+        return "as is", leaf_cut(shape, ax, cfg, n_workers)
+    full = shape[:ax] + (shape[ax] * model.size,) + shape[ax + 1:]
+    cut = leaf_cut(full, ax, cfg, n_workers)
+    if cut.ax is None:
+        return "whole", cut
+    return "rows", cut._replace(S=cut.S // model.size)
 
 
 def _gather_model(x, dim, model):
@@ -178,13 +177,17 @@ def _own(x, dim, model):
     return x.chunk(model.size, dim)[model.rank]
 
 
-def _rows_quantizer(spec, model, recorder=NULL):
-    """(the spec to select with, the quantization of the selected rows):
-    on a rank of the model axis the values of every shard's rows are
-    quantized together, with ONE scale over the whole leaf's rows, as the
-    reference's (and this rank keeps its rows)."""
-    if not _on_rank(model) or spec.quantize == "none":
-        return spec, lambda vals: vals
+def _no_quantize(vals):
+    return vals
+
+
+def _rows_quantizer(spec, model, recorder):
+    """(the spec to select with, the quantization of the selected rows) for
+    a rank's rows: the values of every shard's rows are quantized together,
+    with ONE scale over the whole leaf's rows, as the reference's (and this
+    rank keeps its rows)."""
+    if spec.quantize == "none":
+        return spec, _no_quantize
 
     def quantize(vals):
         with recorder.span("exchange/collective"):
@@ -193,6 +196,99 @@ def _rows_quantizer(spec, model, recorder=NULL):
         return _own(whole, 0, model)
 
     return dataclasses.replace(spec, quantize="none"), quantize
+
+
+def _each_leaf(run, state, grads, *held, cfg, lr, mesh, shard_axes,
+               recorder):
+    """Every leaf of a sparse exchange under :func:`model_axis_rule`, run
+    by the mode's leaf function ``run(u, g, *h, cut=, ...)``, with ``h``
+    the leaf's leaves of the trees ``held`` (shardedps' M and v); ``run``
+    writes the new state into them and returns (update, *rest).  Returns
+    the velocity's tree paths and, per leaf, (how, update, *rest)."""
+    spec, model = cfg.spec(), mesh.model
+    u_leaves, paths = tree_flatten(state.velocity)
+    if shard_axes is None:
+        shard_axes = [None] * len(u_leaves)
+    out = []
+    for leaf, (u, g, ax, *h) in enumerate(zip(
+            u_leaves, tree_leaves(grads), shard_axes,
+            *map(tree_leaves, held))):
+        how, cut = model_axis_rule(u.shape[1:], ax, cfg, mesh.size, model)
+        sel, quantize = (_rows_quantizer(spec, model, recorder)
+                         if how == "rows" else (spec, _no_quantize))
+
+        def run_leaf(u, g):
+            return run(u, g, *h, cut=cut, cfg=cfg, lr=lr, mesh=mesh,
+                       spec=sel, quantize=quantize, recorder=recorder,
+                       leaf=leaf)
+
+        if how != "whole":
+            out.append((how, *run_leaf(u, g)))
+            continue
+        with recorder.span("exchange/collective", leaf=leaf):
+            uf = _gather_model(u, ax + 1, model)
+            gf = _gather_model(g, ax + 1, model)
+        up, *rest = run_leaf(uf, gf)
+        del gf
+        with recorder.span("exchange/layout", leaf=leaf):
+            u.copy_(_own(uf, ax + 1, model))
+            up = _own(up, ax, model).contiguous()
+        out.append((how, up, *rest))
+    return paths, out
+
+
+# ---------------------------------------------------------------------------
+# the row layout of both sparse exchanges: the kernels read (S, rest) rows
+# of unit stride
+# ---------------------------------------------------------------------------
+
+def _rows_in(u_l, g_l, cut):
+    """(um, u_rows, g_rows): the lane's velocity ``u_l`` with ``cut.ax``
+    first (None: one row), and its and the gradient's ``(S, rest)`` float32
+    rows of unit stride (``um``'s own storage where they need no copy)."""
+    def rows_of(x):
+        return (x.reshape(1, cut.rest) if cut.ax is None
+                else x.movedim(cut.ax, 0))
+
+    um = rows_of(u_l)
+    u_rows = um.reshape(cut.S, cut.rest).contiguous()
+    g_rows = (rows_of(g_l).reshape(cut.S, cut.rest).to(torch.float32)
+              .contiguous())
+    return um, u_rows, g_rows
+
+
+def _rows_back(um, u_new):
+    """The new velocity ``(S, rest)`` written into ``um``; nothing to do
+    where ``u_new`` is already ``um``'s storage."""
+    if u_new.data_ptr() != um.data_ptr():
+        um.copy_(u_new.view(um.shape))
+
+
+def _by_row(x):
+    """Gathered ``(..., W, S, k)`` as ``(-1, W*k)`` rows: row s holds
+    worker 0's k entries of it, then worker 1's, ... (the update order)."""
+    return x.transpose(-3, -2).reshape(-1, x.shape[-3] * x.shape[-1])
+
+
+def _gather_rows(vals, idx, mesh, recorder, leaf):
+    """The lanes' ``(S, k)`` messages stacked, gathered over the mesh and
+    read as ``(S, W*k)`` rows: (float32 values, indices)."""
+    with recorder.span("exchange/layout", leaf=leaf):
+        vals, idx = torch.stack(vals), torch.stack(idx)
+    with recorder.span("exchange/collective", leaf=leaf):
+        gvals = mesh.gather(vals)                            # (W, S, k)
+        gidx = mesh.gather(idx)
+    with recorder.span("exchange/layout", leaf=leaf):
+        return _by_row(gvals).to(torch.float32), _by_row(gidx)
+
+
+def _rows_out(rows, shape, ax):
+    """``(S, rest)`` rows back in the leaf's ``shape`` (``ax`` moved back;
+    None: the leaf was one row)."""
+    if ax is None:
+        return rows.reshape(shape)
+    moved = (shape[ax],) + shape[:ax] + shape[ax + 1:]
+    return rows.reshape(moved).movedim(0, ax)
 
 
 # ---------------------------------------------------------------------------
@@ -224,21 +320,20 @@ def dense_momentum_exchange(state, grads, *, cfg, lr, mesh,
 # the paper's per-tensor threshold.
 # ---------------------------------------------------------------------------
 
-def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec,
-                           quantize=None, recorder=NULL, leaf=None):
+def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec, quantize,
+                           recorder, leaf):
     """SAMomentum + top-k + sparse all-gather for one leaf, ``u`` and ``g``
     ``(L, *shape)``, cut as ``cut`` (:func:`leaf_cut`).  Each lane runs the
     reference's per-device steps on its worker's tensor (so the transients
     are one worker's); the lanes' messages are stacked for the collective.
-    Writes the new velocity into ``u``; returns the update to subtract
-    (``shape``).  ``recorder`` records the phases as spans of leaf
+    Writes the new velocity into ``u``; returns a 1-tuple, the update to
+    subtract (``shape``).  ``recorder`` records the phases as spans of leaf
     ``leaf``."""
     from repro_torch.kernels import ops
 
     L, shape = u.shape[0], tuple(u.shape[1:])
     W = mesh.size
     span = recorder.span
-    quantize = quantize or (lambda vals: vals)
     if cut.flat:
         vals, idx = [], []
         for lane in range(L):
@@ -259,44 +354,31 @@ def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec,
             dense = torch.zeros(cut.rest, dtype=torch.float32,
                                 device=u.device)
             ops.scatter_add(dense, gidx.reshape(-1), gvals.reshape(-1))
-            return (dense * rcp(W)).view(shape)
-    S, rest, ax, k_row = cut.S, cut.rest, cut.ax, cut.k_row
+            return ((dense * rcp(W)).view(shape),)
     wdt = _wire(cfg.wire_dtype)
     vals, idx = [], []
     for lane in range(L):
         with span("exchange/layout", leaf=leaf, lane=lane):
-            # the kernels read rows of unit stride: a moved dim is copied
-            um = u[lane].movedim(ax, 0)
-            u_rows = um.reshape(S, rest).contiguous()
-            g_rows = (g[lane].movedim(ax, 0).reshape(S, rest)
-                      .to(torch.float32).contiguous())
+            um, u_rows, g_rows = _rows_in(u[lane], g[lane], cut)
         with span("exchange/select", leaf=leaf, lane=lane):
             # the new velocity over u_rows: where those rows are u's own
             # storage (dim 0 hinted, as an embedding), in place
             v_l, i_l, u_new = engine_lib.samomentum_step_rows(
-                u_rows, g_rows, momentum=cfg.momentum, lr=lr, k=k_row,
+                u_rows, g_rows, momentum=cfg.momentum, lr=lr, k=cut.k_row,
                 spec=spec, out=u_rows)
             del g_rows
             v_l = quantize(v_l)
         with span("exchange/layout", leaf=leaf, lane=lane):
-            if u_new.data_ptr() != um.data_ptr():
-                um.copy_(u_new.view(um.shape))
+            _rows_back(um, u_new)
             del u_rows, u_new
             vals.append(v_l.to(wdt))
         idx.append(i_l)
-    with span("exchange/layout", leaf=leaf):
-        vals, idx = torch.stack(vals), torch.stack(idx)
-    with span("exchange/collective", leaf=leaf):
-        gvals = mesh.gather(vals)                            # (W, S, k_row)
-        gidx = mesh.gather(idx)
-    with span("exchange/layout", leaf=leaf):
-        gv = gvals.transpose(0, 1).reshape(S, W * k_row).to(torch.float32)
-        gi = gidx.transpose(0, 1).reshape(S, W * k_row)
+    gv, gi = _gather_rows(vals, idx, mesh, recorder, leaf)
     with span("exchange/scatter", leaf=leaf):
-        dense = torch.zeros((S, rest), dtype=torch.float32, device=u.device)
+        dense = torch.zeros((cut.S, cut.rest), dtype=torch.float32,
+                            device=u.device)
         ops.scatter_add_rows(dense, None, gi, gv)
-        moved = (shape[ax],) + shape[:ax] + shape[ax + 1:]
-        return (dense * rcp(W)).view(moved).movedim(0, ax)
+        return (_rows_out(dense * rcp(W), shape, cut.ax),)
 
 
 def allgather_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None,
@@ -307,40 +389,10 @@ def allgather_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None,
     subtract from the (replicated) parameters.  ``shard_axes`` is an
     optional per-leaf list of hinted dim indices (see above).
     """
-    spec = cfg.spec()
-    model = mesh.model
-    span = recorder.span
-    u_leaves, paths = tree_flatten(state.velocity)
-    if shard_axes is None:
-        shard_axes = [None] * len(u_leaves)
-    upd = []
-    for leaf, (u, g, ax) in enumerate(zip(u_leaves, tree_leaves(grads),
-                                          shard_axes)):
-        full = _full_shape(u.shape[1:], ax, model)
-        cut = leaf_cut(full, ax, cfg, mesh.size)
-        if not _on_rank(model) or ax is None:
-            upd.append(_leaf_allgather_hinted(
-                u, g, cut=cut, cfg=cfg, lr=lr, mesh=mesh, spec=spec,
-                recorder=recorder, leaf=leaf))
-        elif cut.flat:
-            # a vector cut whole: every shard selects over all of it
-            with span("exchange/collective", leaf=leaf):
-                uf = _gather_model(u, ax + 1, model)
-                gf = _gather_model(g, ax + 1, model)
-            up = _leaf_allgather_hinted(
-                uf, gf, cut=cut, cfg=cfg, lr=lr, mesh=mesh, spec=spec,
-                recorder=recorder, leaf=leaf)
-            del gf
-            with span("exchange/layout", leaf=leaf):
-                u.copy_(_own(uf, ax + 1, model))
-                upd.append(_own(up, ax, model).contiguous())
-        else:
-            sel, quantize = _rows_quantizer(spec, model, recorder)
-            upd.append(_leaf_allgather_hinted(
-                u, g, cut=cut._replace(S=cut.S // model.size), cfg=cfg,
-                lr=lr, mesh=mesh, spec=sel, quantize=quantize,
-                recorder=recorder, leaf=leaf))
-    return tree_unflatten(paths, upd), state
+    paths, out = _each_leaf(_leaf_allgather_hinted, state, grads, cfg=cfg,
+                            lr=lr, mesh=mesh, shard_axes=shard_axes,
+                            recorder=recorder)
+    return tree_unflatten(paths, [up for _, up in out]), state
 
 
 # ---------------------------------------------------------------------------
@@ -364,12 +416,6 @@ def rows_view(shape, shard_axis):
         for d in dims:
             rest *= d
     return rows, rest, shard_axis
-
-
-def shardedps_state_size(shape, shard_axis, n_workers: int) -> int:
-    """Per-worker M/v shard length for one leaf (row-major layout)."""
-    S, rest, _ = rows_view(shape, shard_axis)
-    return S * ShardSpec.even_stride(rest, n_workers)
 
 
 class LeafCut(NamedTuple):
@@ -423,7 +469,7 @@ def leaf_cut(shape, shard_axis, cfg: ExchangeConfig,
 
 
 def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
-                           quantize=None, recorder=NULL, leaf=None):
+                           quantize, recorder, leaf):
     """Row-wise sharded-PS dual-way exchange for one leaf.
 
     View: (S, rest) rows per worker.  Worker w owns columns
@@ -448,21 +494,15 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
 
     W, L = mesh.size, u.shape[0]
     shape = tuple(u.shape[1:])
-    S, rest, ax, k_row = cut.S, cut.rest, cut.ax, cut.k_row
+    S, rest, k_row = cut.S, cut.rest, cut.k_row
     shard_rest, cap, k2 = cut.shard_rest, cut.cap, cut.k2
     wdt = _wire(cfg.wire_dtype)
     dev = u.device
     span = recorder.span
-    quantize = quantize or (lambda vals: vals)
-    rows_of = ((lambda x: x.reshape(1, rest)) if ax is None
-               else (lambda x: x.movedim(ax, 0)))
     send_v, send_i, ovf = [], [], []
     for lane in range(L):
         with span("exchange/layout", leaf=leaf, lane=lane):
-            um = rows_of(u[lane])
-            u_rows = um.reshape(S, rest).contiguous()
-            g_rows = (rows_of(g[lane]).reshape(S, rest).to(torch.float32)
-                      .contiguous())
+            um, u_rows, g_rows = _rows_in(u[lane], g[lane], cut)
         with span("exchange/select", leaf=leaf, lane=lane):
             uacc = engine_lib.velocity_accumulate(
                 u_rows, g_rows, momentum=cfg.momentum, lr=lr)
@@ -504,7 +544,7 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
                                                   cfg.momentum)
             del uacc, shipped
         with span("exchange/layout", leaf=leaf, lane=lane):
-            um.copy_(u_new.view(um.shape))
+            _rows_back(um, u_new)
             del u_new
     # ---- all-to-all: row i of a lane's receive is what worker i sent ----
     with span("exchange/layout", leaf=leaf):
@@ -516,9 +556,8 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
     # ---- server shard update: M -= the received, in worker order (an
     # empty slot's -1 is dropped) ----
     with span("exchange/layout", leaf=leaf):
-        recv_i = recv_i.transpose(1, 2).reshape(L * S, W * cap)
-        recv_v = -recv_v.to(torch.float32).transpose(1, 2).reshape(
-            L * S, W * cap)
+        recv_i = _by_row(recv_i)                             # (L*S, W*cap)
+        recv_v = -_by_row(recv_v.to(torch.float32))
     with span("exchange/scatter", leaf=leaf):
         ops.scatter_add_rows(m_sh.view(L * S, shard_rest), None, recv_i,
                              recv_v)
@@ -537,14 +576,7 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
         with span("exchange/layout", leaf=leaf, lane=lane):
             dvals.append(d_v.to(wdt))
             didx.append(d_i + me[lane])
-    with span("exchange/layout", leaf=leaf):
-        dvals, didx = torch.stack(dvals), torch.stack(didx)
-    with span("exchange/collective", leaf=leaf):
-        gvals = mesh.gather(dvals)                           # (W, S, k2)
-        gidx = mesh.gather(didx)
-    with span("exchange/layout", leaf=leaf):
-        gvals = gvals.to(torch.float32).transpose(0, 1).reshape(S, W * k2)
-        gidx = gidx.transpose(0, 1).reshape(S, W * k2)
+    gvals, gidx = _gather_rows(dvals, didx, mesh, recorder, leaf)
     with span("exchange/scatter", leaf=leaf):
         dense = torch.zeros((S, W * shard_rest), dtype=torch.float32,
                             device=dev)
@@ -553,10 +585,7 @@ def _leaf_shardedps_hinted(u, g, m_sh, v_sh, *, cut, cfg, lr, mesh, spec,
     with span("exchange/bucket", leaf=leaf):
         ovf = torch.stack(ovf)
     with span("exchange/layout", leaf=leaf):
-        if ax is None:
-            return upd.reshape(shape), ovf
-        moved = (shape[ax],) + shape[:ax] + shape[ax + 1:]
-        return upd.reshape(moved).movedim(0, ax), ovf
+        return _rows_out(upd, shape, cut.ax), ovf
 
 
 def shardedps_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None,
@@ -565,56 +594,23 @@ def shardedps_exchange(state, grads, *, cfg, lr, mesh, shard_axes=None,
     workers: per-leaf dispatch to the row-wise implementation above.  On a
     rank of the model axis the overflow counts every shard's rows, as the
     reference's count spans the whole leaf."""
-    spec = cfg.spec()
-    model = mesh.model
-    span = recorder.span
-    u_leaves, paths = tree_flatten(state.velocity)
-    m_leaves = tree_leaves(state.m_shard)
-    v_leaves = tree_leaves(state.v_shard)
-    if shard_axes is None:
-        shard_axes = [None] * len(u_leaves)
-    upd = []
-    step_ovf, rows_ovf = 0, 0
-    for leaf, (u, m_sh, v_sh, g, ax) in enumerate(zip(
-            u_leaves, m_leaves, v_leaves, tree_leaves(grads), shard_axes)):
-        full = _full_shape(u.shape[1:], ax, model)
-        cut = leaf_cut(full, ax, cfg, mesh.size)
-        if _row_sharded(full, ax, model):
-            sel, quantize = _rows_quantizer(spec, model, recorder)
-            up, ovf = _leaf_shardedps_hinted(
-                u, g, m_sh, v_sh, cut=cut._replace(S=cut.S // model.size),
-                cfg=cfg, lr=lr, mesh=mesh, spec=sel, quantize=quantize,
-                recorder=recorder, leaf=leaf)
-            rows_ovf = rows_ovf + ovf
-        elif _on_rank(model) and ax is not None:
-            # a vector cut whole: gathered, run whole on every shard
-            with span("exchange/collective", leaf=leaf):
-                uf = _gather_model(u, ax + 1, model)
-                gf = _gather_model(g, ax + 1, model)
-            up, ovf = _leaf_shardedps_hinted(
-                uf, gf, m_sh, v_sh, cut=cut, cfg=cfg, lr=lr, mesh=mesh,
-                spec=spec, recorder=recorder, leaf=leaf)
-            del gf
-            with span("exchange/layout", leaf=leaf):
-                u.copy_(_own(uf, ax + 1, model))
-                up = _own(up, ax, model).contiguous()
-            step_ovf = step_ovf + ovf
-        else:
-            up, ovf = _leaf_shardedps_hinted(
-                u, g, m_sh, v_sh, cut=cut, cfg=cfg, lr=lr, mesh=mesh,
-                spec=spec, recorder=recorder, leaf=leaf)
-            step_ovf = step_ovf + ovf
-        upd.append(up)
-    if isinstance(rows_ovf, torch.Tensor):   # every shard's rows counted
-        with span("exchange/collective"):
-            rows_ovf = model.all_gather(rows_ovf)
+    paths, out = _each_leaf(_leaf_shardedps_hinted, state, grads,
+                            state.m_shard, state.v_shard, cfg=cfg, lr=lr,
+                            mesh=mesh, shard_axes=shard_axes,
+                            recorder=recorder)
+    step_ovf = sum(ovf for how, _, ovf in out if how != "rows")
+    rows_ovf = [ovf for how, _, ovf in out if how == "rows"]
+    if rows_ovf:   # every shard's rows counted
+        with recorder.span("exchange/collective"):
+            rows_ovf = mesh.model.all_gather(sum(rows_ovf))
         step_ovf = step_ovf + rows_ovf.sum(0).to(torch.int32)
     overflow = state.overflow
     if isinstance(overflow, torch.Tensor):
         overflow += step_ovf
     else:   # a state built without buckets: start at zero
         overflow = step_ovf
-    return tree_unflatten(paths, upd), state._replace(overflow=overflow)
+    return (tree_unflatten(paths, [up for _, up, _ in out]),
+            state._replace(overflow=overflow))
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ compute):
 * what raises: a position past a linear cache.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -114,9 +115,11 @@ def _tcfg(jc):
     return TConfig(**fields)
 
 
+@functools.cache
 def _models(jc):
     """(reference params, port params) from the reference's seed-0
-    ``init_params``."""
+    ``init_params``, made once per config for the file (no test writes
+    params; ``decode_step`` writes only the caches)."""
     jp = jinit(jax.random.PRNGKey(0), jc)
     return jp, params_from_numpy(jax.device_get(jp), "cpu")
 
@@ -154,6 +157,7 @@ def _close_caches(got, want, rtol, atol):
                                    err_msg=name)
 
 
+@functools.cache
 def _jit_decode(jc):
     return jax.jit(lambda p, c, t, pos: jdecode(p, c, t, pos, jc))
 

@@ -250,6 +250,42 @@ def test_shardedps_equals_allgather_when_unconstrained():
     assert int(st_sp.overflow.sum()) == 0
 
 
+# (whole leaf's shape, hint): a hint on dim 0 and on a later dim, a stack
+# whose rows fold a leading dim, 1-D hinted leaves under and over allgather's
+# flat bound of 1 << 24, and unhinted leaves
+RULE_LEAVES = [((30, 16), 0), ((24, 40), 1), ((2, 16, 24), 2),
+               ((8, 1024, 8192), 0), ((24,), 0), ((1 << 25,), 0),
+               ((24, 40), None), ((1 << 25,), None)]
+
+
+@pytest.mark.parametrize("where", ["lanes", "rank0", "rank1"])
+@pytest.mark.parametrize("leaf", RULE_LEAVES, ids=str)
+@pytest.mark.parametrize("mode", ["allgather", "shardedps"])
+def test_model_axis_rule_equals_both_old_branches(mode, leaf, where):
+    """On shapes alone, at a model axis of 2: the one rule of both sparse
+    exchanges (run as is, gathered whole, or the rank's rows) is each
+    mode's own former branch condition, and "rows" keeps the whole leaf's
+    cut with the rank's share of its rows."""
+    from repro_torch.launch.mesh import ModelAxis
+
+    full, ax = leaf
+    model = ModelAxis(2, rank=None if where == "lanes" else int(where[-1]))
+    on_rank = not model.lanes
+    shape = (full if ax is None or not on_rank
+             else full[:ax] + (full[ax] // 2,) + full[ax + 1:])
+    cfg = tdist.ExchangeConfig(mode=mode, density=0.01)
+    cut = tdist.leaf_cut(full, ax, cfg, W)
+    if mode == "allgather":
+        want = ("as is" if not on_rank or ax is None
+                else "whole" if cut.flat else "rows")
+    else:
+        want = ("rows" if on_rank and ax is not None and len(full) > 1
+                else "whole" if on_rank and ax is not None else "as is")
+    how, got = tdist.model_axis_rule(shape, ax, cfg, W, model)
+    assert how == want
+    assert got == (cut._replace(S=cut.S // 2) if how == "rows" else cut)
+
+
 # ---------------------------------------------------------------- ranks --
 
 MESH_CASES = ("dense", "allgather-blockwise-int8-float32",

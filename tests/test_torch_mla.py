@@ -37,7 +37,7 @@ from repro_torch.models import (decode_step, forward, init_caches, loss_fn,
                                 prefill)
 from repro_torch.models.config import MLAConfig as TMLA
 from repro_torch.models.config import ModelConfig as TConfig
-from test_torch_train import _reference_run, _steps_match_reference
+from test_torch_train import _reference_runs, _steps_match_reference
 
 ARCH = "minicpm3-4b"
 
@@ -205,7 +205,7 @@ def test_minicpm3_decode_continues_forward(absorb):
 
 @pytest.fixture(scope="module")
 def train_ref(tmp_path_factory):
-    return _reference_run(tmp_path_factory, ARCH, steps=1)
+    return _reference_runs(tmp_path_factory, [ARCH], steps=1)[ARCH]
 
 
 def test_minicpm3_train_step_matches_reference(train_ref):

@@ -48,7 +48,7 @@ from repro_torch.launch.steps import (build_prefill_step, build_serve_step,
                                       build_train_step)
 from repro_torch.models.model import abstract_params, init_params, prefill
 
-from test_torch_train import _steps_match_reference
+from test_torch_train import _run_at_once, _steps_match_reference
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 B, S, STEPS, GEN = 4, 20, 2, 3
@@ -74,8 +74,9 @@ _JAX_SCRIPT = textwrap.dedent("""
                                     build_train_step, init_exchange_state)
     from repro.models import init_params
 
-    out, train_archs, serve_archs = (sys.argv[2], sys.argv[3].split(","),
-                                     sys.argv[4].split(","))
+    out = sys.argv[2]
+    train_archs, serve_archs = ([a for a in arg.split(",") if a]
+                                for arg in sys.argv[3:5])
     B, S, steps, gen, lr = 4, 20, 2, 3, 0.05
     mesh = mesh_lib.make_mesh((2, 2), ("data", "model"))
 
@@ -156,30 +157,19 @@ _JAX_SCRIPT = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One CPU thread for this file's torch work, as its rank and launcher
-    processes run: lanes and ranks then round alike, and the file's
-    processes do not oversubscribe the CPU it shares with other files."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     """The reference's results on its (2, 2) mesh: per train arch, two
     allgather steps (parameters and velocities after each); per serve
-    arch, the prefill's last logits and three greedy decode steps."""
+    arch, the prefill's last logits and three greedy decode steps.  Three
+    processes at once take half the train archs each and the serve
+    archs."""
     out = tmp_path_factory.mktemp("jax_model_axis")
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", _JAX_SCRIPT,
-                           str(ROOT / "src"), str(out),
-                           ",".join(TRAIN_ARCHS), ",".join(SERVE_ARCHS)],
-                          capture_output=True, text=True, timeout=600,
-                          env=env)
-    assert proc.returncode == 0, proc.stderr[-4000:]
+    _run_at_once([[sys.executable, "-c", _JAX_SCRIPT, str(ROOT / "src"),
+                   str(out), train, serve]
+                  for train, serve in ((",".join(TRAIN_ARCHS[0::2]), ""),
+                                       (",".join(TRAIN_ARCHS[1::2]), ""),
+                                       ("", ",".join(SERVE_ARCHS)))], out)
     return {name.stem: dict(np.load(name)) for name in out.glob("*.npz")}
 
 

@@ -52,7 +52,7 @@ from repro_torch.models import (decode_step, forward, loss_fn, multimodal,
 from repro_torch.models import rope as trope
 from repro_torch.models.config import ModelConfig as TConfig
 from test_torch_decode import _close_caches, _margin
-from test_torch_train import _reference_run, _steps_match_reference
+from test_torch_train import _reference_runs, _steps_match_reference
 
 VL, MUSIC = "qwen2-vl-7b", "musicgen-large"
 ARCHS = (VL, MUSIC)
@@ -405,10 +405,14 @@ def test_prefill_step_and_inputs_carry_the_frontend(arch):
     assert not torch.equal(logits, plain)
 
 
+@pytest.fixture(scope="module")
+def train_refs(tmp_path_factory):
+    return _reference_runs(tmp_path_factory, ARCHS, steps=1)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
-def train_ref(request, tmp_path_factory):
-    return request.param, _reference_run(tmp_path_factory, request.param,
-                                         steps=1)
+def train_ref(request, train_refs):
+    return request.param, train_refs[request.param]
 
 
 def test_modality_train_step_matches_reference(train_ref):

@@ -24,14 +24,6 @@ CELL_ROWS = [(65024, 4096, 205), (13696, 8192, 410), (5120, 512, 26),
              (6400, 5120, 256), (2, 1024, 51)]
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def planted(S, n, seed):
     """Normal rows with adversarial rows in front: all zero, zeros of both
     signs, two values of opposite sign, denormals of both signs, NaN among

@@ -24,14 +24,6 @@ from repro_torch.launch.mesh import LaneMesh
 M, LR = 0.9, 0.05
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _rng(*key):
     return np.random.default_rng(zlib.crc32(repr(key).encode()))
 

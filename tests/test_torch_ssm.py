@@ -39,7 +39,7 @@ from repro_torch.models import (decode_step, forward, init_caches,
 from repro_torch.models import ssm as tssm
 from repro_torch.models.config import ModelConfig as TConfig
 from repro_torch.models.config import SSMConfig as TSSM
-from test_torch_train import _reference_run, _steps_match_reference
+from test_torch_train import _reference_runs, _steps_match_reference
 
 MAMBA, ZAMBA = "mamba2-780m", "zamba2-2.7b"
 
@@ -287,10 +287,14 @@ def test_mamba2_adds_no_positions():
     assert torch.equal(a, b)
 
 
+@pytest.fixture(scope="module")
+def train_refs(tmp_path_factory):
+    return _reference_runs(tmp_path_factory, [MAMBA, ZAMBA], steps=1)
+
+
 @pytest.fixture(scope="module", params=[MAMBA, ZAMBA])
-def train_ref(request, tmp_path_factory):
-    return request.param, _reference_run(tmp_path_factory, request.param,
-                                         steps=1)
+def train_ref(request, train_refs):
+    return request.param, train_refs[request.param]
 
 
 def test_family_train_step_matches_reference(train_ref):

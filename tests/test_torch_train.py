@@ -87,29 +87,53 @@ _JAX_SCRIPT = textwrap.dedent("""
 """)
 
 
-def _reference_run(tmp_path_factory, arch, steps=STEPS):
-    """The reference's ``steps`` allgather steps on the reduced ``arch``
-    (float32 compute): its initial parameters, tokens (and a modality
-    family's frontend embeddings), losses and the parameters and the
-    workers' velocities after each step."""
-    out = tmp_path_factory.mktemp("jax_train") / "ref.npz"
+def _reference_runs(tmp_path_factory, archs, steps=STEPS):
+    """Per arch of ``archs``, the reference's ``steps`` allgather steps on
+    the reduced arch (float32 compute): its initial parameters, tokens
+    (and a modality family's frontend embeddings), losses and the
+    parameters and the workers' velocities after each step.  The archs
+    run in processes of their own, all at once."""
+    out = tmp_path_factory.mktemp("jax_train")
+    _run_at_once([[sys.executable, "-c", _JAX_SCRIPT, str(ROOT / "src"),
+                   str(out / f"{arch}.npz"), arch, str(steps)]
+                  for arch in archs], out)
+    return {arch: dict(np.load(out / f"{arch}.npz")) for arch in archs}
+
+
+def _run_at_once(argvs, out):
+    """Run the reference's commands ``argvs`` (``JAX_PLATFORMS=cpu``) as
+    processes at once, each one's stderr in a file under ``out``; assert
+    that each exits with 0 within 600 s."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", _JAX_SCRIPT,
-                           str(ROOT / "src"), str(out), arch, str(steps)],
-                          capture_output=True, text=True, timeout=600,
-                          env=env)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return dict(np.load(out))
+    logs = [out / f"stderr{i}.txt" for i in range(len(argvs))]
+    procs = []
+    try:
+        for argv, log in zip(argvs, logs):
+            with open(log, "w") as err:
+                procs.append(subprocess.Popen(
+                    argv, stdout=subprocess.DEVNULL, stderr=err, env=env))
+        for proc, log in zip(procs, logs):
+            proc.wait(timeout=600)
+            assert proc.returncode == 0, log.read_text()[-4000:]
+    finally:
+        for proc in procs:
+            proc.kill()
 
 
 @pytest.fixture(scope="module")
-def ref(tmp_path_factory):
-    return _reference_run(tmp_path_factory, "chatglm3-6b")
+def refs(tmp_path_factory):
+    return _reference_runs(tmp_path_factory,
+                           ["chatglm3-6b", "qwen3-moe-235b-a22b"])
 
 
 @pytest.fixture(scope="module")
-def moe_ref(tmp_path_factory):
-    return _reference_run(tmp_path_factory, "qwen3-moe-235b-a22b")
+def ref(refs):
+    return refs["chatglm3-6b"]
+
+
+@pytest.fixture(scope="module")
+def moe_ref(refs):
+    return refs["qwen3-moe-235b-a22b"]
 
 
 def _tree(ref, prefix):

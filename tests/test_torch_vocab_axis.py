@@ -41,7 +41,7 @@ from repro_torch.launch.steps import (build_prefill_step, build_serve_step,
                                       build_train_step)
 from repro_torch.models.model import abstract_params, init_params, prefill
 
-from test_torch_train import _steps_match_reference
+from test_torch_train import _run_at_once, _steps_match_reference
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 B, S, STEPS, GEN, VOCAB = 4, 20, 2, 3, 513
@@ -137,29 +137,16 @@ _JAX_SCRIPT = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One CPU thread for this file's torch work, as its rank processes
-    run: lanes and ranks then round alike."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     """The reference on its (2, 2) mesh at vocabulary 513: per arch, two
     allgather train steps (parameters and velocities after each), and the
-    prefill's last logits and three greedy decode steps."""
+    prefill's last logits and three greedy decode steps.  Two processes
+    at once take half the archs each."""
     out = tmp_path_factory.mktemp("jax_vocab_axis")
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", _JAX_SCRIPT,
-                           str(ROOT / "src"), str(out), ",".join(ARCHS),
-                           str(VOCAB)],
-                          capture_output=True, text=True, timeout=600,
-                          env=env)
-    assert proc.returncode == 0, proc.stderr[-4000:]
+    _run_at_once([[sys.executable, "-c", _JAX_SCRIPT, str(ROOT / "src"),
+                   str(out), ",".join(archs), str(VOCAB)]
+                  for archs in (ARCHS[0::2], ARCHS[1::2])], out)
     return {name.stem: dict(np.load(name)) for name in out.glob("*.npz")}
 
 
