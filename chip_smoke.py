@@ -21,7 +21,10 @@ exits nonzero and prints no result line):
   hierarchy at the benchmark cells' row shapes and at k = 1, around 64,
   above 1,024 and k = n, on rows of 37, 1,000, 4,096 and ROW_MAX
   elements, adversarial rows planted, at a 4-byte offset and strided, and
-  the engine's switch at ROW_MAX; the multi-row scatter-add one such
+  the engine's switch at ROW_MAX; the row-wise SAMomentum step (3s) on
+  rows and on every hinted leaf that the benchmark's allgather cells step
+  where it lives (``cell_leaves``: rows, runs, columns), aligned and 4
+  bytes off inside NaN guard bands; the multi-row scatter-add one such
   case per lane of 16 permuted rows, each lane alone (B = 1), the identity
   rows, k = 0 and 600 lanes; the fused SAMomentum pass rows of 10, 2,049
   and 2,304 elements at 0-, 4- and 8-byte offsets with ties, denormals,
@@ -1419,6 +1422,155 @@ def sam_row_kernels(torch, timer, rate, results, compare, errs):
         plain_ms=emb["plain_ms"], bound_ms=emb["bound_ms"],
         bound_by="bytes", library_ms=None, launch_ms=emb["launch_ms"],
         cells={f"{S}x{n}/k{k}": t for (S, n, k), t in timings.items()}))
+    sam_leaf_kernels(torch, timer, rate, results, compare, errs)
+
+
+def cell_leaves(torch):
+    """The hinted leaves that the benchmark's allgather cells step where
+    they live, each (shape, hinted dim) once with its cut: from
+    ``shard_axis_hints`` on each cell's configuration (model size 1, as
+    its train step) and ``leaf_cut`` at its traffic's workers and density,
+    kept where ``block_topk.leaf_access`` takes the lane's view (the wide
+    leaves past ``ROW_MAX`` stay copied).  Returns [(shape, ax, cut)]."""
+    from portbench import harness
+    from repro_torch.core import distributed
+    from repro_torch.core.paramspace import tree_flatten
+    from repro_torch.kernels import block_topk as bt
+    from repro_torch.launch.sharding import shard_axis_hints
+    from repro_torch.models.model import abstract_params
+
+    bench = harness.load_json(ROOT / "BENCHMARK.json")
+    out = {}
+    for entry in bench["workloads"]:
+        cell = harness.load_cell(entry["name"], bench)
+        tr = cell.traffic
+        if tr["mode"] != "allgather":
+            continue
+        cfg = harness.port_config(cell.config)
+        params = abstract_params(cfg)
+        ex = distributed.ExchangeConfig(mode="allgather",
+                                        density=tr["density"])
+        for leaf, ax in zip(tree_flatten(params)[0],
+                            shard_axis_hints(cfg, params, 1)):
+            shape = tuple(leaf.shape)
+            cut = distributed.leaf_cut(shape, ax, ex, tr["workers"])
+            x3 = None if cut.flat else distributed._leaf_rows(
+                torch.empty(shape, device="meta"), cut)
+            if x3 is not None and bt.leaf_access(x3, x3) is not None:
+                out.setdefault((shape, ax), cut)
+    return [(shape, ax, cut) for (shape, ax), cut in out.items()]
+
+
+def sam_leaf_kernels(torch, timer, rate, results, compare, errs):
+    """The row-wise SAMomentum step on a leaf's rows where they live
+    (``block_topk.samomentum_row_topk_leaf``: rows, ``samomentum_row_topk``;
+    runs, ``samomentum_seg_topk``; columns, ``samomentum_col_topk``), in
+    place at every leaf of :func:`cell_leaves` with the
+    adversarial rows planted (u's under g = 0, g's under u = 0), aligned
+    and at a 4-byte offset (the narrow path), inside guard bands that must
+    stay NaN: bit for bit against its plain version on the rows copied out
+    (NaNs as one pattern) and against the route it replaces on the card
+    (``_rows_in``'s copies into the row layout, row 3s, ``_rows_back``),
+    one launch counted on the access's kernel.  Timed in place as the
+    exchange calls it, beside the route it replaces and the bound (u and g
+    read once, u written once, k values and indices a row)."""
+    from repro_torch.core import distributed
+    from repro_torch.kernels import block_topk as bt
+
+    m, lr = H_MOMENTUM, H_LR
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    guard = 16
+    infos = {"rows": bt.SAM_ROW_INFO, "runs": bt.SAM_SEG_INFO,
+             "columns": bt.SAM_COL_INFO}
+    timings = {}
+    for shape, ax, cut in cell_leaves(torch):
+        S, n, k = cut.S, cut.rest, cut.k_row
+        moved = (shape[ax],) + shape[:ax] + shape[ax + 1:]
+        size = S * n
+        rows_u = torch.randn(S, n, generator=gen, device="cuda")
+        rows_g = torch.randn(S, n, generator=gen, device="cuda")
+        h = min(S, 18)
+        plant_rows(torch, gen, rows_u[:h])
+        rows_g[:9] = 0.0
+        plant_rows(torch, gen, rows_g[9:h])
+        rows_u[9:h] = 0.0
+        plain = bt.samomentum_row_topk_plain(rows_u, rows_g, momentum=m,
+                                             lr=lr, k=k)
+        narrow = None
+        for off in (guard + 1, guard):     # timed at the second, aligned
+            buf = torch.full((2, size + 2 * guard + 4), float("nan"),
+                             device="cuda")
+            leaf = buf[:, off:off + size].view((2,) + shape)
+            leaf[0].movedim(ax, 0).copy_(rows_u.view(moved))
+            leaf[1].movedim(ax, 0).copy_(rows_g.view(moved))
+            u, g = leaf[0], leaf[1]
+            u3, g3 = (distributed._leaf_rows(x, cut) for x in (u, g))
+            info = infos[bt.leaf_access(u3, g3)]
+            name = f"{info.name}/{shape} hint {ax}" + \
+                ("" if off == guard else ", 4-byte offset")
+            was = u.clone()
+            um, u_rows, g_rows = distributed._rows_in(u, g, cut)
+            want = bt.samomentum_row_topk_rows(u_rows, g_rows, momentum=m,
+                                               lr=lr, k=k, out=u_rows)
+            distributed._rows_back(um, want[2])
+            want = (*want[:2], u.clone())
+            u.copy_(was)
+            before = info.launches
+            got = bt.samomentum_row_topk_leaf(u3, g3, momentum=m, lr=lr,
+                                              k=k)
+            if info.launches != before + 1:
+                raise AssertionError(f"{name}: {info.launches - before} "
+                                     f"launches of {info.name}")
+            compare(name, (*got, u3.transpose(0, 1).reshape(S, n)), plain,
+                    quiet=True, nan_as_one=True)
+            compare(f"{name} vs the copies and 3s", (*got, u), want,
+                    quiet=True)
+            if not (bool(buf[:, :off].isnan().all())
+                    and bool(buf[:, off + size:].isnan().all())):
+                raise AssertionError(f"{name}: a guard band was written")
+            del got, want, was, um, u_rows, g_rows
+            reps = 5 if size > 1 << 24 else 15
+            if narrow is None:
+                narrow = timer(lambda: bt.samomentum_row_topk_leaf(
+                    u3, g3, momentum=m, lr=lr, k=k), reps=reps)
+
+        def route():
+            um, u_rows, g_rows = distributed._rows_in(u, g, cut)
+            vals, idx, u_new = bt.samomentum_row_topk_rows(
+                u_rows, g_rows, momentum=m, lr=lr, k=k, out=u_rows)
+            distributed._rows_back(um, u_new)
+            return vals, idx
+
+        t = timings[(shape, ax)] = dict(
+            info=info.name,
+            ms=timer(lambda: bt.samomentum_row_topk_leaf(
+                u3, g3, momentum=m, lr=lr, k=k), reps=reps),
+            narrow_ms=narrow,
+            route_ms=timer(route, reps=reps),
+            plain_ms=timer(lambda: bt.samomentum_row_topk_plain(
+                rows_u, rows_g, momentum=m, lr=lr, k=k), reps=reps),
+            bound_ms=(12 * size + 8 * S * k) / rate * 1e3)
+        log(f"  {info.name} {shape} hint {ax} ((S, n) = ({S}, {n}), "
+            f"k={k}): kernel {t['ms']:.4f} ms (4 bytes off, the narrow "
+            f"path: {t['narrow_ms']:.4f} ms), the copies and 3s it replaces "
+            f"{t['route_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.2f}x)")
+        del rows_u, rows_g, plain, buf, leaf, u, g, u3, g3
+        torch.cuda.empty_cache()
+    log("  samomentum_row_topk, samomentum_seg_topk, samomentum_col_topk "
+        "at the allgather cells' leaves: bit-equal to the plain version and "
+        "to the copies and 3s, in place, aligned and at a 4-byte offset, "
+        "guard bands untouched")
+    for info in (bt.SAM_SEG_INFO, bt.SAM_COL_INFO):   # rows: sam_row_kernels'
+        cells = {f"{shape}/hint{ax}": t for (shape, ax), t in timings.items()
+                 if t["info"] == info.name}
+        first = next(iter(cells.values()))
+        results.append(dict(
+            name=info.name, route="cuda", source=info.source,
+            replaces=info.replaces, max_abs_err=errs[info.name],
+            ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by="bytes", library_ms=None,
+            route_ms=first["route_ms"], cells=cells))
 
 
 G_SHARDS = 4        # phase G's shards: 4 of phase B's arena, one empty
@@ -3033,6 +3185,12 @@ H_LAYERS = 2                # of chatglm3-6b's 28; H3 at 1
 # 4 and 4a; H1 adds 3s, which takes chatglm3's hinted rows
 H_ROWS = ("scatter_add", "scatter_add_rows", "row_topk",
           "samomentum_fused", "samomentum_accumulate")
+# H1 allgather's row-wise steps a step by access (rows, runs, columns) over
+# 4 lanes: the embedding; wo and down; lm_head, wq, wk, wv, gate, up and the
+# three biases -- every hinted leaf stepped where it lives, none copied
+H_SAM_ROWS = ("samomentum_row_topk", "samomentum_seg_topk",
+              "samomentum_col_topk")
+H_SAM_SPLIT = (4.0, 8.0, 36.0)
 
 
 def _h_cfg(n_layers: int):
@@ -3056,6 +3214,7 @@ def _h_run(torch, label, cfg, mesh, ex_cfg, stream, steps, card):
     gradients, exchange and update by CUDA events.  Returns (params,
     state, losses, launches, step)."""
     from repro_torch import kernels
+    from repro_torch.core import distributed
     from repro_torch.core.paramspace import tree_leaves
     from repro_torch.launch.roofline import wire_bytes
     from repro_torch.launch.steps import build_train_step
@@ -3068,6 +3227,7 @@ def _h_run(torch, label, cfg, mesh, ex_cfg, stream, steps, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    copies = distributed.ROWS_IN_COPIES
     losses, split, walls = [], [], []
     for i in range(steps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -3087,6 +3247,7 @@ def _h_run(torch, label, cfg, mesh, ex_cfg, stream, steps, card):
         split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
         losses.append(loss)
     launches = {info.name: info.launches for info in kernels.KERNELS}
+    launches["rows_in_copies"] = distributed.ROWS_IN_COPIES - copies
     peak = torch.cuda.max_memory_allocated()
     tokens = stream.batch_size * stream.seq_len
     steady = statistics.median(walls[1:]) if steps > 1 else walls[0]
@@ -3194,6 +3355,14 @@ def phase_h1(torch, results, card):
             if idle:
                 raise AssertionError(f"{label}: rows {idle} never launched: "
                                      f"{launches}")
+            split = tuple(launches[k] / H_STEPS for k in H_SAM_ROWS)
+            copied = launches["rows_in_copies"] / H_STEPS
+            log(f"  {label}: the row-wise step a step, rows / runs / columns "
+                f"{split}, lane-leaves copied into the row layout {copied}")
+            if split != H_SAM_SPLIT or copied != 0:
+                raise AssertionError(
+                    f"{label}: row-wise steps {split} and {copied} copied "
+                    f"lane-leaves a step, expected {H_SAM_SPLIT} and 0")
         del params, state
         torch.cuda.empty_cache()
     h1_identity(torch, cfg, mesh, stream)
@@ -3975,8 +4144,8 @@ def _tap(module, name, record):
     module at every call)."""
     orig = getattr(module, name)
 
-    def tapped(*args):
-        out = orig(*args)
+    def tapped(*args, **kwargs):
+        out = orig(*args, **kwargs)
         record(args, out)
         return out
 
@@ -4331,6 +4500,7 @@ def _train_gates(torch, cfg, label, model: int = 1):
     mean (to 1e-3, relative) and it lies within ``H_TIE`` of its row's
     boundary on that lane.  Returns the step's launches by kernel name."""
     from repro_torch import kernels
+    from repro_torch.core import distributed
     from repro_torch.core.distributed import ExchangeConfig
     from repro_torch.core.paramspace import tree_flatten, tree_unflatten
     from repro_torch.data.synthetic import TokenStream
@@ -4374,9 +4544,11 @@ def _train_gates(torch, cfg, label, model: int = 1):
     step, params, state, batch = setup("blockwise", "cuda")
     torch.cuda.synchronize()
     kernels.reset_launches()
+    copies = distributed.ROWS_IN_COPIES
     params, state, loss = step(params, state, batch)
     torch.cuda.synchronize()
     launches = {info.name: info.launches for info in kernels.KERNELS}
+    launches["rows_in_copies"] = distributed.ROWS_IN_COPIES - copies
     log(f"  {label}: the blockwise allgather step on the card launched "
         f"{launches}; loss card {float(loss):.6f}, CPU {cpu_loss:.6f}")
     idle = [k for k in J_ROWS if launches[k] == 0]

@@ -50,6 +50,8 @@ buckets cross with one ``all_to_all_single``.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -242,6 +244,17 @@ def _each_leaf(run, state, grads, *held, cfg, lr, mesh, shard_axes,
 # of unit stride
 # ---------------------------------------------------------------------------
 
+def _leaf_rows(x_l, cut):
+    """A lane's ``x_l`` viewed ``(outer, S, inner)``, whose ``[:, s, :]``
+    is row s of the cut's row view (no copy); None where the rows are not
+    one dim of a contiguous ``x_l`` (a one-row cut, folded dims)."""
+    shape = tuple(x_l.shape)
+    if cut.ax is None or shape[cut.ax] != cut.S or not x_l.is_contiguous():
+        return None
+    return x_l.view(math.prod(shape[:cut.ax]), cut.S,
+                    math.prod(shape[cut.ax + 1:]))
+
+
 def _rows_in(u_l, g_l, cut):
     """(um, u_rows, g_rows): the lane's velocity ``u_l`` with ``cut.ax``
     first (None: one row), and its and the gradient's ``(S, rest)`` float32
@@ -320,6 +333,41 @@ def dense_momentum_exchange(state, grads, *, cfg, lr, mesh,
 # the paper's per-tensor threshold.
 # ---------------------------------------------------------------------------
 
+# The allgather exchange's lane-leaves whose rows went through _rows_in's
+# copies into the row layout and back: a plain count, as a kernel's
+# launches (the rest are stepped where they live).
+ROWS_IN_COPIES = 0
+
+
+def _lane_rows_step(u_l, g_l, *, cut, cfg, lr, spec, quantize, span):
+    """One lane's row-wise SAMomentum step of a hinted leaf, the new
+    velocity written into ``u_l``: where the row-wise kernels read the
+    leaf's rows where they live (``engine.leaf_in_place``), in ``u_l``
+    itself; else through ``_rows_in``'s copies into the row layout and
+    back (counted in ``ROWS_IN_COPIES``).  Returns (vals, idx), the
+    values through ``quantize``."""
+    global ROWS_IN_COPIES
+    kw = dict(momentum=cfg.momentum, lr=lr, k=cut.k_row, spec=spec)
+    u3, g3 = _leaf_rows(u_l, cut), _leaf_rows(g_l, cut)
+    if engine_lib.leaf_in_place(u3, g3, k=cut.k_row, lr=lr, spec=spec):
+        with span("exchange/select"):
+            vals, idx = engine_lib.samomentum_step_leaf(u3, g3, **kw)
+            return quantize(vals), idx
+    ROWS_IN_COPIES += 1
+    with span("exchange/layout"):
+        um, u_rows, g_rows = _rows_in(u_l, g_l, cut)
+    with span("exchange/select"):
+        # the new velocity over u_rows: in place where those rows are u's
+        # own storage
+        vals, idx, u_new = engine_lib.samomentum_step_rows(
+            u_rows, g_rows, out=u_rows, **kw)
+        del g_rows
+        vals = quantize(vals)
+    with span("exchange/layout"):
+        _rows_back(um, u_new)
+    return vals, idx
+
+
 def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec, quantize,
                            recorder, leaf):
     """SAMomentum + top-k + sparse all-gather for one leaf, ``u`` and ``g``
@@ -358,19 +406,11 @@ def _leaf_allgather_hinted(u, g, *, cut, cfg, lr, mesh, spec, quantize,
     wdt = _wire(cfg.wire_dtype)
     vals, idx = [], []
     for lane in range(L):
+        v_l, i_l = _lane_rows_step(
+            u[lane], g[lane], cut=cut, cfg=cfg, lr=lr, spec=spec,
+            quantize=quantize,
+            span=functools.partial(span, leaf=leaf, lane=lane))
         with span("exchange/layout", leaf=leaf, lane=lane):
-            um, u_rows, g_rows = _rows_in(u[lane], g[lane], cut)
-        with span("exchange/select", leaf=leaf, lane=lane):
-            # the new velocity over u_rows: where those rows are u's own
-            # storage (dim 0 hinted, as an embedding), in place
-            v_l, i_l, u_new = engine_lib.samomentum_step_rows(
-                u_rows, g_rows, momentum=cfg.momentum, lr=lr, k=cut.k_row,
-                spec=spec, out=u_rows)
-            del g_rows
-            v_l = quantize(v_l)
-        with span("exchange/layout", leaf=leaf, lane=lane):
-            _rows_back(um, u_new)
-            del u_rows, u_new
             vals.append(v_l.to(wdt))
         idx.append(i_l)
     gv, gi = _gather_rows(vals, idx, mesh, recorder, leaf)

@@ -355,16 +355,13 @@ def _samomentum_select_rescale(u2d, g2d, eng, *, momentum: float, lr,
     return vals, idx, samomentum_rescale(uacc, mask, momentum, out=out)
 
 
-def _row_fused(eng, u2d, g2d, k: int, lr) -> bool:
-    """Whether the step of these rows is one pass of
-    ``block_topk.samomentum_row_topk_rows``: the blockwise engine in its
-    row regime, on float32 rows of unit stride, at one float ``lr``."""
+def _row_fused(eng, n: int, k: int, lr) -> bool:
+    """Whether the step of rows of ``n`` is one pass of the row-wise
+    SAMomentum kernels (``block_topk.samomentum_row_topk_rows`` and
+    ``samomentum_row_topk_leaf``): the blockwise engine in its row regime,
+    at one float ``lr``."""
     return isinstance(eng, BlockwiseEngine) \
-        and not isinstance(lr, torch.Tensor) \
-        and eng.row_regime(int(u2d.shape[1]), k) \
-        and all(t.dtype == torch.float32 and (t.shape[1] == 1
-                                              or t.stride(1) == 1)
-                for t in (u2d, g2d))
+        and not isinstance(lr, torch.Tensor) and eng.row_regime(n, k)
 
 
 def samomentum_step_rows(u2d, g2d, *, momentum: float, lr, k: int,
@@ -382,14 +379,46 @@ def samomentum_step_rows(u2d, g2d, *, momentum: float, lr, k: int,
     select and rescale."""
     from repro_torch.kernels import block_topk
 
-    eng = resolve_engine(spec, int(u2d.shape[1]))
-    if _row_fused(eng, u2d, g2d, k, lr):
+    n = int(u2d.shape[1])
+    eng = resolve_engine(spec, n)
+    if _row_fused(eng, n, k, lr) \
+            and all(t.dtype == torch.float32 and (n == 1 or t.stride(1) == 1)
+                    for t in (u2d, g2d)):
         vals, idx, u_new = block_topk.samomentum_row_topk_rows(
             u2d, g2d, momentum=momentum, lr=lr, k=k, out=out)
     else:
         vals, idx, u_new = _samomentum_select_rescale(
             u2d, g2d, eng, momentum=momentum, lr=lr, k=k, out=out)
     return _maybe_quantize_rows(vals, spec.quantize), idx, u_new
+
+
+def leaf_in_place(u3, g3, *, k: int, lr,
+                  spec: CompressionSpec = DEFAULT_SPEC) -> bool:
+    """Whether :func:`samomentum_step_leaf` takes the rows of a leaf viewed
+    ``(outer, S, inner)`` (row s its ``[:, s, :]``) where they live: one
+    pass of the row-wise kernels (:func:`_row_fused`) through an access of
+    ``block_topk.leaf_access``.  False where there is no view (None)."""
+    from repro_torch.kernels import block_topk
+
+    if u3 is None or g3 is None:
+        return False
+    n = int(u3.shape[0] * u3.shape[2])
+    return _row_fused(resolve_engine(spec, n), n, k, lr) \
+        and block_topk.leaf_access(u3, g3) is not None
+
+
+def samomentum_step_leaf(u3, g3, *, momentum: float, lr: float, k: int,
+                         spec: CompressionSpec = DEFAULT_SPEC):
+    """:func:`samomentum_step_rows` of the rows of a leaf viewed ``(outer,
+    S, inner)`` where they live (:func:`leaf_in_place` must hold): the new
+    velocity written into ``u3`` itself, the same bits as the rows' step
+    on a copy in the row layout.  Returns (vals (S, k), idx (S, k)
+    int32), vals after wire quantization."""
+    from repro_torch.kernels import block_topk
+
+    vals, idx = block_topk.samomentum_row_topk_leaf(
+        u3, g3, momentum=momentum, lr=lr, k=k)
+    return _maybe_quantize_rows(vals, spec.quantize), idx
 
 
 def _samomentum_leaf_rows(u2d, g2d, *, momentum: float, lr, k: int,

@@ -17,6 +17,11 @@ and bits -- one CTA a row, bound by reading the row once (see the source).
 row-wise SAMomentum step around it in the same pass: the velocity
 accumulate in registers, the row regime's top-k of it, and the rescale by
 the winners written back over the velocity.
+:func:`samomentum_row_topk_leaf` takes the same step on a leaf's rows where
+they live, in place, the access picked from the leaf's view by
+:func:`leaf_access`: rows of unit stride (``SAM_ROW_INFO``), runs
+(``samomentum_seg_topk``, ``SAM_SEG_INFO``) or columns
+(``samomentum_col_topk``, ``SAM_COL_INFO``).
 
 Each wrapper takes a CPU tensor to its plain version and launches the
 kernel for a CUDA tensor; anything else raises.
@@ -49,6 +54,16 @@ SAM_ROW_INFO = build.KernelInfo(
     source="src/repro_torch/kernels/csrc/block_topk.cu",
     replaces="none: src/repro/core/engine.py's row-wise SAMomentum step "
              "(accumulate, row top-k, mask rescale) in one pass")
+SAM_SEG_INFO = build.KernelInfo(
+    name="samomentum_seg_topk",
+    source="src/repro_torch/kernels/csrc/block_topk.cu",
+    replaces="none: samomentum_row_topk on a leaf's rows of runs where they "
+             "live, without the copies into the row layout and back")
+SAM_COL_INFO = build.KernelInfo(
+    name="samomentum_col_topk",
+    source="src/repro_torch/kernels/csrc/block_topk.cu",
+    replaces="none: samomentum_row_topk on a leaf's column rows where they "
+             "live, a tile of adjacent rows a CTA, without the copies")
 
 
 def block_topk_plain(x2d: torch.Tensor, r: int):
@@ -190,3 +205,77 @@ def samomentum_row_topk_rows(u2d: torch.Tensor, g2d: torch.Tensor, *,
     build.check(rc, SAM_ROW_INFO.name)
     build.count(SAM_ROW_INFO)
     return vals, idx, out
+
+
+def leaf_access(u3: torch.Tensor, g3: torch.Tensor) -> str | None:
+    """How :func:`samomentum_row_topk_leaf` takes the rows of a leaf viewed
+    ``(outer, S, inner)`` (row s is ``[:, s, :]``, ``n = outer * inner``
+    elements, ``n <= ROW_MAX``) where they live: ``"rows"`` (outer 1:
+    ``(S, inner)`` rows of unit stride), ``"runs"`` (inner a multiple of
+    4: ``outer`` runs of ``inner``), ``"columns"`` (inner 1: row s is
+    column s of an ``(outer, S)`` matrix); None for any other view, or
+    operands that are not contiguous float32 of one shape."""
+    if u3.dim() != 3 or g3.shape != u3.shape \
+            or u3.dtype != torch.float32 or g3.dtype != torch.float32 \
+            or not (u3.is_contiguous() and g3.is_contiguous()):
+        return None
+    outer, _, inner = u3.shape
+    if not 1 <= outer * inner <= ROW_MAX:
+        return None
+    if outer == 1:
+        return "rows"
+    if inner == 1:
+        return "columns"
+    return "runs" if inner % 4 == 0 else None
+
+
+def samomentum_row_topk_leaf(u3: torch.Tensor, g3: torch.Tensor, *,
+                             momentum: float, lr: float, k: int):
+    """:func:`samomentum_row_topk_rows` on the rows of a leaf viewed
+    ``(outer, S, inner)``, in place: row s is ``u3[:, s, :]`` in the order
+    of ``u3.transpose(0, 1).reshape(S, n)``, and its new velocity is
+    written back there.  The access is :func:`leaf_access`'s (None
+    raises).  Returns (vals ``(S, k)``, idx ``(S, k)`` int32), the bits of
+    the row-layout step.  CPU -> the plain version on a copy of the rows
+    in that layout, written back; CUDA -> ONE launch for all rows."""
+    how = leaf_access(u3, g3)
+    if how is None:
+        raise ValueError(f"samomentum_row_topk_leaf: no access for the view "
+                         f"{tuple(u3.shape)} of {u3.dtype}, {g3.dtype}")
+    outer, S, inner = u3.shape
+    n = outer * inner
+    if how == "rows":
+        vals, idx, _ = samomentum_row_topk_rows(
+            u3[0], g3[0], momentum=momentum, lr=lr, k=k, out=u3[0])
+        return vals, idx
+    if not 1 <= k <= n:
+        raise ValueError(f"samomentum_row_topk_leaf: k={k} outside [1, {n}]")
+    if isinstance(lr, torch.Tensor):
+        raise ValueError("samomentum_row_topk_leaf: lr is a float, one for "
+                         "all rows")
+    if u3.device.type == "cpu":
+        vals, idx, u_new = samomentum_row_topk_plain(
+            u3.transpose(0, 1).reshape(S, n),
+            g3.transpose(0, 1).reshape(S, n), momentum=momentum, lr=lr, k=k)
+        u3.copy_(u_new.view(S, outer, inner).transpose(0, 1))
+        return vals, idx
+    if u3.device.type != "cuda":
+        raise ValueError(f"samomentum_row_topk_leaf: no kernel for "
+                         f"{u3.device}")
+    build.require(g3, "g3", torch.float32, u3.device)
+    vals = torch.empty((S, k), dtype=torch.float32, device=u3.device)
+    idx = torch.empty((S, k), dtype=torch.int32, device=u3.device)
+    if S == 0:
+        return vals, idx
+    lib, ptrs = build.library(), (u3.data_ptr(), g3.data_ptr(),
+                                  u3.data_ptr())
+    tail = (float(lr), momentum, rcp(momentum), vals.data_ptr(),
+            idx.data_ptr(), n, k, build.stream())
+    if how == "runs":
+        rc, info = lib.samomentum_seg_topk(*ptrs, S, inner, *tail), \
+            SAM_SEG_INFO
+    else:
+        rc, info = lib.samomentum_col_topk(*ptrs, S, *tail), SAM_COL_INFO
+    build.check(rc, info.name)
+    build.count(info)
+    return vals, idx

@@ -188,6 +188,10 @@ def _declare(lib) -> None:
     lib.row_topk.argtypes = [p, i64, p, p, i64, i32, i32, p]
     lib.samomentum_row_topk.argtypes = [p, i64, p, i64, p, i64, f32, f32,
                                         f32, p, p, i64, i32, i32, p]
+    lib.samomentum_seg_topk.argtypes = [p, p, p, i64, i32, f32, f32, f32, p,
+                                        p, i32, i32, p]
+    lib.samomentum_col_topk.argtypes = [p, p, p, i64, f32, f32, f32, p, p,
+                                        i32, i32, p]
     lib.samomentum_fused.argtypes = [p, p, p, p, p, f32, f32, f32, i64, i64,
                                      p]
     lib.samomentum_accumulate.argtypes = [p, i64, p, i64, p, i64, f32, p,
@@ -197,7 +201,9 @@ def _declare(lib) -> None:
                                      i32, f32, f32, p, p, i64, p, i64, i32,
                                      p, p, i32, p, p]
     for fn in (lib.scatter_add, lib.scatter_add_rows, lib.block_topk,
-               lib.row_topk, lib.samomentum_row_topk, lib.samomentum_fused,
+               lib.row_topk, lib.samomentum_row_topk,
+               lib.samomentum_seg_topk, lib.samomentum_col_topk,
+               lib.samomentum_fused,
                lib.samomentum_accumulate, lib.fma_rows,
                lib.segment_quantize):
         fn.restype = ctypes.c_int

@@ -453,12 +453,31 @@ struct RowShared {
   unsigned bmax;             // the fullest bucket
 };
 
-// Sums of `a` and `b` and max of `mx` over the CTA, returned in place.
+// The threads that run one row: the whole CTA (CtaTeam), or one group of
+// whole warps of a column tile's CTA (GroupTeam), which meets at a named
+// barrier of its own so that the CTA's groups select their rows at once.
+struct CtaTeam {
+  __device__ __forceinline__ int t() const { return threadIdx.x; }
+  __device__ __forceinline__ int size() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+struct GroupTeam {
+  int t_, size_, bar;   // bar: 1 + the group's index (0 is the CTA's)
+  __device__ __forceinline__ int t() const { return t_; }
+  __device__ __forceinline__ int size() const { return size_; }
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(size_) : "memory");
+  }
+};
+
+// Sums of `a` and `b` and max of `mx` over the team, returned in place.
 // `parity` alternates the scratch so that one barrier a reduction suffices.
+template <class Team>
 __device__ __forceinline__ void block_reduce(unsigned& a, unsigned& b,
                                              unsigned& mx, RowShared& sh,
                                              int& parity, int lane, int warp,
-                                             int nwarps) {
+                                             int nwarps, const Team& team) {
   const unsigned sa = __reduce_add_sync(kFull, a);
   const unsigned sb = __reduce_add_sync(kFull, b);
   const unsigned m = __reduce_max_sync(kFull, mx);
@@ -467,7 +486,7 @@ __device__ __forceinline__ void block_reduce(unsigned& a, unsigned& b,
     sh.red[parity][1][warp] = sb;
     sh.red[parity][2][warp] = m;
   }
-  __syncthreads();
+  team.sync();
   const bool in = lane < nwarps;
   a = __reduce_add_sync(kFull, in ? sh.red[parity][0][lane] : 0u);
   b = __reduce_add_sync(kFull, in ? sh.red[parity][1][lane] : 0u);
@@ -478,16 +497,17 @@ __device__ __forceinline__ void block_reduce(unsigned& a, unsigned& b,
 // Ascending bitonic sort of P (a power of two) keys in shared memory.  A
 // stage of stride s <= 32 pairs keys inside the 64 that one warp's 32
 // consecutive pairs cover, so only a stage of stride >= 64, or one right
-// after it, needs the whole CTA's barrier.
+// after it, needs the whole team's barrier.
+template <class Team>
 __device__ __forceinline__ void bitonic_sort_shared(unsigned long long* keys,
-                                                    int P, int t,
-                                                    int nthreads) {
+                                                    int P, const Team& team) {
+  const int t = team.t(), nthreads = team.size();
   const int pairs = P >> 1;
   int prev = 0;
   for (int size = 2; size <= P; size <<= 1) {
     for (int s = size >> 1; s > 0; s >>= 1) {
       if (s >= 64 || prev >= 64)
-        __syncthreads();
+        team.sync();
       else
         __syncwarp();
       for (int p = t; p < pairs; p += nthreads) {
@@ -501,7 +521,7 @@ __device__ __forceinline__ void bitonic_sort_shared(unsigned long long* keys,
       prev = s;
     }
   }
-  __syncthreads();
+  team.sync();
 }
 
 // Element j of thread t's 16 in a row of T threads: 4 (T q + t) + c, with
@@ -556,23 +576,90 @@ struct TopkRow {
                                         unsigned, int, int, int) const {}
 };
 
+// The end of a step that writes the velocity back (SAMomentumRow,
+// TileRow): each of the thread's elements e, at out + at(e), becomes
+// sent ? uacc : uacc * (1/m), with 16-byte stores where `wide`.
+template <class At>
+__device__ __forceinline__ void store_step(
+    float* out, const At& at, bool wide, float rcp_m,
+    const unsigned (&bits)[kRowPerThread], unsigned chosen, int n, int t,
+    int nthreads) {
+  auto rescaled = [&](int j) {
+    const float x = __uint_as_float(bits[j]);
+    return (chosen >> j) & 1u ? x : __fmul_rn(x, rcp_m);
+  };
+  if (wide) {
+#pragma unroll
+    for (int q = 0; q < kRowPerThread / 4; ++q) {
+      const int e = row_elem(4 * q, t, nthreads);
+      if (e < n) {
+        *reinterpret_cast<float4*>(out + at(e)) =
+            make_float4(rescaled(4 * q + 0), rescaled(4 * q + 1),
+                        rescaled(4 * q + 2), rescaled(4 * q + 3));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRowPerThread; ++j) {
+      const int e = row_elem(j, t, nthreads);
+      if (e < n) out[at(e)] = rescaled(j);
+    }
+  }
+}
+
+// An all-zero row of a step that writes the velocity back: its first k
+// elements win, in index order, from the registers (uacc is not in
+// memory), and the row is stored as for any other.
+template <class Io>
+__device__ __forceinline__ void zero_row_step(
+    const Io& io, const unsigned (&bits)[kRowPerThread],
+    float* __restrict__ vals, int32_t* __restrict__ idx, long long out_at,
+    int n, int k, int t, int nthreads) {
+  unsigned chosen = 0;
+#pragma unroll
+  for (int j = 0; j < kRowPerThread; ++j) {
+    const int e = row_elem(j, t, nthreads);
+    if (e < k) {
+      vals[out_at + e] = __uint_as_float(bits[j]);
+      idx[out_at + e] = e;
+      chosen |= 1u << j;
+    }
+  }
+  io.store(bits, chosen, n, t, nthreads);
+}
+
 // samomentum_row_topk: the row's accumulated velocity
 // uacc = fma(m, u, lr * g) formed in registers (samomentum.cu's
 // AccumulateOp, bit for bit), and the rescaled velocity
 // sent ? uacc : uacc * (1/m) written back over `out`'s row, which may be
-// u's own (in place: a thread writes only the elements it read).
+// u's own (in place: a thread writes only the elements it read).  With
+// kRuns the row is a leaf's row where it lives (samomentum_seg_topk): n /
+// inner runs of `inner` elements, `ld` apart, element e at
+// (e / inner) ld + e % inner; inner a multiple of 4 keeps every 16-byte
+// access inside one run.
+template <bool kRuns>
 struct SAMomentumRow {
   const float* u;
   const float* __restrict__ g;
   float* out;
   float m, lr, rcp_m;
+  int inner;        // kRuns: a run's elements
+  long long ld;     // kRuns: from one run to the next
+
+  __device__ __forceinline__ long long at(int e) const {
+    if constexpr (kRuns)
+      return (long long)(e / inner) * ld + e % inner;
+    else
+      return e;
+  }
 
   // 16-byte loads and stores where the three rows allow them
   __device__ __forceinline__ bool wide(int n) const {
     const uintptr_t mix = reinterpret_cast<uintptr_t>(u) |
                           reinterpret_cast<uintptr_t>(g) |
                           reinterpret_cast<uintptr_t>(out);
-    return (mix & 15) == 0 && (n & 3) == 0;
+    const bool runs = !kRuns || ((inner | ld) & 3) == 0;
+    return (mix & 15) == 0 && (n & 3) == 0 && runs;
   }
 
   __device__ __forceinline__ unsigned acc(float uu, float gg) const {
@@ -582,13 +669,13 @@ struct SAMomentumRow {
   __device__ __forceinline__ void load(unsigned (&bits)[kRowPerThread],
                                        int n, int t, int nthreads) const {
     if (wide(n)) {
-      const float4* u4 = reinterpret_cast<const float4*>(u);
-      const float4* g4 = reinterpret_cast<const float4*>(g);
 #pragma unroll
       for (int q = 0; q < kRowPerThread / 4; ++q) {
         const int e = row_elem(4 * q, t, nthreads);
         if (e < n) {
-          const float4 a = u4[e >> 2], b = __ldg(g4 + (e >> 2));
+          const long long o = at(e);
+          const float4 a = *reinterpret_cast<const float4*>(u + o);
+          const float4 b = __ldg(reinterpret_cast<const float4*>(g + o));
           bits[4 * q + 0] = acc(a.x, b.x);
           bits[4 * q + 1] = acc(a.y, b.y);
           bits[4 * q + 2] = acc(a.z, b.z);
@@ -602,72 +689,81 @@ struct SAMomentumRow {
 #pragma unroll
       for (int j = 0; j < kRowPerThread; ++j) {
         const int e = row_elem(j, t, nthreads);
-        bits[j] = e < n ? acc(u[e], __ldg(g + e)) : 0u;
+        bits[j] = e < n ? acc(u[at(e)], __ldg(g + at(e))) : 0u;
       }
     }
-  }
-
-  __device__ __forceinline__ float rescaled(unsigned b, bool sent) const {
-    const float x = __uint_as_float(b);
-    return sent ? x : __fmul_rn(x, rcp_m);
   }
 
   __device__ __forceinline__ void store(const unsigned (&bits)[kRowPerThread],
                                         unsigned chosen, int n, int t,
                                         int nthreads) const {
-    if (wide(n)) {
-      float4* o4 = reinterpret_cast<float4*>(out);
+    store_step(out, [this](int e) { return at(e); }, wide(n), rcp_m, bits,
+               chosen, n, t, nthreads);
+  }
+
+  __device__ __forceinline__ void zero_row(
+      const unsigned (&bits)[kRowPerThread], float* __restrict__ vals,
+      int32_t* __restrict__ idx, long long out_at, int n, int k, int t,
+      int nthreads) const {
+    zero_row_step(*this, bits, vals, idx, out_at, n, k, t, nthreads);
+  }
+};
+
+// samomentum_col_topk: a row of a column tile, its uacc already formed in
+// shared memory (the tile's load), the rescaled velocity written back over
+// it there (the tile's store takes it to u).
+struct TileRow {
+  float* row;
+  float rcp_m;
+
+  __device__ __forceinline__ void load(unsigned (&bits)[kRowPerThread],
+                                       int n, int t, int nthreads) const {
+    if ((n & 3) == 0) {
 #pragma unroll
       for (int q = 0; q < kRowPerThread / 4; ++q) {
         const int e = row_elem(4 * q, t, nthreads);
-        if (e < n) {
-          o4[e >> 2] = make_float4(
-              rescaled(bits[4 * q + 0], (chosen >> (4 * q + 0)) & 1u),
-              rescaled(bits[4 * q + 1], (chosen >> (4 * q + 1)) & 1u),
-              rescaled(bits[4 * q + 2], (chosen >> (4 * q + 2)) & 1u),
-              rescaled(bits[4 * q + 3], (chosen >> (4 * q + 3)) & 1u));
-        }
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (e < n) v = *reinterpret_cast<const float4*>(row + e);
+        bits[4 * q + 0] = __float_as_uint(v.x);
+        bits[4 * q + 1] = __float_as_uint(v.y);
+        bits[4 * q + 2] = __float_as_uint(v.z);
+        bits[4 * q + 3] = __float_as_uint(v.w);
       }
     } else {
 #pragma unroll
       for (int j = 0; j < kRowPerThread; ++j) {
         const int e = row_elem(j, t, nthreads);
-        if (e < n) out[e] = rescaled(bits[j], (chosen >> j) & 1u);
+        bits[j] = e < n ? __float_as_uint(row[e]) : 0u;
       }
     }
   }
 
-  // an all-zero row: its first k elements win, in index order, from the
-  // registers (uacc is not in memory)
+  __device__ __forceinline__ void store(const unsigned (&bits)[kRowPerThread],
+                                        unsigned chosen, int n, int t,
+                                        int nthreads) const {
+    store_step(row, [](int e) { return (long long)e; }, (n & 3) == 0, rcp_m,
+               bits, chosen, n, t, nthreads);
+  }
+
   __device__ __forceinline__ void zero_row(
       const unsigned (&bits)[kRowPerThread], float* __restrict__ vals,
       int32_t* __restrict__ idx, long long out_at, int n, int k, int t,
       int nthreads) const {
-    unsigned chosen = 0;
-#pragma unroll
-    for (int j = 0; j < kRowPerThread; ++j) {
-      const int e = row_elem(j, t, nthreads);
-      if (e < k) {
-        vals[out_at + e] = __uint_as_float(bits[j]);
-        idx[out_at + e] = e;
-        chosen |= 1u << j;
-      }
-    }
-    store(bits, chosen, n, t, nthreads);
+    zero_row_step(*this, bits, vals, idx, out_at, n, k, t, nthreads);
   }
 };
 
-// The row core: the exact top-k by |x| of one row (blockIdx.x) of n
-// elements read through `io`, into vals and idx from `out` on; see above.
-template <class Io>
+// The row core: the exact top-k by |x| of one row of n elements read
+// through `io` by `team`, into vals and idx from `out` on; see above.
+template <class Io, class Team>
 __device__ __forceinline__ void row_select(const Io& io,
                                            unsigned long long* keys,
                                            RowShared& sh,
                                            float* __restrict__ vals,
                                            int32_t* __restrict__ idx,
                                            long long out, int n, int k,
-                                           int P) {
-  const int t = threadIdx.x, nthreads = blockDim.x;
+                                           int P, const Team& team) {
+  const int t = team.t(), nthreads = team.size();
   for (int i = t; i < 3 * 256; i += nthreads) (&sh.hist[0][0])[i] = 0u;
   for (int i = t; i < kRowWords; i += nthreads) sh.ties[i] = 0u;
   for (int i = t; i < kBuckets; i += nthreads) sh.bucket[i] = 0u;
@@ -682,7 +778,7 @@ __device__ __forceinline__ void row_select(const Io& io,
   unsigned top = 0, none = 0, none2 = 0;
 #pragma unroll
   for (int j = 0; j < kRowPerThread; ++j) top = max(top, mag_of(bits[j]));
-  block_reduce(none, none2, top, sh, parity, lane, warp, nwarps);
+  block_reduce(none, none2, top, sh, parity, lane, warp, nwarps, team);
   if (top == 0) {  // an all-zero row: its first k elements, in index order
     io.zero_row(bits, vals, idx, out, n, k, t, nthreads);
     return;
@@ -702,7 +798,7 @@ __device__ __forceinline__ void row_select(const Io& io,
       c2 += m >= lo2 ? 1u : 0u;
       below = m < lo2 ? max(below, m) : below;
     }
-    block_reduce(c, c2, below, sh, parity, lane, warp, nwarps);
+    block_reduce(c, c2, below, sh, parity, lane, warp, nwarps, team);
     if (c >= kk) {
       c_lo = c;
       break;
@@ -731,7 +827,7 @@ __device__ __forceinline__ void row_select(const Io& io,
       const unsigned m = mag_of(bits[j]);
       if (m >= lo && m < hi) atomicAdd(&hist[(m - lo) >> shift], 1u);
     }
-    __syncthreads();
+    team.sync();
     // lane l holds bins 32 q + l; the chunk of 32 bins holding the digit
     // first (from the top), then the lane
     unsigned h[8], tot[8];
@@ -776,7 +872,7 @@ __device__ __forceinline__ void row_select(const Io& io,
         atomicOr(&sh.ties[i >> 5], 1u << (i & 31));
       }
     }
-    __syncthreads();
+    team.sync();
     const int nwords = nthreads * kRowPerThread / 32;
     unsigned word = t < nwords ? sh.ties[t] : 0u;
     const unsigned c = __popc(word);
@@ -787,7 +883,7 @@ __device__ __forceinline__ void row_select(const Io& io,
       if (lane >= o) incl += v;
     }
     if (lane == 31) sh.red[parity][0][warp] = incl;
-    __syncthreads();
+    team.sync();
     const unsigned before = __reduce_add_sync(
         kFull, lane < warp ? sh.red[parity][0][lane] : 0u);
     parity ^= 1;
@@ -799,7 +895,7 @@ __device__ __forceinline__ void row_select(const Io& io,
       word ^= low;
     }
     if (t < nwords) sh.ties[t] = kept;
-    __syncthreads();
+    team.sync();
   }
 
   // 3. The k winners' keys into shared memory, in any order, then sorted
@@ -827,7 +923,7 @@ __device__ __forceinline__ void row_select(const Io& io,
   for (int j = 0; j < kRowPerThread; ++j)
     if ((chosen >> j) & 1u) keys[pos++] = make_key(bits[j], elem(j));
   io.store(bits, chosen, n, t, nthreads);
-  __syncthreads();
+  team.sync();
   if (k <= kKeysPerThread * nthreads) {
     // up to kKeysPerThread winners a thread (e = t + q T), into buckets by
     // |x|, the largest first: bucket (top - |x|) >> sh_b of [0, kBuckets),
@@ -843,7 +939,7 @@ __device__ __forceinline__ void row_select(const Io& io,
       b[q] = (top - (0x7fffffffu - (unsigned)(key[q] >> 32))) >> sh_b;
       slot[q] = e < k ? atomicAdd(&sh.bucket[b[q]], 1u) : 0u;
     }
-    __syncthreads();
+    team.sync();
     if (warp == 0) {   // each bucket's start: an exclusive scan in place
       constexpr int kPer = kBuckets / 32;
       uint4* mine = reinterpret_cast<uint4*>(sh.bucket) + lane * (kPer / 4);
@@ -881,14 +977,14 @@ __device__ __forceinline__ void row_select(const Io& io,
       most = __reduce_max_sync(kFull, most);
       if (lane == 0) sh.bmax = most;
     }
-    __syncthreads();
+    team.sync();
     if (sh.bmax <= kBucketMax) {
       // place each winner in its bucket's range, then rank it there
       unsigned long long* placed = keys + P;
 #pragma unroll
       for (int q = 0; q < kKeysPerThread; ++q)
         if (t + q * nthreads < k) placed[sh.bucket[b[q]] + slot[q]] = key[q];
-      __syncthreads();
+      team.sync();
 #pragma unroll
       for (int q = 0; q < kKeysPerThread; ++q) {
         if (t + q * nthreads >= k) continue;
@@ -903,8 +999,8 @@ __device__ __forceinline__ void row_select(const Io& io,
     }
   }
   for (int e = k + t; e < P; e += nthreads) keys[e] = ~0ull;
-  __syncthreads();
-  bitonic_sort_shared(keys, P, t, nthreads);
+  team.sync();
+  bitonic_sort_shared(keys, P, team);
   for (int e = t; e < k; e += nthreads) emit(keys[e], vals, idx, out + e);
 }
 
@@ -916,7 +1012,8 @@ row_topk_kernel(const float* __restrict__ x, long long ld,
   extern __shared__ unsigned long long keys[];   // P or 2P slots
   __shared__ RowShared sh;
   const long long row = blockIdx.x;
-  row_select(TopkRow{x + row * ld}, keys, sh, vals, idx, row * k, n, k, P);
+  row_select(TopkRow{x + row * ld}, keys, sh, vals, idx, row * k, n, k, P,
+             CtaTeam{});
 }
 
 // ---------------------------------------------------------------------------
@@ -952,9 +1049,139 @@ samomentum_row_topk_kernel(const float* u, long long ldu,
   extern __shared__ unsigned long long keys[];   // P or 2P slots
   __shared__ RowShared sh;
   const long long row = blockIdx.x;
-  const SAMomentumRow io{u + row * ldu, g + row * ldg, unew + row * ldo, m,
-                         lr, rcp_m};
-  row_select(io, keys, sh, vals, idx, row * k, n, k, P);
+  const SAMomentumRow<false> io{u + row * ldu, g + row * ldg, unew + row * ldo,
+                                m, lr, rcp_m, 0, 0};
+  row_select(io, keys, sh, vals, idx, row * k, n, k, P, CtaTeam{});
+}
+
+// ---------------------------------------------------------------------------
+// The same step on a leaf's rows where they live
+//
+// The exchange's row s of a leaf hinted on dim ax is [:, s, :] of the
+// leaf viewed (outer, S, inner), element o inner + i (the order of
+// movedim(ax, 0).reshape(S, n), n = outer inner).  Where outer is 1 those
+// are samomentum_row_topk's rows; two more accesses read and write them
+// in the leaf itself, with the same selection and the same bits, where a
+// copy of the rows into that layout and back cost three times their
+// bytes:
+//
+// * samomentum_seg_topk (inner a multiple of 4): SAMomentumRow over
+//   `outer` runs of `inner` elements, one CTA a row as above; a 16-byte
+//   access never straddles a run, so the loads stay coalesced.
+// * samomentum_col_topk (inner 1: row s is column s of an (n, S) matrix):
+//   a CTA takes a tile of kColTile adjacent rows and reads each of the n
+//   lines' kColTile adjacent floats (16 bytes, one load of u and one of g
+//   a line where they are aligned), forms uacc into a row-major tile in
+//   shared memory, runs row_select on each of the rows from there -- a
+//   group of warps a row, each at a named barrier of its own, the rows at
+//   once where the CTA holds their groups -- and writes the rescaled tile
+//   back the way it came: each element is read and written by the CTA
+//   that holds it, in place.  The line's chunk is the cost: a CTA holds
+//   four rows of 4,096 (as many as its 1,024 threads select at once), and
+//   lines read and written 16 bytes at a time stream at about a quarter of
+//   the memory's rate, 128 bytes at 80% (PERF.md, row 3s).
+
+__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
+samomentum_seg_topk_kernel(const float* u, const float* __restrict__ g,
+                           float* unew, long long S, int inner, float lr,
+                           float m, float rcp_m, float* __restrict__ vals,
+                           int32_t* __restrict__ idx, int n, int k, int P) {
+  extern __shared__ unsigned long long keys[];   // P or 2P slots
+  __shared__ RowShared sh;
+  const long long row = blockIdx.x, at = row * inner;
+  const SAMomentumRow<true> io{u + at, g + at, unew + at, m, lr, rcp_m,
+                               inner, S * inner};
+  row_select(io, keys, sh, vals, idx, row * k, n, k, P, CtaTeam{});
+}
+
+constexpr int kColTile = 4;              // a column tile's rows
+constexpr int kColThreads = 1024;        // its CTA, at most
+constexpr int kColSmemMax = 227 << 10;   // Hopper's dynamic shared memory
+constexpr int kColLines = 4;             // lines a thread loads at once
+
+// G = blockDim / T groups of T threads, a row each at a time.
+__global__ void __launch_bounds__(kColThreads, 1)
+samomentum_col_topk_kernel(const float* u, const float* __restrict__ g,
+                           float* unew, long long S, float lr, float m,
+                           float rcp_m, float* __restrict__ vals,
+                           int32_t* __restrict__ idx, int n, int k, int P,
+                           int T, int ldt, int slots) {
+  // tile[j ldt + o]: row s0 + j's element o; then each group's RowShared
+  // and its key slots
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tile = reinterpret_cast<float*>(smem);
+  const int nt = blockDim.x, G = nt / T, grp = threadIdx.x / T;
+  RowShared* shs =
+      reinterpret_cast<RowShared*>(smem + sizeof(float) * kColTile * ldt);
+  unsigned long long* keys =
+      reinterpret_cast<unsigned long long*>(shs + G) + (size_t)grp * slots;
+  const long long s0 = (long long)blockIdx.x * kColTile;
+  const int rows = (int)min((long long)kColTile, S - s0);
+  // 16-byte accesses where every line's chunk starts aligned (S a multiple
+  // of 4, so a tile is whole or past the end)
+  const bool wide = ((reinterpret_cast<uintptr_t>(u) |
+                      reinterpret_cast<uintptr_t>(g) |
+                      reinterpret_cast<uintptr_t>(unew)) & 15) == 0 &&
+                    (S & 3) == 0;
+  auto acc = [&](float uu, float gg) {
+    return __fmaf_rn(m, uu, __fmul_rn(lr, gg));
+  };
+
+  // 1. the tile's uacc, kColLines lines a thread at once (their loads in
+  // flight together)
+  if (wide) {
+    for (int o0 = threadIdx.x; o0 < n; o0 += kColLines * nt) {
+      float4 a[kColLines], b[kColLines];
+#pragma unroll
+      for (int i = 0; i < kColLines; ++i) {
+        const long long o = o0 + i * nt, at = o * S + s0;
+        if (o < n) {
+          a[i] = *reinterpret_cast<const float4*>(u + at);
+          b[i] = __ldg(reinterpret_cast<const float4*>(g + at));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kColLines; ++i) {
+        const int o = o0 + i * nt;
+        if (o < n) {
+          tile[0 * ldt + o] = acc(a[i].x, b[i].x);
+          tile[1 * ldt + o] = acc(a[i].y, b[i].y);
+          tile[2 * ldt + o] = acc(a[i].z, b[i].z);
+          tile[3 * ldt + o] = acc(a[i].w, b[i].w);
+        }
+      }
+    }
+  } else {
+    for (int o = threadIdx.x; o < n; o += nt) {
+      for (int j = 0; j < rows; ++j) {
+        const long long at = (long long)o * S + s0 + j;
+        tile[j * ldt + o] = acc(u[at], __ldg(g + at));
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. group grp selects rows grp, grp + G, ... of the tile
+  const GroupTeam team{(int)threadIdx.x - grp * T, T, 1 + grp};
+  for (int j = grp; j < rows; j += G) {
+    if (j != grp) team.sync();   // the last row's shared state is read
+    row_select(TileRow{tile + (size_t)j * ldt, rcp_m}, keys, shs[grp], vals,
+               idx, (s0 + j) * k, n, k, P, team);
+  }
+  __syncthreads();
+
+  // 3. the rescaled tile back where it came from
+  if (wide) {
+    for (int o = threadIdx.x; o < n; o += nt) {
+      *reinterpret_cast<float4*>(unew + (long long)o * S + s0) =
+          make_float4(tile[0 * ldt + o], tile[1 * ldt + o],
+                      tile[2 * ldt + o], tile[3 * ldt + o]);
+    }
+  } else {
+    for (int o = threadIdx.x; o < n; o += nt)
+      for (int j = 0; j < rows; ++j)
+        unew[(long long)o * S + s0 + j] = tile[j * ldt + o];
+  }
 }
 
 // The rows' launch: P, the power of two at or above k; a warp for every
@@ -1044,5 +1271,64 @@ extern "C" int samomentum_row_topk(const void* u, long long ldu,
                                (cudaStream_t)stream>>>(
       (const float*)u, ldu, (const float*)g, ldg, (float*)unew, ldo, lr, m,
       rcp_m, (float*)vals, (int32_t*)idx, n, k, l.P);
+  return (int)cudaGetLastError();
+}
+
+// The same step on a leaf's rows where they live: the leaf viewed
+// (n / inner, S, inner), row s its [:, s, :] (see above), the new velocity
+// into unew's leaf of the same layout (unew may be u).
+extern "C" int samomentum_seg_topk(const void* u, const void* g, void* unew,
+                                   long long S, int inner, float lr,
+                                   float m, float rcp_m, void* vals,
+                                   void* idx, int n, int k, void* stream) {
+  if (S == 0) return 0;
+  if (!row_shape_ok(S, n, k) || inner < 1 || n % inner != 0)
+    return (int)cudaErrorInvalidValue;
+  static bool wide = false;
+  RowLaunch l;
+  const int rc = row_launch(samomentum_seg_topk_kernel, wide, n, k, l);
+  if (rc != 0) return rc;
+  samomentum_seg_topk_kernel<<<(unsigned)S, l.threads, l.dyn,
+                               (cudaStream_t)stream>>>(
+      (const float*)u, (const float*)g, (float*)unew, S, inner, lr, m, rcp_m,
+      (float*)vals, (int32_t*)idx, n, k, l.P);
+  return (int)cudaGetLastError();
+}
+
+// The leaf's rows with inner 1: row s is column s of the (n, S) matrix.
+// A group of T threads a row as samomentum_row_topk's CTA; as many groups
+// a CTA as fit kColThreads, at most kColTile, fewer where their shared
+// memory would not fit (k near n).
+extern "C" int samomentum_col_topk(const void* u, const void* g, void* unew,
+                                   long long S, float lr, float m,
+                                   float rcp_m, void* vals, void* idx, int n,
+                                   int k, void* stream) {
+  if (S == 0) return 0;
+  if (!row_shape_ok(S, n, k)) return (int)cudaErrorInvalidValue;
+  int P = 1;
+  while (P < k) P <<= 1;
+  constexpr int kWarpElems = 32 * kRowPerThread;
+  const int T = 32 * ((n + kWarpElems - 1) / kWarpElems);
+  const int ldt = (n + 3) & ~3;            // rows 16-byte aligned
+  const int slots = P * (k <= kKeysPerThread * T ? 2 : 1);
+  auto bytes = [&](int G) {
+    return sizeof(float) * kColTile * ldt +
+           G * (sizeof(RowShared) + sizeof(unsigned long long) * slots);
+  };
+  int G = kColThreads / T < kColTile ? kColThreads / T : kColTile;
+  while (G > 1 && bytes(G) > (size_t)kColSmemMax) --G;
+  static bool wide = false;
+  if (!wide) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        samomentum_col_topk_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kColSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    wide = true;
+  }
+  const unsigned grid = (unsigned)((S + kColTile - 1) / kColTile);
+  samomentum_col_topk_kernel<<<grid, G * T, bytes(G),
+                               (cudaStream_t)stream>>>(
+      (const float*)u, (const float*)g, (float*)unew, S, lr, m, rcp_m,
+      (float*)vals, (int32_t*)idx, n, k, P, T, ldt, slots);
   return (int)cudaGetLastError();
 }
